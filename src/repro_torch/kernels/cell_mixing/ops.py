@@ -1,0 +1,122 @@
+"""Public ops for batched cell mixing: mixing-matrix construction
+(Metropolis-Hastings weights — symmetric doubly stochastic, the standard
+synchronous-gossip mixing choice), identity padding, and the entry point
+that sends a CPU tensor to the plain version and a CUDA tensor to the
+kernel (``csrc/cell_mixing.cu``) or raises.
+
+`cell_mixing.launches` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .._build import load
+from .ref import cell_mixing_ref
+
+__all__ = ["mixing_matrix", "pad_mixing", "cell_mixing", "launch_config"]
+
+_SMEM_CAP = 200 * 1024
+_DT = 64
+
+
+def _round_up(v: int, mult: int) -> int:
+    return ((v + mult - 1) // mult) * mult
+
+
+def mixing_matrix(
+    neighbors: np.ndarray, degrees: np.ndarray, n_nodes: np.ndarray
+) -> np.ndarray:
+    """Batched Metropolis-Hastings mixing matrices from padded adjacency.
+
+    W_ij = 1 / (1 + max(d_i, d_j)) for edges, W_ii = 1 - sum_j W_ij,
+    identity on padding rows — symmetric, doubly stochastic, with the
+    same fixed point (the average) as asynchronous pairwise gossip.
+    """
+    B, C, D = neighbors.shape
+    w = np.zeros((B, C, C), np.float32)
+    for b in range(B):
+        for i in range(int(n_nodes[b])):
+            for s in range(int(degrees[b, i])):
+                j = int(neighbors[b, i, s])
+                w[b, i, j] = 1.0 / (1.0 + max(degrees[b, i], degrees[b, j]))
+        row = w[b].sum(axis=1)
+        np.fill_diagonal(w[b], 1.0 - row)
+    return w
+
+
+def pad_mixing(w, x, m_mult: int = 8, d_mult: int = 128):
+    """Pad (B, m, m) W with identity and (B, m, d) x with zeros so m is a
+    multiple of `m_mult` and d of `d_mult`.  The CUDA kernel needs no
+    alignment; this keeps the reference's padded layout available."""
+    w = torch.as_tensor(w)
+    x = torch.as_tensor(x)
+    B, m, d = x.shape
+    mp, dp = _round_up(m, m_mult), _round_up(d, d_mult)
+    if mp != m:
+        w = torch.nn.functional.pad(w, (0, mp - m, 0, mp - m))
+        idx = torch.arange(m, mp, device=w.device)
+        w[:, idx, idx] = 1.0
+        x = torch.nn.functional.pad(x, (0, 0, 0, mp - m))
+    if dp != d:
+        x = torch.nn.functional.pad(x, (0, dp - d))
+    return w, x, (m, d)
+
+
+def launch_config(m: int, d: int, smem_cap: int = _SMEM_CAP):
+    """(d-tile, W in shared memory?, threads per block) for (m, d) cells."""
+    dt = min(d, _DT)
+    while dt > 1 and 2 * m * dt * 4 > smem_cap:
+        dt //= 2
+    w_in_smem = (m * m + 2 * m * dt) * 4 <= smem_cap
+    threads = min(256, _round_up(max(m * dt, 1), 32))
+    return dt, w_in_smem, threads
+
+
+def _lib():
+    fn = load("cell_mixing").cell_mixing_launch
+    if fn.argtypes is None:
+        p, n = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, n, n, n, n, n, n, n, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def cell_mixing(w, x, *, rounds: int = 1):
+    """Apply `rounds` synchronous gossip rounds per cell: W[b]^R @ x[b].
+
+    w: (B, m, m), x: (B, m, d), both float32; on the card both must be
+    contiguous and on one device.
+    """
+    if x.device.type == "cpu":
+        return cell_mixing_ref(w, x, rounds=rounds)
+    if x.device.type != "cuda":
+        raise ValueError(f"cell_mixing runs on cpu or cuda, not {x.device}")
+    if x.dim() != 3 or x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError("w and x must be float32 (B, m, m) and (B, m, d)")
+    B, m, d = x.shape
+    if tuple(w.shape) != (B, m, m):
+        raise ValueError(f"w must be {(B, m, m)}, got {tuple(w.shape)}")
+    if w.device != x.device:
+        raise ValueError(f"w is on {w.device}, x on {x.device}")
+    if not (w.is_contiguous() and x.is_contiguous()):
+        raise ValueError("w and x must be contiguous")
+    if rounds < 0:
+        raise ValueError("rounds must be >= 0")
+    y = torch.empty_like(x)
+    dt, w_in_smem, threads = launch_config(m, d)
+    with torch.cuda.device(x.device):
+        rc = _lib()(
+            w.data_ptr(), x.data_ptr(), y.data_ptr(), B, m, d, dt,
+            int(rounds), int(w_in_smem), threads,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"cell_mixing kernel launch failed: CUDA error {rc}")
+    cell_mixing.launches += 1
+    return y
+
+
+cell_mixing.launches = 0

@@ -1,0 +1,98 @@
+"""Public op for applying presampled gossip schedules.
+
+A tensor on the CPU goes to the plain version (`ref.pair_apply_ref`); a
+tensor on the card goes to the CUDA kernel (``csrc/pair_apply.cu``) or
+raises — there is no fallback.  Both produce the same bits.
+
+`pair_apply.launches` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._build import load
+from .ref import pair_apply_ref
+
+__all__ = ["pair_apply", "launch_config"]
+
+# shared memory a block may use for its cells' state; the default
+# block of 64 cells fits it up to C*V = 384 floats per cell
+_SMEM_CAP = 96 * 1024
+_THREADS = 64
+
+
+def launch_config(C: int, V: int, smem_cap: int = _SMEM_CAP):
+    """(threads per block, state in shared memory?) for C*V-float cells."""
+    per_cell = C * V * 4
+    if per_cell > smem_cap:
+        return _THREADS, False
+    threads = min(_THREADS, smem_cap // per_cell)
+    if threads >= 32:
+        threads -= threads % 32
+    return threads, True
+
+
+def _lib():
+    lib = load("pair_apply")
+    fn = lib.pair_apply_launch
+    if fn.argtypes is None:
+        p, n = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, n, n, n, n, n, n, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, i, j, upd_i, upd_j):
+    if x.dim() != 3 or x.dtype != torch.float32:
+        raise ValueError(f"x must be (B, C, V) float32, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    B = x.shape[0]
+    for name, a, dtypes in (("i", i, (torch.int32,)), ("j", j, (torch.int32,)),
+                            ("upd_i", upd_i, (torch.bool, torch.uint8)),
+                            ("upd_j", upd_j, (torch.bool, torch.uint8))):
+        if a.dim() != 2 or a.shape[1] != B or a.shape != i.shape:
+            raise ValueError(f"{name} must be (T, {B}), got {tuple(a.shape)}")
+        if a.dtype not in dtypes:
+            raise ValueError(f"{name} must be {dtypes}, got {a.dtype}")
+        if a.device != x.device:
+            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+
+
+def pair_apply(x, i, j, upd_i, upd_j, *, smem_cap: int = _SMEM_CAP):
+    """Walk a (T, B) presampled exchange schedule over (B, C, V) state.
+
+    See `ref.pair_apply_ref` for the arguments.  On the card, `i`/`j`
+    must be int32 and the update bits bool or uint8, all contiguous and
+    on x's device.  `smem_cap` bounds the shared memory of one block
+    (0 keeps the state in device memory).
+    """
+    if x.device.type == "cpu":
+        return pair_apply_ref(x, i, j, upd_i, upd_j)
+    if x.device.type != "cuda":
+        raise ValueError(f"pair_apply runs on cpu or cuda, not {x.device}")
+    _check(x, i, j, upd_i, upd_j)
+    T, B = i.shape
+    _, C, V = x.shape
+    out = torch.empty_like(x)
+    threads, in_smem = launch_config(C, V, smem_cap)
+    with torch.cuda.device(x.device):
+        rc = _lib()(
+            x.data_ptr(), out.data_ptr(), i.data_ptr(), j.data_ptr(),
+            upd_i.view(torch.uint8).data_ptr(),
+            upd_j.view(torch.uint8).data_ptr(),
+            T, B, C, V, threads, int(in_smem),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"pair_apply kernel launch failed: CUDA error {rc}")
+    pair_apply.launches += 1
+    return out
+
+
+pair_apply.launches = 0

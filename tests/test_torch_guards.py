@@ -1,0 +1,101 @@
+"""The port's boundaries: it imports neither jax nor the reference
+package, runs on the card unless asked for the CPU, and refuses what it
+has not ported."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch.core as P  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "repro.")))
+assert len(names) >= 20, names
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_sources_name_no_reference_import():
+    for path in (SRC / "repro_torch").rglob("*.py"):
+        text = path.read_text()
+        for bad in ("import jax", "from jax", "import repro\n", "from repro.",
+                    "from repro import", "import repro."):
+            assert bad not in text, (path, bad)
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-CUDA guards do not apply")
+
+
+def test_entry_points_raise_without_cuda(no_cuda, rgg500, x0_500):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P.multiscale_gossip(rgg500, x0_500)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P.execute_plan(P.build_plan(rgg500), x0_500,
+                       options=P.ExecOptions(backend="ref"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P.synchronous_multiscale(rgg500, x0_500)
+    nbr, deg, n_nodes, _ = P.batched_graphs([rgg500])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P.gossip_until(x0_500[None], nbr, deg, n_nodes, eps=1e-3,
+                       backend="ref")
+
+
+def test_cuda_backend_on_cpu_raises():
+    with pytest.raises(ValueError, match="needs device='cuda'"):
+        P.ExecOptions(backend="cuda", device="cpu")
+    with pytest.raises(ValueError):
+        P.ExecOptions(backend="lax", device="cpu")
+    with pytest.raises(NotImplementedError):
+        P.ExecOptions(schedule="per_tick", device="cpu", backend="ref")
+
+
+@pytest.mark.parametrize("failures,cost", [
+    (P.FailureModel(churn_fraction=0.1), None),
+    (P.FailureModel(straggler_fraction=0.1), None),
+    (P.FailureModel(regional_radius=0.2), None),
+    (P.FailureModel(drop_fraction=0.1), None),
+    (None, P.CostModel(retransmit_p=0.9)),
+])
+def test_unported_scenarios_raise(rgg500, x0_500, failures, cost):
+    with pytest.raises(NotImplementedError):
+        P.multiscale_gossip(
+            rgg500, x0_500, fixed_ticks_scale=0.2, failures=failures,
+            cost=cost, options=P.ExecOptions(backend="ref", device="cpu"))
+
+
+def test_kernel_ops_reject_other_devices():
+    from repro_torch.kernels.cell_mixing import cell_mixing
+    from repro_torch.kernels.pair_apply import pair_apply
+
+    x = torch.zeros((2, 3, 1), device="meta")
+    i = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    u = torch.zeros((4, 2), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        pair_apply(x, i, i, u, u)
+    with pytest.raises(ValueError):
+        cell_mixing(torch.zeros((2, 3, 3), device="meta"), x)
+    assert pair_apply.launches == 0 and cell_mixing.launches == 0
