@@ -12,9 +12,10 @@ and checks the results against the repository's recorded message counts
 and errors.  Any failed check raises, and the script exits non-zero.
 
 Output: progress lines, the card's name and power limit, one JSON line
-``{"kernels": [...]}`` (per kernel: launches on its path, error against
-its plain version, its time, the plain version's, the least time the
-card could take, and a PyTorch library call's where one exists), and
+``{"kernels": [...]}`` (per kernel: its launches on each path that runs
+it, each path counted on its own, error against its plain version, its
+time, the plain version's, the least time the card could take, and a
+PyTorch library call's where one exists), and
 last ``{"ok": true, "device": {...}}``.  The measurements also go to
 ``chiprun_out/chip_smoke.json``.  Without CUDA, or without the rest of
 the repository beside it, the script fails and prints no result.
@@ -38,9 +39,10 @@ LARGE_N = {
     1_000_000: (79_785_918, 0.0003279788359757681),
 }
 FI = dict(eps=1e-3, seed=0, weighted=True, fixed_ticks_scale=0.2)
-# pair_apply launches of one n=10^5 FI trial: 1 chunk on each of the
+# pair_apply launches of one FI trial: at n=10^5, 1 chunk on each of the
 # five finest levels, 3 on level 2, 26 on level 1
-MAIN_PATH_LAUNCHES = 33
+MAIN_PATH_LAUNCHES = {100_000: 33, 1_000_000: 120}
+SYNC_CHUNK = 8  # synchronous_multiscale's rounds per cell_mixing launch
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores; the PCIe part is slower
 PEAKS = {"sxm": (3.35e12, 67e12), "pcie": (2.0e12, 51e12)}
@@ -92,6 +94,19 @@ class Smoke:
     def gen(self, seed: int):
         return self.torch.Generator(device=self.dev).manual_seed(seed)
 
+    def zero_counts(self):
+        from repro_torch.kernels.cell_mixing import cell_mixing
+        from repro_torch.kernels.pair_apply import pair_apply
+
+        pair_apply.launches = 0
+        cell_mixing.launches = 0
+
+    def read_counts(self):
+        from repro_torch.kernels.cell_mixing import cell_mixing
+        from repro_torch.kernels.pair_apply import pair_apply
+
+        return pair_apply.launches, cell_mixing.launches
+
     # ----------------------------------------------------------- phases
     def build(self):
         out = subprocess.run(
@@ -118,18 +133,17 @@ class Smoke:
         from repro_torch.core import prng, sample_schedule
 
         B = lp.num_graphs
-        for part in (True, False):
-            for seed, level, t in ((0, 0, 0), (0, 5, 1663), (7, 2, 100),
-                                   (123, 1, 49), (2**31 + 5, 3, 7)):
-                draws = []
-                for dev in ("cpu", self.dev):
-                    key = prng.fold_in(prng.PRNGKey(seed, dev), level)
-                    ks = prng.split(prng.fold_in(key, t), 4,
-                                    partitionable=part)
-                    draws.append(prng.uniform(ks, (B,), partitionable=part)
-                                 .view(torch.int32).cpu())
-                check(torch.equal(*draws),
-                      f"prng draws differ at {(seed, level, t)}")
+        triples = ((0, 0, 0), (0, 5, 1663), (7, 2, 100), (123, 1, 49),
+                   (2**31 + 5, 3, 7), (1, 0, 63), (2, 4, 4095), (99, 1, 1),
+                   (2**32 - 1, 2, 31), (31337, 5, 2**20))
+        for seed, level, t in triples:
+            draws = []
+            for dev in ("cpu", self.dev):
+                key = prng.fold_in(prng.PRNGKey(seed, dev), level)
+                ks = prng.split(prng.fold_in(key, t), 4)
+                draws.append(prng.uniform(ks, (B,)).view(torch.int32).cpu())
+            check(torch.equal(*draws),
+                  f"prng draws differ at {(seed, level, t)}")
         from repro_torch.core import CsrGraphs
 
         fields = {}
@@ -139,17 +153,17 @@ class Smoke:
                 adj = CsrGraphs(lp.nbr_start, lp.nbr_flat, lp.hop_flat,
                                 lp.degrees, lp.n_nodes).to_device(dev)
                 key = prng.fold_in(prng.PRNGKey(0, dev), 0)[None]
-                s.append(sample_schedule(torch.arange(T), key, adj, loss_p,
-                                         partitionable=False))
+                s.append(sample_schedule(torch.arange(T), key, adj, loss_p))
             flips = {f: int((a.cpu() != b.cpu()).sum())
                      for f, a, b in zip(s[0]._fields, s[0], s[1])}
             fields[str(loss_p)] = flips
-            if loss_p is None:
-                check(not any(flips.values()),
-                      f"schedule differs card vs CPU: {flips}")
-        log(f"[prng] card == CPU bitwise for 10 (seed, level, t) draws and "
-            f"the n=1e5 finest-level schedule; loss_p=0.9 field mismatches "
-            f"card vs CPU: {fields['0.9']}")
+            # loss_p goes through floor(log u / log p): a one-ulp log
+            # difference between devices may not flip any outcome
+            check(not any(flips.values()),
+                  f"schedule differs card vs CPU at loss_p={loss_p}: {flips}")
+        log(f"[prng] card == CPU bitwise for {len(triples)} (seed, level, t) "
+            f"draws and every field of the n=1e5 finest-level schedule, "
+            f"without loss and at loss_p=0.9")
         self.report["prng_loss_mismatch"] = fields["0.9"]
         return s[1]
 
@@ -281,30 +295,45 @@ class Smoke:
     def run(self, g, plan, x0, backend):
         import repro_torch.core as P
 
-        opts = P.ExecOptions(backend=backend, threefry_partitionable=False)
+        opts = P.ExecOptions(backend=backend)
         self.torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = P.multiscale_gossip(g, x0, plan=plan, options=opts, **FI)
         self.torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
-    def large_n(self, n, g, plan, x0, graph_s, plan_s, compare_ref=True):
+    @staticmethod
+    def fi_chunks(plan, check_every: int = 64) -> int:
+        """Value-pass launches of one FI trial as the plan gives them: each
+        level runs its fixed tick budget in whole chunks."""
+        from repro_torch.core import fi_ticks
+
+        total = 0
+        for lp in plan.levels:
+            fixed = fi_ticks(int(lp.n_nodes.max()), FI["eps"],
+                             FI["fixed_ticks_scale"],
+                             quadratic=(lp.kind == "overlay"))
+            total += -(-fixed // min(check_every, fixed))
+        return total
+
+    def large_n(self, n, g, plan, x0, graph_s, plan_s):
         """The main path: FI multiscale gossip through the pair_apply
         kernel, against the recorded count/error and the plain backend."""
         import numpy as np
-        from repro_torch.kernels.cell_mixing import cell_mixing
-        from repro_torch.kernels.pair_apply import pair_apply
 
         want_msgs, want_err = LARGE_N[n]
-        pair_apply.launches = 0
-        cell_mixing.launches = 0
+        self.zero_counts()
         res, exec_s = self.run(g, plan, x0, "cuda")
-        launches = pair_apply.launches
+        launches, mixing = self.read_counts()
         err = res.error(x0)
         log(f"[main n={n}] cuda backend: messages {res.messages}, error "
             f"{err:.9f}, pair_apply launches {launches}; graph {graph_s:.2f} "
             f"s, plan {plan_s:.2f} s, execute {exec_s:.3f} s")
-        check(launches > 0, "the main path launched no pair_apply kernel")
+        want_launches = self.fi_chunks(plan)
+        check(launches == want_launches == MAIN_PATH_LAUNCHES[n],
+              f"n={n}: pair_apply launched {launches} times; the plan gives "
+              f"{want_launches}, recorded {MAIN_PATH_LAUNCHES[n]}")
+        check(mixing == 0, f"n={n}: the cuda backend launched cell_mixing")
         check(res.messages == want_msgs,
               f"n={n}: messages {res.messages} != recorded {want_msgs}")
         check(abs(err - want_err) <= 1e-6,
@@ -314,17 +343,15 @@ class Smoke:
         row = dict(n=n, levels=len(plan.levels), messages=res.messages,
                    error=err, pair_apply_launches=launches,
                    graph_s=graph_s, plan_s=plan_s, execute_s=exec_s)
-        if compare_ref:
-            ref, ref_s = self.run(g, plan, x0, "ref")
-            check(np.array_equal(ref.x_final.view(np.int32),
-                                 res.x_final.view(np.int32)),
-                  f"n={n}: cuda x_final != ref backend x_final")
-            check(ref.messages == res.messages
-                  and np.array_equal(ref.node_sends, res.node_sends),
-                  f"n={n}: accounting differs between backends")
-            log(f"[main n={n}] ref backend bitwise equal; execute "
-                f"{ref_s:.3f} s")
-            row["execute_ref_s"] = ref_s
+        ref, ref_s = self.run(g, plan, x0, "ref")
+        check(np.array_equal(ref.x_final.view(np.int32),
+                             res.x_final.view(np.int32)),
+              f"n={n}: cuda x_final != ref backend x_final")
+        check(ref.messages == res.messages
+              and np.array_equal(ref.node_sends, res.node_sends),
+              f"n={n}: accounting differs between backends")
+        log(f"[main n={n}] ref backend bitwise equal; execute {ref_s:.3f} s")
+        row["execute_ref_s"] = ref_s
         # a second, warm run of the kernel path, then a traced one
         _, row["execute_warm_s"] = self.run(g, plan, x0, "cuda")
         row.update(self.profile(n, g, plan, x0, row["execute_warm_s"]))
@@ -371,44 +398,67 @@ class Smoke:
                 f" {row['name'][:100]}")
         return out
 
-    def matmul_and_sync(self, g20k, plan20k, x0_20k):
+    def matmul(self, g, plan, x0):
+        """FI multiscale gossip at n=20000 through compose_schedule and the
+        cell_mixing kernel, against the recorded count and the cuda
+        backend."""
         import numpy as np
-        import repro_torch.core as P
-        from repro_torch.kernels.cell_mixing import cell_mixing
 
-        cell_mixing.launches = 0
-        mm, mm_s = self.run(g20k, plan20k, x0_20k, "matmul")
-        cu, _ = self.run(g20k, plan20k, x0_20k, "cuda")
+        self.zero_counts()
+        mm, mm_s = self.run(g, plan, x0, "matmul")
+        pairs, launches = self.read_counts()
+        want_launches = self.fi_chunks(plan)
+        check(launches == want_launches,
+              f"n=20000 matmul: cell_mixing launched {launches} times, the "
+              f"plan gives {want_launches}")
+        check(pairs == 0, "the matmul backend launched pair_apply")
+        cu, _ = self.run(g, plan, x0, "cuda")
         check(mm.messages == LARGE_N[20_000][0] == cu.messages,
               f"n=20000 matmul messages {mm.messages} != "
               f"{LARGE_N[20_000][0]}")
         check(np.allclose(mm.x_final, cu.x_final, rtol=1e-4, atol=2e-4),
               "n=20000 matmul x_final not allclose to the cuda backend")
+        log(f"[matmul n=20000] messages {mm.messages}, max |matmul - cuda| "
+            f"{float(np.abs(mm.x_final - cu.x_final).max()):.3e}, execute "
+            f"{mm_s:.3f} s, cell_mixing launches {launches}")
+        self.report["matmul_20000"] = dict(
+            messages=mm.messages, execute_s=mm_s,
+            cell_mixing_launches=launches)
+        return launches
+
+    def synchronous(self):
+        """synchronous_multiscale at n=2000 through the cell_mixing kernel,
+        against its plain version on the CPU."""
+        import numpy as np
+        import repro_torch.core as P
+
         n = 2000
         g = P.random_geometric_graph(n, seed=1000 + n)
         x0 = np.random.default_rng(n).normal(0, 1, n)
+        self.zero_counts()
         self.torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sy = P.synchronous_multiscale(g, x0, eps=1e-4)
+        sy = P.synchronous_multiscale(g, x0, eps=1e-4, chunk=SYNC_CHUNK)
         sy_s = time.perf_counter() - t0
-        launches = cell_mixing.launches
-        host = P.synchronous_multiscale(g, x0, eps=1e-4, device="cpu")
-        check(sy.messages == host.messages,
+        pairs, launches = self.read_counts()
+        host = P.synchronous_multiscale(g, x0, eps=1e-4, chunk=SYNC_CHUNK,
+                                        device="cpu")
+        check(sy.messages == host.messages
+              and sy.rounds_per_level == host.rounds_per_level,
               f"synchronous messages {sy.messages} != plain {host.messages}")
         check(np.allclose(sy.x_final, host.x_final, rtol=1e-4, atol=1e-5),
               "synchronous x_final not allclose to the plain version")
         check(sy.error(x0[:, None]) < 1e-2, "synchronous run did not average")
-        check(launches > 0, "the matmul/synchronous path launched no "
-              "cell_mixing kernel")
-        log(f"[matmul n=20000] messages {mm.messages}, max |matmul - cuda| "
-            f"{float(np.abs(mm.x_final - cu.x_final).max()):.3e}, execute "
-            f"{mm_s:.3f} s; [synchronous n=2000] messages {sy.messages}, "
-            f"error {sy.error(x0[:, None]):.3e}, {sy_s:.3f} s; cell_mixing "
-            f"launches {launches}")
-        self.report["matmul_20000"] = dict(messages=mm.messages,
-                                           execute_s=mm_s)
-        self.report["synchronous_2000"] = dict(messages=sy.messages,
-                                               seconds=sy_s)
+        want_launches = sum(r for _, r in sy.rounds_per_level) // SYNC_CHUNK
+        check(launches == want_launches > 0,
+              f"synchronous: cell_mixing launched {launches} times, its "
+              f"rounds per level {sy.rounds_per_level} give {want_launches}")
+        check(pairs == 0, "synchronous_multiscale launched pair_apply")
+        log(f"[synchronous n=2000] messages {sy.messages}, rounds per level "
+            f"{sy.rounds_per_level}, error {sy.error(x0[:, None]):.3e}, "
+            f"{sy_s:.3f} s, cell_mixing launches {launches}")
+        self.report["synchronous_2000"] = dict(
+            messages=sy.messages, seconds=sy_s, cell_mixing_launches=launches)
         return launches
 
 
@@ -439,17 +489,25 @@ def main() -> int:
     g2, plan2, x02, _, _ = smoke.setup(20_000)
     smoke.cell_mixing(plan2)
 
-    launches = smoke.large_n(100_000, g5, plan5, x05, graph5, pl5)
-    check(launches == MAIN_PATH_LAUNCHES,
-          f"pair_apply launched {launches} times, expected "
-          f"{MAIN_PATH_LAUNCHES}")
-    smoke.kernels["pair_apply"]["launches"] = launches
+    # each path runs with the counts set to 0 just before it and read just
+    # after; `launches` is the count of the kernel's own first path
+    main5 = smoke.large_n(100_000, g5, plan5, x05, graph5, pl5)
     del g5, plan5
     g6, plan6, x06, graph6, pl6 = smoke.setup(1_000_000)
-    smoke.large_n(1_000_000, g6, plan6, x06, graph6, pl6)
+    main6 = smoke.large_n(1_000_000, g6, plan6, x06, graph6, pl6)
     del g6, plan6
-    smoke.kernels["cell_mixing"]["launches"] = smoke.matmul_and_sync(
-        g2, plan2, x02)
+    smoke.kernels["pair_apply"].update(
+        launches=main5, path="multiscale_gossip FI n=100000, backend cuda",
+        launches_by_path={
+            "multiscale_gossip FI n=100000, backend cuda": main5,
+            "multiscale_gossip FI n=1000000, backend cuda": main6})
+    mm = smoke.matmul(g2, plan2, x02)
+    sy = smoke.synchronous()
+    smoke.kernels["cell_mixing"].update(
+        launches=mm, path="multiscale_gossip FI n=20000, backend matmul",
+        launches_by_path={
+            "multiscale_gossip FI n=20000, backend matmul": mm,
+            "synchronous_multiscale n=2000": sy})
 
     total = time.perf_counter() - t_start
     smoke.report["total_s"] = total

@@ -199,7 +199,6 @@ def execute_plan(
         x, usage, msgs, done, ticks = gossip_core(
             xb.contiguous(), c["adj"], mask, eps_l, prng.fold_in(keys, li),
             max_ticks=maxt, check_every=chk, loss_p=loss_p, backend=backend,
-            partitionable=options.threefry_partitionable,
         )
         lvl_msgs.append(msgs)
         lvl_ticks.append(ticks.max(dim=1).values)

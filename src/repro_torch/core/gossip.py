@@ -111,7 +111,6 @@ def gossip_core(
     check_every: int,
     loss_p: Optional[float],
     backend: str = "cuda",
-    partitionable: bool = True,
 ):
     """Batched gossip loop over R trials of the same B graphs.
 
@@ -119,7 +118,7 @@ def gossip_core(
     flat ``(R, nnz+1)`` int32 per-directed-edge counters aligned with
     `adj`, msgs / ticks ``(R, B)`` int32 and done ``(R, B)`` bool.  The
     exchange sequence, usage and message counts do not depend on the
-    backend; `partitionable` picks the threefry layout (`core.prng`).
+    backend.
     """
     if backend not in GOSSIP_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
@@ -150,8 +149,7 @@ def gossip_core(
         if not fixed and bool(done.all()):
             break
         ts = torch.arange(t0, t0 + check_every, device=dev)
-        s = sample_schedule(ts, keys, adj, loss_p,
-                            partitionable=partitionable)  # (T, R, B)
+        s = sample_schedule(ts, keys, adj, loss_p)  # (T, R, B)
         active = s.valid & ~done                            # done frozen
         upd_j = active & s.fwd_ok
         upd_i = upd_j & s.rep_ok
@@ -188,7 +186,6 @@ def gossip_until(
     loss_p: Optional[float] = None,
     backend: str = "cuda",
     device: str = "cuda",
-    partitionable: bool = True,
 ) -> GossipResult:
     """Run batched randomized gossip to eps-accuracy (or `fixed_ticks`).
 
@@ -221,7 +218,6 @@ def gossip_until(
         eps_eff,
         prng.PRNGKey(seed, dev)[None],
         max_ticks=max_t, check_every=check, loss_p=loss_p, backend=backend,
-        partitionable=partitionable,
     )
     return GossipResult(
         x=x[0].cpu().numpy(),

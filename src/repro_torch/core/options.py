@@ -42,10 +42,6 @@ class ExecOptions:
     check_every: convergence-oracle cadence (ticks per chunk).
     max_ticks_per_level: per-level tick budget in eps-oracle mode.
     collect_usage: also return the raw per-level flat exchange counters.
-    threefry_partitionable: the threefry counter layout of the exchange
-        draws (`core.prng`): True matches jax's
-        ``jax_threefry_partitionable=True`` (jax 0.9's default), False its
-        older layout, which drew the repository's recorded large-n runs.
     """
 
     backend: str = "cuda"
@@ -54,7 +50,6 @@ class ExecOptions:
     check_every: int = 64
     max_ticks_per_level: int = 2_000_000
     collect_usage: bool = False
-    threefry_partitionable: bool = True
 
     def __post_init__(self):
         if self.backend not in _ENGINE_BACKENDS:

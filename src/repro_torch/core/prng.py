@@ -14,16 +14,14 @@ are here:
 * `uniform(key, shape)` — f32 in ``[0, 1)`` from the top 23 bits.
 
 jax lays out the counters of `split` and `random_bits` in one of two
-ways, chosen by its ``jax_threefry_partitionable`` flag, and the draws
-differ between them:
-
-* ``partitionable=True`` (the default here, and jax 0.9's): subkey i is
-  ``threefry2x32(key, (0, i))``; element e of a draw is ``y1 ^ y2`` of
-  ``threefry2x32(key, (e >> 32, e & 0xffffffff))``;
-* ``partitionable=False`` (jax 0.4's default): the counters ``0 .. N-1``
-  are cut into halves that feed the two words, ``bits = concat(y1,
-  y2)[:N]``, and `split` takes ``N = 2 * num`` bits as key pairs.  The
-  repository's recorded large-n message counts were drawn this way.
+ways, chosen by its ``jax_threefry_partitionable`` flag.  The port has
+one layout, the flag's ``False`` (jax 0.4's default): the counters
+``0 .. N-1`` are cut into halves that feed the two words, ``bits =
+concat(y1, y2)[:N]``, and `split` takes ``N = 2 * num`` bits as key
+pairs.  The repository's recorded large-n message counts were drawn this
+way; under jax 0.9's default (``True``) the reference draws other
+numbers, so parity with it holds inside
+``jax.threefry_partitionable(False)``.
 
 Words are held in int64 tensors masked to 32 bits: torch's uint32 lacks
 most ops on CUDA and ``>>`` on int32 is arithmetic, while int64 add,
@@ -78,8 +76,8 @@ def _key_words(key):
 
 
 def _halves_bits(key, size: int):
-    """The non-partitionable layout: counters 0..size-1 (zero-padded to
-    even) split into halves for the two words; returns (*K, size)."""
+    """Counters 0..size-1 (zero-padded to even) split into halves for the
+    two words; returns (*K, size)."""
     half = (size + 1) // 2
     x1 = torch.arange(half, dtype=torch.int64, device=key.device)
     x2 = x1 + half
@@ -106,37 +104,24 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1)
 
 
-def split(key: torch.Tensor, num: int = 2, *,
-          partitionable: bool = True) -> torch.Tensor:
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``(..., num, 2)`` subkeys of a ``(..., 2)`` key batch."""
-    if not partitionable:
-        bits = _halves_bits(key, 2 * num)
-        return bits.reshape(*key.shape[:-1], num, 2)
-    idx = torch.arange(num, dtype=torch.int64, device=key.device)
-    y1, y2 = threefry2x32(*_key_words(key), torch.zeros_like(idx), idx)
-    return torch.stack([y1, y2], dim=-1)
+    return _halves_bits(key, 2 * num).reshape(*key.shape[:-1], num, 2)
 
 
-def random_bits(key: torch.Tensor, shape, *,
-                partitionable: bool = True) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """``(..., *shape)`` 32-bit random words (int64 in ``[0, 2**32)``)."""
     shape = tuple(int(s) for s in shape)
     size = math.prod(shape)
-    batch = key.shape[:-1]
-    if not partitionable:
-        if size >= _MASK:
-            raise NotImplementedError("draws of 2**32 - 1 words or more")
-        return _halves_bits(key, size).reshape(*batch, *shape)
-    flat = torch.arange(size, dtype=torch.int64, device=key.device)
-    y1, y2 = threefry2x32(*_key_words(key), flat >> 32, flat & _MASK)
-    return (y1 ^ y2).reshape(*batch, *shape)
+    if size >= _MASK:
+        raise NotImplementedError("draws of 2**32 - 1 words or more")
+    return _halves_bits(key, size).reshape(*key.shape[:-1], *shape)
 
 
-def uniform(key: torch.Tensor, shape, *,
-            partitionable: bool = True) -> torch.Tensor:
+def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     """``(..., *shape)`` float32 uniform draws in ``[0, 1)``: the top 23
     bits become the mantissa of a float in ``[1, 2)``, minus one."""
-    bits = random_bits(key, shape, partitionable=partitionable)
+    bits = random_bits(key, shape)
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp_min(floats, 0.0)

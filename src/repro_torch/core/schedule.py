@@ -151,23 +151,22 @@ def truncated_failure_hops(u, p: float, h):
         torch.int32)
 
 
-def sample_tick(t, key, adj: CsrGraphs, loss_p: Optional[float], *,
-                partitionable: bool = True) -> ExchangeSchedule:
+def sample_tick(t, key, adj: CsrGraphs,
+                loss_p: Optional[float]) -> ExchangeSchedule:
     """Draw one tick's exchange decisions for all B graphs.
 
     `key` is ``(*K, 2)`` and `t` an int or an int tensor broadcasting
     against ``K``; fields come out as ``(*broadcast, B)``.  The draws are
-    over the full batch, as in the reference.  `partitionable` picks the
-    threefry counter layout (`core.prng`).
+    over the full batch, as in the reference.
     """
     B, C = adj.degrees.shape
     bidx = torch.arange(B, device=adj.degrees.device)
 
     def uniform(k):
-        return prng.uniform(k, (B,), partitionable=partitionable)
+        return prng.uniform(k, (B,))
 
     kt = prng.fold_in(key, t)
-    ki, kj, kf, kr = prng.split(kt, 4, partitionable=partitionable).unbind(-2)
+    ki, kj, kf, kr = prng.split(kt, 4).unbind(-2)
     # pick a waking node per graph (uniform over live nodes)
     u = uniform(ki)
     i = torch.minimum((u * adj.n_nodes).to(torch.int32), adj.n_nodes - 1)
@@ -196,13 +195,13 @@ def sample_tick(t, key, adj: CsrGraphs, loss_p: Optional[float], *,
     )
 
 
-def sample_schedule(ts, key, adj: CsrGraphs, loss_p: Optional[float], *,
-                    partitionable: bool = True) -> ExchangeSchedule:
+def sample_schedule(ts, key, adj: CsrGraphs,
+                    loss_p: Optional[float]) -> ExchangeSchedule:
     """Presample a whole chunk: `sample_tick` over the tick indices `ts`
     at once, giving fields of shape ``(len(ts), *K, B)``."""
     ts = torch.as_tensor(ts, dtype=torch.int64, device=key.device)
     return sample_tick(ts.reshape(-1, *([1] * (key.dim() - 1))), key, adj,
-                       loss_p, partitionable=partitionable)
+                       loss_p)
 
 
 def compose_schedule(num_slots: int, i, j, upd_i, upd_j,

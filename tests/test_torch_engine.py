@@ -1,7 +1,9 @@
 """The port's executor (`repro_torch.core`) against the reference engine on
 the rgg500 plan, on the CPU with the plain value pass.
 
-Fixed-iterations runs are bitwise: x_final, messages, node_sends and the
+The reference runs inside ``jax.threefry_partitionable(False)``, the
+threefry counter layout the port draws with.  Fixed-iterations runs are
+bitwise: x_final, messages, node_sends and the
 per-level counters.  (The reference's vmapped T=3 run is bitwise equal to
 its single runs here, so no tolerance is needed at T=3 either.)  Eps-mode
 runs compare x_final with allclose, since the convergence check is an
@@ -19,6 +21,12 @@ import repro_torch.core as P  # noqa: E402
 
 CPU = dict(device="cpu")
 FI = dict(eps=1e-3, fixed_ticks_scale=0.2)
+
+
+@pytest.fixture(autouse=True)
+def _port_layout():
+    with jax.threefry_partitionable(False):
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -80,13 +88,12 @@ def test_fi_with_message_loss_bitwise(plans, x0_500):
 
 
 def test_older_threefry_layout_bitwise(plans, x0_500):
+    """The large-n configuration's seed and defaults: weighted, seed 0,
+    the reference's default backend."""
     ref, port = plans
-    with jax.threefry_partitionable(False):
-        want = R.execute_plan(ref, x0_500, seeds=(0,), weighted=True, **FI)
-    got = P.execute_plan(
-        port, x0_500, seeds=(0,), weighted=True,
-        options=P.ExecOptions(backend="ref", threefry_partitionable=False,
-                              **CPU), **FI)
+    want = R.execute_plan(ref, x0_500, seeds=(0,), weighted=True, **FI)
+    got = P.execute_plan(port, x0_500, seeds=(0,), weighted=True,
+                         options=P.ExecOptions(backend="ref", **CPU), **FI)
     _assert_run_equal(want, got)
 
 
@@ -137,13 +144,13 @@ def test_synchronous_multiscale(rgg500, x0_500):
 def test_recorded_large_n_count_without_jax():
     """The repository's recorded n=20000 fixed-iterations run
     (benchmarks/artifacts/large_n_smoke.json: 1008706 messages) was drawn
-    with the older threefry layout; the port reproduces it exactly."""
+    with the older threefry layout, the port's; the port reproduces it
+    exactly."""
     n = 20000
     g = P.random_geometric_graph(n, seed=1000 + n)
     x0 = np.random.default_rng(n).normal(0, 1, n)
-    res = P.multiscale_gossip(
-        g, x0, seed=0, weighted=True,
-        options=P.ExecOptions(backend="ref", threefry_partitionable=False,
-                              **CPU), **FI)
+    res = P.multiscale_gossip(g, x0, seed=0, weighted=True,
+                              options=P.ExecOptions(backend="ref", **CPU),
+                              **FI)
     assert res.messages == 1008706
     assert abs(res.error(x0) - 0.0017078202335822647) <= 1e-6

@@ -1,5 +1,6 @@
 """The port's threefry (`repro_torch.core.prng`) against `jax.random`,
-bitwise, in both of jax's counter layouts."""
+bitwise, in the counter layout the port draws with (jax's
+``jax_threefry_partitionable=False``)."""
 import numpy as np
 import pytest
 
@@ -12,6 +13,12 @@ from repro_torch.core import prng  # noqa: E402
 
 SEEDS = [0, 1, 7, 123456, 2**31 - 1, 2**32 - 1]
 SHAPES = [(1,), (7,), (64,), (8, 4), (5, 3, 3)]
+
+
+@pytest.fixture(autouse=True)
+def _port_layout():
+    with jax.threefry_partitionable(False):
+        yield
 
 
 def _bits(a):
@@ -35,34 +42,28 @@ def test_prngkey_and_fold_in(seed):
         _eq(jax.random.fold_in(key, data), prng.fold_in(kt, data))
 
 
-@pytest.mark.parametrize("partitionable", [True, False])
+@pytest.mark.parametrize("num", [2, 3, 4])
 @pytest.mark.parametrize("seed", SEEDS[:4])
-def test_split(seed, partitionable):
-    with jax.threefry_partitionable(partitionable):
-        key = jax.random.PRNGKey(seed)
-        for num in (2, 3, 4):
-            _eq(jax.random.split(key, num),
-                prng.split(prng.PRNGKey(seed), num,
-                           partitionable=partitionable))
+def test_split(seed, num):
+    _eq(jax.random.split(jax.random.PRNGKey(seed), num),
+        prng.split(prng.PRNGKey(seed), num))
 
 
-@pytest.mark.parametrize("partitionable", [True, False])
+@pytest.mark.parametrize("data", [3, 1663])
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("seed", [0, 42, 2**32 - 1])
-def test_bits_and_uniform(seed, shape, partitionable):
-    with jax.threefry_partitionable(partitionable):
-        key = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
-        kt = prng.fold_in(prng.PRNGKey(seed), 3)
-        _eq(jax.random.bits(key, shape),
-            prng.random_bits(kt, shape, partitionable=partitionable))
-        u = prng.uniform(kt, shape, partitionable=partitionable)
-        _eq(jax.random.uniform(key, shape), u)
-        assert u.dtype == torch.float32
-        assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+def test_bits_and_uniform(seed, shape, data):
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), data)
+    kt = prng.fold_in(prng.PRNGKey(seed), data)
+    _eq(jax.random.bits(key, shape), prng.random_bits(kt, shape))
+    u = prng.uniform(kt, shape)
+    _eq(jax.random.uniform(key, shape), u)
+    assert u.dtype == torch.float32
+    assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
 
 
-@pytest.mark.parametrize("partitionable", [True, False])
-def test_keys_batched_over_ticks_and_trials(partitionable):
+@pytest.mark.parametrize("level", [2, 5])
+def test_keys_batched_over_ticks_and_trials(level):
     """The schedule's key path: a (trials,) batch of keys, each folded
     with a level and a chunk of tick indices, split four ways, drawn."""
     B = 37
@@ -70,7 +71,7 @@ def test_keys_batched_over_ticks_and_trials(partitionable):
     ts = jnp.arange(64) + 128
 
     def ref(seed):
-        key = jax.random.fold_in(jax.random.PRNGKey(seed), 2)
+        key = jax.random.fold_in(jax.random.PRNGKey(seed), level)
 
         def tick(t):
             ks = jax.random.split(jax.random.fold_in(key, t), 4)
@@ -78,11 +79,11 @@ def test_keys_batched_over_ticks_and_trials(partitionable):
 
         return jax.vmap(tick)(ts)                    # (T, 4, B)
 
-    with jax.threefry_partitionable(partitionable):
-        want = np.asarray(jax.vmap(ref)(seeds))      # (R, T, 4, B)
-    keys = prng.fold_in(torch.stack([prng.PRNGKey(s) for s in range(3)]), 2)
+    want = np.asarray(jax.vmap(ref)(seeds))          # (R, T, 4, B)
+    keys = prng.fold_in(torch.stack([prng.PRNGKey(s) for s in range(3)]),
+                        level)
     kt = prng.fold_in(keys[None], torch.arange(64)[:, None] + 128)  # (T, R, 2)
-    ks = prng.split(kt, 4, partitionable=partitionable)             # (T, R, 4, 2)
-    got = prng.uniform(ks, (B,), partitionable=partitionable)       # (T, R, 4, B)
+    ks = prng.split(kt, 4)                                          # (T, R, 4, 2)
+    got = prng.uniform(ks, (B,))                                    # (T, R, 4, B)
     np.testing.assert_array_equal(
         want.view(np.uint32), got.permute(1, 0, 2, 3).numpy().view(np.uint32))
