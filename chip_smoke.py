@@ -9,7 +9,13 @@ path — `repro_torch.core.multiscale_gossip`, the paper's Algorithm 1 in
 its fixed-iterations large-n configuration — at n=10^5 and n=10^6 nodes,
 the matmul backend at n=20000 and `synchronous_multiscale` at n=2000,
 and checks the results against the repository's recorded message counts
-and errors.  Any failed check raises, and the script exits non-zero.
+and errors.  Then the rwkv6-3b serving path at full width and depth,
+with parameters drawn on the card from a seed: `forward` on 4 prompts of
+4096 tokens (one rwkv6 kernel launch per layer, finite logits, a traced
+run), `Generator` answering 8 requests through decode alone (no rwkv6
+launch), and forward against token-by-token decode in bf16 (reported)
+and in a float32 copy of the model (checked).  Any failed check raises,
+and the script exits non-zero.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` (per kernel: its launches on each path that runs
@@ -43,6 +49,27 @@ FI = dict(eps=1e-3, seed=0, weighted=True, fixed_ticks_scale=0.2)
 # five finest levels, 3 on level 2, 26 on level 1
 MAIN_PATH_LAUNCHES = {100_000: 33, 1_000_000: 120}
 SYNC_CHUNK = 8  # synchronous_multiscale's rounds per cell_mixing launch
+# rwkv6-3b serving (src/repro/configs/rwkv6_3b.py, full width and depth):
+# prefill on 4 prompts of 4096 tokens (a cut from prefill_32k's 32 x
+# 32768: the f32 logits alone are 4.3 GB at 4 x 4096), Generator on 8
+# requests of 64 prompt tokens and 32 greedy steps, forward vs decode on
+# 2 x 64 tokens
+MODEL_SEED = 0
+PREFILL = (4, 4096)
+SERVE = (8, 64, 32)
+AGREE = (2, 64)
+# wkv kernel vs plain version, allclose in the working type: f32 sums in
+# another order; bf16 output rounds to 2^-8 of its value
+RWKV6_TOL = {"bfloat16": 2e-2, "float32": 3e-4}
+# forward (wkv kernel) vs decode_step (recurrence) in a float32 copy of
+# the config.  Each block alone, fed the same input on both paths, agrees
+# to f32 rounding: rtol and atol 1e-4.  Through the whole stack the
+# randomly drawn model amplifies any difference layer by layer (the
+# agreement phase prints the hidden-state gap after every block and its
+# growth a layer), so the logits are held only to a max abs difference
+# of 0.25 (0.090 on an H100 at 32 layers).  In bf16 both are reported
+# only: the two paths round at other places.
+AGREE_F32_TOL = {"block": 1e-4, "logits": 0.25}
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores; the PCIe part is slower
 PEAKS = {"sxm": (3.35e12, 67e12), "pcie": (2.0e12, 51e12)}
@@ -97,15 +124,19 @@ class Smoke:
     def zero_counts(self):
         from repro_torch.kernels.cell_mixing import cell_mixing
         from repro_torch.kernels.pair_apply import pair_apply
+        from repro_torch.kernels.rwkv6 import rwkv6_wkv
 
         pair_apply.launches = 0
         cell_mixing.launches = 0
+        rwkv6_wkv.launches = 0
 
     def read_counts(self):
+        """(pair_apply, cell_mixing, rwkv6) launches since zero_counts."""
         from repro_torch.kernels.cell_mixing import cell_mixing
         from repro_torch.kernels.pair_apply import pair_apply
+        from repro_torch.kernels.rwkv6 import rwkv6_wkv
 
-        return pair_apply.launches, cell_mixing.launches
+        return pair_apply.launches, cell_mixing.launches, rwkv6_wkv.launches
 
     # ----------------------------------------------------------- phases
     def build(self):
@@ -120,7 +151,7 @@ class Smoke:
         t0 = time.perf_counter()
         logs = build_all()
         dt = time.perf_counter() - t0
-        log(f"[build] both kernels built in {dt:.2f} s")
+        log(f"[build] {len(logs)} kernels built in {dt:.2f} s")
         for name, text in logs.items():
             for line in text.splitlines():
                 if "registers" in line or "spill" in line:
@@ -324,7 +355,7 @@ class Smoke:
         want_msgs, want_err = LARGE_N[n]
         self.zero_counts()
         res, exec_s = self.run(g, plan, x0, "cuda")
-        launches, mixing = self.read_counts()
+        launches, mixing, wkv = self.read_counts()
         err = res.error(x0)
         log(f"[main n={n}] cuda backend: messages {res.messages}, error "
             f"{err:.9f}, pair_apply launches {launches}; graph {graph_s:.2f} "
@@ -333,7 +364,8 @@ class Smoke:
         check(launches == want_launches == MAIN_PATH_LAUNCHES[n],
               f"n={n}: pair_apply launched {launches} times; the plan gives "
               f"{want_launches}, recorded {MAIN_PATH_LAUNCHES[n]}")
-        check(mixing == 0, f"n={n}: the cuda backend launched cell_mixing")
+        check(mixing == wkv == 0,
+              f"n={n}: the cuda backend launched cell_mixing or rwkv6")
         check(res.messages == want_msgs,
               f"n={n}: messages {res.messages} != recorded {want_msgs}")
         check(abs(err - want_err) <= 1e-6,
@@ -358,45 +390,59 @@ class Smoke:
         self.report[f"large_n_{n}"] = row
         return launches
 
-    def profile(self, n, g, plan, x0, warm_s):
-        """Device time by kernel over one traced execute: the device's
-        busy time against the untraced warm wall clock gives its idle
-        share."""
+    def trace(self, fn):
+        """Run `fn` once under torch.profiler.  Returns the device-side
+        kernel rows (device us, launches, name), largest first, and the
+        traced wall seconds.  Device-side events only: the CPU-side op
+        that launched a kernel carries the same device time again."""
         from torch.profiler import ProfilerActivity, profile
 
+        torch = self.torch
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, traced_s = self.run(g, plan, x0, "cuda")
-        # device-side events only: the CPU-side op that launched a kernel
-        # carries the same device time again
-        cuda = self.torch.autograd.DeviceType.CUDA
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        cuda = torch.autograd.DeviceType.CUDA
         rows = [(float(ev.self_device_time_total), int(ev.count), ev.key)
                 for ev in prof.key_averages()
                 if ev.device_type == cuda and ev.self_device_time_total > 0]
         rows.sort(reverse=True)
+        return rows, traced_s
+
+    def busy(self, label, rows, traced_s, warm_s, kernel):
+        """Device busy time, idle share against the untraced warm wall
+        clock, and `kernel`'s device time, from `trace` rows."""
         busy_ms = sum(r[0] for r in rows) / 1e3
         if busy_ms <= 0:
-            log(f"[profile n={n}] the trace holds no device time: not "
+            log(f"[profile {label}] the trace holds no device time: not "
                 f"measured")
             return {"profile": "not measured"}
-        pair_ms = sum(r[0] for r in rows if "pair_apply" in r[2]) / 1e3
+        kernel_ms = sum(r[0] for r in rows if kernel in r[2]) / 1e3
         out = {
             "device_busy_ms": busy_ms,
             "device_launches": sum(r[1] for r in rows),
             "traced_wall_s": traced_s,
             "idle_share": 1.0 - busy_ms / (warm_s * 1e3),
-            "pair_apply_device_ms": pair_ms,
+            f"{kernel}_device_ms": kernel_ms,
             "top_kernels": [dict(name=k[:160], device_ms=us / 1e3, count=c)
                             for us, c, k in rows[:10]],
         }
-        log(f"[profile n={n}] device busy {busy_ms:.2f} ms in "
+        log(f"[profile {label}] device busy {busy_ms:.2f} ms in "
             f"{out['device_launches']} launches over a {warm_s * 1e3:.1f} ms "
-            f"warm execute (idle share {out['idle_share']:.3f}); pair_apply "
-            f"{pair_ms:.3f} ms")
+            f"warm run (idle share {out['idle_share']:.3f}); {kernel} "
+            f"{kernel_ms:.3f} ms")
         for row in out["top_kernels"][:5]:
-            log(f"[profile n={n}]   {row['device_ms']:.3f} ms x{row['count']}"
-                f" {row['name'][:100]}")
+            log(f"[profile {label}]   {row['device_ms']:.3f} ms "
+                f"x{row['count']} {row['name'][:100]}")
         return out
+
+    def profile(self, n, g, plan, x0, warm_s):
+        """Device time by kernel over one traced execute."""
+        rows, traced_s = self.trace(lambda: self.run(g, plan, x0, "cuda"))
+        return self.busy(f"n={n}", rows, traced_s, warm_s, "pair_apply")
 
     def matmul(self, g, plan, x0):
         """FI multiscale gossip at n=20000 through compose_schedule and the
@@ -406,12 +452,13 @@ class Smoke:
 
         self.zero_counts()
         mm, mm_s = self.run(g, plan, x0, "matmul")
-        pairs, launches = self.read_counts()
+        pairs, launches, wkv = self.read_counts()
         want_launches = self.fi_chunks(plan)
         check(launches == want_launches,
               f"n=20000 matmul: cell_mixing launched {launches} times, the "
               f"plan gives {want_launches}")
-        check(pairs == 0, "the matmul backend launched pair_apply")
+        check(pairs == wkv == 0, "the matmul backend launched pair_apply "
+              "or rwkv6")
         cu, _ = self.run(g, plan, x0, "cuda")
         check(mm.messages == LARGE_N[20_000][0] == cu.messages,
               f"n=20000 matmul messages {mm.messages} != "
@@ -440,7 +487,7 @@ class Smoke:
         t0 = time.perf_counter()
         sy = P.synchronous_multiscale(g, x0, eps=1e-4, chunk=SYNC_CHUNK)
         sy_s = time.perf_counter() - t0
-        pairs, launches = self.read_counts()
+        pairs, launches, wkv = self.read_counts()
         host = P.synchronous_multiscale(g, x0, eps=1e-4, chunk=SYNC_CHUNK,
                                         device="cpu")
         check(sy.messages == host.messages
@@ -453,13 +500,261 @@ class Smoke:
         check(launches == want_launches > 0,
               f"synchronous: cell_mixing launched {launches} times, its "
               f"rounds per level {sy.rounds_per_level} give {want_launches}")
-        check(pairs == 0, "synchronous_multiscale launched pair_apply")
+        check(pairs == wkv == 0, "synchronous_multiscale launched "
+              "pair_apply or rwkv6")
         log(f"[synchronous n=2000] messages {sy.messages}, rounds per level "
             f"{sy.rounds_per_level}, error {sy.error(x0[:, None]):.3e}, "
             f"{sy_s:.3f} s, cell_mixing launches {launches}")
         self.report["synchronous_2000"] = dict(
             messages=sy.messages, seconds=sy_s, cell_mixing_launches=launches)
         return launches
+
+    # ------------------------------------------------------ rwkv6-3b
+    def rwkv6(self):
+        """The wkv kernel against its plain version on the card: at the
+        prefill's shape (bf16 r/k/v/u, f32 w, as the model passes them)
+        and at odd ones (T not a multiple of 32, N=16, all f32)."""
+        torch = self.torch
+        from repro_torch.kernels.rwkv6 import rwkv6_ref, rwkv6_wkv
+
+        bf16, f32 = torch.bfloat16, torch.float32
+        g = self.gen(12)
+
+        def inputs(BH, T, N, dt, wdt):
+            def normal(*shape, scale=1.0):
+                return (torch.randn(shape, generator=g, device=self.dev)
+                        * scale).to(dt)
+            w = 0.85 + 0.149 * torch.rand((BH, T, N), generator=g,
+                                          device=self.dev)
+            return (normal(BH, T, N), normal(BH, T, N, scale=0.3),
+                    normal(BH, T, N), w.to(wdt), normal(BH, N, scale=0.2))
+
+        worst = 0.0
+        main = None
+        for BH, T, N, dt, wdt in ((160, 4096, 64, bf16, f32),
+                                  (3, 1000, 64, bf16, f32),
+                                  (7, 77, 16, bf16, bf16),
+                                  (4, 333, 64, f32, f32),
+                                  (2, 130, 32, f32, f32),
+                                  (5, 200, 16, f32, f32)):
+            args = inputs(BH, T, N, dt, wdt)
+            got = rwkv6_wkv(*args)
+            torch.cuda.synchronize()
+            want = rwkv6_ref(*args)
+            tol = RWKV6_TOL["bfloat16" if dt == bf16 else "float32"]
+            err = float((got.float() - want.float()).abs().max())
+            worst = max(worst, err)
+            check(got.dtype == dt and got.shape == (BH, T, N),
+                  f"rwkv6 kernel output {got.dtype} {tuple(got.shape)}")
+            check(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol),
+                  f"rwkv6 kernel != plain version at {(BH, T, N, dt, wdt)} "
+                  f"(max abs err {err})")
+            if main is None:
+                main = args
+        BH, T, N = main[0].shape
+        ms = self.time_ms(lambda: rwkv6_wkv(*main), reps=20)
+        plain = self.time_ms(lambda: rwkv6_ref(*main), reps=1, warmup=1)
+        # each input read once (r, k, v, u bf16; w f32), y written once;
+        # 7 N^2 f32 operations a step: k v^T, u*kv, +S, *r, the sum over
+        # keys, w*S, +kv
+        elems = BH * T * N
+        nbytes = elems * (3 * 2 + 4 + 2) + BH * N * 2
+        bound, by = self.bound_ms(nbytes, 7 * N * N * T * BH)
+        log(f"[rwkv6] allclose to the plain version ({RWKV6_TOL}) at 6 shapes, max abs err {worst:.3e}; at "
+            f"{(BH, T, N)} bf16 (f32 w): kernel {ms:.4f} ms, plain "
+            f"{plain:.2f} ms, bound {bound:.4f} ms ({by})")
+        self.kernels["rwkv6"] = dict(
+            name="rwkv6", route="cuda", source="src/repro_torch/csrc/rwkv6.cu",
+            replaces="src/repro/kernels/rwkv6/kernel.py:33",
+            launches=None, max_abs_err=worst, ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape=dict(BH=BH, T=T, N=N, dtype="bfloat16", w="float32"))
+
+    def model(self, cfg):
+        torch = self.torch
+        from repro_torch.models import Transformer
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = Transformer(cfg).init(seed=MODEL_SEED, device=self.dev)
+        torch.cuda.synchronize()
+        log(f"[{cfg.name} {cfg.dtype}] {model.num_params} parameters drawn "
+            f"on the card in {time.perf_counter() - t0:.2f} s")
+        return model
+
+    def prefill(self, model, cfg):
+        """rwkv6-3b `forward` at full width and depth on 4 prompts of 4096
+        tokens: 32 wkv launches, finite logits, execute seconds, and one
+        traced forward."""
+        torch = self.torch
+        from repro_torch.models import forward
+
+        B, S = PREFILL
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=self.gen(13),
+                               device=self.dev)
+        batch = {"tokens": tokens}
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        logits = forward(model, cfg, batch)
+        torch.cuda.synchronize()
+        pairs, mixing, launches = self.read_counts()
+        check(launches == cfg.num_layers == 32,
+              f"forward launched the rwkv6 kernel {launches} times, not once "
+              f"per layer ({cfg.num_layers})")
+        check(pairs == mixing == 0, "forward launched a gossip kernel")
+        check(tuple(logits.shape) == (B, S, cfg.vocab_size)
+              and logits.dtype == torch.float32, "forward logits shape/dtype")
+        check(bool(torch.isfinite(logits).all()), "forward logits not finite")
+        del logits
+        warm = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(model, cfg, batch)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[prefill {B}x{S}] rwkv6 launches {launches}, logits finite; "
+            f"warm execute {warm[0]:.4f} s, {warm[1]:.4f} s "
+            f"({B * S / min(warm):.0f} tokens/s), peak memory {peak:.2f} GiB")
+        row = dict(batch=B, seq=S, rwkv6_launches=launches, execute_s=warm,
+                   tokens_per_s=B * S / min(warm), peak_gib=peak)
+        rows, traced_s = self.trace(lambda: forward(model, cfg, batch))
+        row.update(self.busy(f"prefill {B}x{S}", rows, traced_s, min(warm),
+                             "rwkv6"))
+        if "device_busy_ms" in row:
+            row["rwkv6_share"] = row["rwkv6_device_ms"] / row["device_busy_ms"]
+            log(f"[profile prefill {B}x{S}] rwkv6 share of device time "
+                f"{row['rwkv6_share']:.4f}")
+        self.report["prefill_rwkv6_3b"] = row
+        return launches
+
+    def serve(self, model, cfg):
+        """`Generator` answers 8 requests (64-token prompts, 32 greedy
+        steps) through decode_step alone: no wkv launch."""
+        import numpy as np
+        from repro_torch.models import decode_step, init_cache
+        from repro_torch.serve import Generator
+
+        torch = self.torch
+        B, P, steps = SERVE
+        prompts = np.random.default_rng(14).integers(
+            0, cfg.vocab_size, (B, P)).astype(np.int32)
+        gen = Generator(cfg, model, max_len=P + steps, device=self.dev)
+        self.zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen.generate(prompts, steps)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        pairs, mixing, launches = self.read_counts()
+        check(launches == 0, f"Generator launched the rwkv6 kernel "
+              f"{launches} times; its prefill is teacher-forced decode")
+        check(pairs == mixing == 0, "Generator launched a gossip kernel")
+        stats = dict(gen.last_stats)
+        check(out.shape == (B, stats["decode_steps"]) and 0 < out.shape[1]
+              <= steps and out.min() >= 0 and out.max() < cfg.vocab_size,
+              f"Generator output {out.shape} out of range")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = gen.generate(prompts, steps)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        check(np.array_equal(out, again), "greedy generate is not repeatable")
+        # every token, prompt or generated, is one decode_step row
+        step_tokens = B * (P + stats["decode_steps"])
+        log(f"[serve {B}x({P}+{steps})] rwkv6 launches {launches}; "
+            f"{stats}; cold {cold_s:.3f} s, warm {warm_s:.3f} s: "
+            f"{step_tokens / warm_s:.1f} decode tokens/s, "
+            f"{stats['live_tokens'] / warm_s:.1f} generated tokens/s")
+        row = dict(
+            requests=B, prompt=P, steps=steps, rwkv6_launches=launches,
+            cold_s=cold_s, warm_s=warm_s, last_stats=stats,
+            decode_tokens_per_s=step_tokens / warm_s,
+            generated_tokens_per_s=stats["live_tokens"] / warm_s)
+        # one decode step traced, against the warm run's mean step
+        cache = init_cache(model, cfg, B, P + steps)
+        rows, traced_s = self.trace(
+            lambda: decode_step(model, cfg, cache, prompts[:, 0]))
+        row.update(self.busy(f"decode step {B}", rows, traced_s,
+                             warm_s / (P + stats["decode_steps"]), "rwkv6"))
+        self.report["serve_rwkv6_3b"] = row
+        return launches
+
+    def agreement(self, model, cfg, checked: bool):
+        """forward (through the wkv kernel) against decode_step fed token
+        by token (the O(1) recurrence): the logits at every position, and
+        every block alone on the same input.  Held to AGREE_F32_TOL when
+        `checked`, else reported only."""
+        torch = self.torch
+        from repro_torch.kernels.cell_mixing.ref import no_tf32
+        from repro_torch.models import decode_step, forward, init_cache
+        from repro_torch.models.model import (
+            _block_decode, _block_forward, _embed)
+        from repro_torch.models.rwkv import init_rwkv_state
+
+        B, S = AGREE
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=self.gen(15),
+                               device=self.dev)
+        full = forward(model, cfg, {"tokens": tokens})
+        cache = init_cache(model, cfg, B, S)
+        steps = []
+        for t in range(S):
+            logits, cache = decode_step(model, cfg, cache, tokens[:, t])
+            steps.append(logits)
+        dec = torch.stack(steps, 1)
+        diff = float((dec - full).abs().max())
+        scale = float(full.abs().max())
+        check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
+              f"{cfg.dtype} agreement: logits not finite")
+        # each block on the forward path's input to it: the sequence through
+        # the kernel against the same tokens one by one through the decode
+        # recurrence, with no amplification by the blocks before it; and
+        # the decode path's own hidden states beside the forward path's,
+        # layer by layer, which shows how the stack amplifies their gap
+        def decode_seq(p, x):
+            state = init_rwkv_state(cfg, B, self.dev)
+            outs = []
+            for t in range(S):
+                out, state = _block_decode(p, cfg, x[:, t:t + 1], state)
+                outs.append(out)
+            return torch.cat(outs, 1)
+
+        block_diff, chain_diff = [], []
+        tol = AGREE_F32_TOL["block"]
+        with no_tf32(), torch.no_grad():
+            x = xd = _embed(model, cfg, tokens)
+            for p in model.blocks:
+                y = _block_forward(p, cfg, x).float()
+                yd = decode_seq(p, x).float()
+                xd = decode_seq(p, xd)
+                block_diff.append(float((yd - y).abs().max()))
+                chain_diff.append(float((xd.float() - y).abs().max()))
+                check(not checked or torch.allclose(yd, y, rtol=tol, atol=tol),
+                      f"{cfg.dtype} block {len(block_diff) - 1}: forward vs "
+                      f"decode max abs diff {block_diff[-1]} beyond {tol}")
+                x = y.to(xd.dtype)
+        # the gap's mean growth a layer, from the first block to the last
+        growth = ((chain_diff[-1] / chain_diff[0]) ** (1 / (len(chain_diff) - 1))
+                  if chain_diff[0] > 0 else None)
+        if checked:
+            tol = AGREE_F32_TOL["logits"]
+            check(diff <= tol, f"{cfg.dtype} forward vs decode: max abs "
+                  f"logit diff {diff} (max |logit| {scale}) beyond {tol}")
+        log(f"[agree {cfg.dtype} {B}x{S}] max |forward - decode| {diff:.3e} "
+            f"over logits up to {scale:.3f}; per block up to "
+            f"{max(block_diff):.3e}; hidden-state gap {chain_diff[0]:.3e} "
+            f"after block 0, {chain_diff[-1]:.3e} after block "
+            f"{len(chain_diff) - 1} (growth a layer: "
+            f"{'none' if growth is None else f'{growth:.3f}x'})"
+            + (f", within {AGREE_F32_TOL}" if checked else " (reported only)"))
+        self.report[f"agreement_{cfg.dtype}"] = dict(
+            batch=B, seq=S, max_abs_diff=diff, max_abs_logit=scale,
+            block_max_abs_diff=block_diff, hidden_gap=chain_diff,
+            gap_growth_per_layer=growth,
+            tol=AGREE_F32_TOL if checked else None)
+
 
 
 def main() -> int:
@@ -508,6 +803,31 @@ def main() -> int:
         launches_by_path={
             "multiscale_gossip FI n=20000, backend matmul": mm,
             "synchronous_multiscale n=2000": sy})
+
+    # the rwkv6-3b serving path; the gossip phases' plans are freed first
+    del g2, plan2, x02, lp0, sched
+    torch.cuda.empty_cache()
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    smoke.rwkv6()
+    cfg = get_config("rwkv6-3b")
+    model = smoke.model(cfg)
+    forward_path = f"forward rwkv6-3b {PREFILL[0]}x{PREFILL[1]}"
+    serve_path = f"Generator rwkv6-3b {SERVE[0]}x({SERVE[1]}+{SERVE[2]})"
+    wkv = smoke.prefill(model, cfg)
+    served = smoke.serve(model, cfg)
+    smoke.agreement(model, cfg, checked=False)
+    smoke.kernels["rwkv6"].update(
+        launches=wkv, path=forward_path,
+        launches_by_path={forward_path: wkv, serve_path: served})
+    del model
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = smoke.model(cfg32)
+    smoke.agreement(model32, cfg32, checked=True)
+    del model32
+    torch.cuda.empty_cache()
 
     total = time.perf_counter() - t_start
     smoke.report["total_s"] = total

@@ -1,0 +1,78 @@
+"""Carry the reference package's parameters and decode caches into the
+port, so both compute on the same weights and state.
+
+The reference stacks each scan group's layers on a leading `repeats`
+axis (``tree["groups"][g]["b{i}"]``); the port keeps one block per
+layer.  Both converters split that axis layer by layer, in
+`ModelConfig.scan_groups` order.  They take nested dicts and lists of
+numpy arrays (bfloat16 arrays included) and import nothing of the
+reference.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.options import resolve_device
+from .config import ModelConfig
+from .model import Transformer, flat_tree
+
+__all__ = ["params_from_reference", "cache_from_reference"]
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # exact in f32
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _layer(tree, index: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, index) for k, v in tree.items()}
+    return np.asarray(tree)[index]
+
+
+def _unstack(groups, cfg: ModelConfig) -> list:
+    """The per-layer trees of the reference's stacked scan groups."""
+    layers = []
+    for g_idx, (unit, repeats) in enumerate(cfg.scan_groups()):
+        for r in range(repeats):
+            for i in range(len(unit)):
+                layers.append(_layer(groups[g_idx][f"b{i}"], r))
+    return layers
+
+
+def params_from_reference(tree: dict, cfg: ModelConfig,
+                          device="cuda") -> Transformer:
+    """The port's `Transformer` holding the reference parameter tree
+    `tree` (``Transformer(cfg).init(key)`` of the reference, as numpy),
+    on `device` (the card unless "cpu" is asked for)."""
+    dev = resolve_device(device)
+    tree = {k: v for k, v in tree.items() if k != "groups"} | {
+        "blocks": _unstack(tree["groups"], cfg)}
+    values = dict(flat_tree(tree))
+    model = Transformer(cfg)
+    names = dict(model.named_parameters())
+    if set(values) != set(names):
+        raise ValueError(
+            f"parameter trees differ: missing "
+            f"{sorted(set(names) - set(values))}, unknown "
+            f"{sorted(set(values) - set(names))}")
+    model.to_empty(device=dev)
+    for name, param in model.named_parameters():
+        src = _tensor(values[name])
+        if tuple(src.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                             f"{tuple(param.shape)}")
+        param.data.copy_(src.to(param.dtype))
+    return model
+
+
+def cache_from_reference(cache: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """The port's decode cache (`models.init_cache` layout) holding the
+    reference's `init_cache` / `decode_step` cache, on `device`."""
+    dev = resolve_device(device)
+    layers = [{k: _tensor(v).to(dev) for k, v in layer.items()}
+              for layer in _unstack(cache["groups"], cfg)]
+    return {"layers": layers, "step": int(np.asarray(cache["step"]))}

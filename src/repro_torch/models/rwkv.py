@@ -1,0 +1,165 @@
+"""RWKV-6 "Finch" block (rwkv6-3b): attention-free time mix with
+data-dependent per-channel decay + squared-ReLU channel mix.
+
+Time-mix (per head of width N):
+    y_t = (S_{t-1} + (u * k_t) v_t^T)^T r_t,   S_t = diag(w_t) S_{t-1} + k_t v_t^T
+with w_t = exp(-exp(w0 + tanh(x_w A) B)) — the defining Finch feature
+(data-dependent decay, paper arXiv:2404.05892).  r/k/v/g use static
+token-shift lerps; the decay path carries the low-rank data-dependent
+delta.  The prefill's wkv recurrence runs through `kernels.rwkv6`
+(the CUDA kernel on the card); decode runs the O(1) state update in
+plain tensor ops.
+
+The functions take `p` as any mapping of name to tensor: a dict, or the
+`ParameterDict` of a `models.model.Transformer` block.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.rwkv6 import rwkv6_wkv
+from .config import ModelConfig
+from .layers import DTYPES, P_, dense
+
+__all__ = [
+    "rwkv_params", "rwkv_time_mix", "rwkv_channel_mix",
+    "rwkv_time_mix_decode", "rwkv_channel_mix_decode", "init_rwkv_state",
+]
+
+_DECAY_LORA = 64
+
+
+def rwkv_params(cfg: ModelConfig) -> dict:
+    D, F_ = cfg.d_model, cfg.d_ff
+    H, N = cfg.rwkv_heads, cfg.rwkv_head_dim
+    return {
+        "time": {
+            "mu_r": P_((D,), init="normal", scale=0.2),
+            "mu_k": P_((D,), init="normal", scale=0.2),
+            "mu_v": P_((D,), init="normal", scale=0.2),
+            "mu_g": P_((D,), init="normal", scale=0.2),
+            "mu_w": P_((D,), init="normal", scale=0.2),
+            "wr": P_((D, D)),
+            "wk": P_((D, D)),
+            "wv": P_((D, D)),
+            "wg": P_((D, D)),
+            "w0": P_((D,), init="normal", scale=0.5),
+            "wa": P_((D, _DECAY_LORA), scale=0.5),
+            "wb": P_((_DECAY_LORA, D), scale=0.5),
+            "u": P_((H, N), init="normal", scale=0.2),
+            "ln_scale": P_((D,), init="ones", dtype="float32"),
+            "wo": P_((D, D)),
+        },
+        "channel": {
+            "mu_k": P_((D,), init="normal", scale=0.2),
+            "mu_r": P_((D,), init="normal", scale=0.2),
+            "wk": P_((D, F_)),
+            "wv": P_((F_, D)),
+            "wr": P_((D, D)),
+        },
+    }
+
+
+def _shift(x, prev=None):
+    """Token shift: x_{t-1} (zeros / `prev` at t=0). x: (B,S,D)."""
+    if prev is None:
+        prev = torch.zeros_like(x[:, :1])
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def _decay(p, xw):
+    """exp(-exp(w0 + tanh(xw wa) wb)) in f32: xw is f32 while wa and wb
+    are in the model dtype, so both products run in f32."""
+    lora = torch.tanh(xw @ p["wa"].float()) @ p["wb"].float()
+    return torch.exp(-torch.exp(p["w0"].float() + lora))
+
+
+def _group_norm(y, scale, H, N, eps=1e-5):
+    """Per-head layernorm of the wkv output (B,S,H,N)."""
+    yf = y.float()
+    mu = yf.mean(-1, keepdim=True)
+    var = yf.var(-1, keepdim=True, correction=0)
+    yn = (yf - mu) * torch.rsqrt(var + eps)
+    return (yn.reshape(*y.shape[:2], H * N) * scale).to(y.dtype)
+
+
+def rwkv_time_mix(p, cfg: ModelConfig, x):
+    B, S, D = x.shape
+    H, N = cfg.rwkv_heads, cfg.rwkv_head_dim
+    sx = _shift(x) - x
+    xr = x + sx * p["mu_r"]
+    xk = x + sx * p["mu_k"]
+    xv = x + sx * p["mu_v"]
+    xg = x + sx * p["mu_g"]
+    xw = (x + sx * p["mu_w"]).float()
+    r = dense(xr, p["wr"])
+    k = dense(xk, p["wk"])
+    v = dense(xv, p["wv"])
+    g = F.silu(dense(xg, p["wg"]))
+    w = _decay(p, xw)                                       # (B,S,D) in (0,1)
+
+    def to_bh(a):  # (B,S,D) -> (B*H, S, N), contiguous
+        return a.reshape(B, S, H, N).transpose(1, 2).reshape(B * H, S, N)
+
+    u = p["u"][None].expand(B, H, N).reshape(B * H, N)
+    # the decay stays f32: bf16-rounding w compounds through the state;
+    # u is rounded to the working type, as the reference passes it
+    y = rwkv6_wkv(to_bh(r), to_bh(k), to_bh(v), to_bh(w),
+                  u.to(r.dtype).contiguous())               # (B*H, S, N)
+    y = y.reshape(B, H, S, N).transpose(1, 2)               # (B,S,H,N)
+    y = _group_norm(y, p["ln_scale"], H, N)
+    return dense(y * g, p["wo"])
+
+
+def rwkv_channel_mix(p, cfg: ModelConfig, x):
+    sx = _shift(x) - x
+    xk = x + sx * p["mu_k"]
+    xr = x + sx * p["mu_r"]
+    k = torch.square(torch.relu(dense(xk, p["wk"])))
+    return torch.sigmoid(dense(xr, p["wr"])) * dense(k, p["wv"])
+
+
+# ------------------------------ decode --------------------------------
+
+
+def init_rwkv_state(cfg: ModelConfig, batch: int, device) -> dict:
+    H, N = cfg.rwkv_heads, cfg.rwkv_head_dim
+    dt = DTYPES[cfg.dtype]
+    return {
+        "tm_prev": torch.zeros((batch, 1, cfg.d_model), dtype=dt, device=device),
+        "cm_prev": torch.zeros((batch, 1, cfg.d_model), dtype=dt, device=device),
+        "wkv": torch.zeros((batch * H, N, N), dtype=torch.float32, device=device),
+    }
+
+
+def rwkv_time_mix_decode(p, cfg: ModelConfig, x, state: dict):
+    """x: (B, 1, D); O(1) state update."""
+    B, _, D = x.shape
+    H, N = cfg.rwkv_heads, cfg.rwkv_head_dim
+    sx = state["tm_prev"] - x
+    xr, xk, xv, xg = (x + sx * p[m] for m in ("mu_r", "mu_k", "mu_v", "mu_g"))
+    xw = (x + sx * p["mu_w"]).float()
+    r = dense(xr, p["wr"]).reshape(B * H, N)
+    k = dense(xk, p["wk"]).reshape(B * H, N).float()
+    v = dense(xv, p["wv"]).reshape(B * H, N).float()
+    g = F.silu(dense(xg, p["wg"]))
+    w = _decay(p, xw).reshape(B * H, N)
+    u = p["u"][None].expand(B, H, N).reshape(B * H, N).float()
+    s = state["wkv"]                                        # (BH, N, N)
+    kv = k[:, :, None] * v[:, None, :]
+    y = torch.einsum("bnm,bn->bm", s + u[:, :, None] * kv, r.float())
+    s_new = w[:, :, None] * s + kv
+    y = y.reshape(B, 1, H, N).to(x.dtype)
+    y = _group_norm(y, p["ln_scale"], H, N)
+    out = dense((y * g).to(x.dtype), p["wo"])
+    return out, {**state, "tm_prev": x, "wkv": s_new}
+
+
+def rwkv_channel_mix_decode(p, cfg: ModelConfig, x, state: dict):
+    sx = state["cm_prev"] - x
+    xk = x + sx * p["mu_k"]
+    xr = x + sx * p["mu_r"]
+    k = torch.square(torch.relu(dense(xk, p["wk"])))
+    out = torch.sigmoid(dense(xr, p["wr"])) * dense(k, p["wv"])
+    return out, {**state, "cm_prev": x}

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.cell_mixing import cell_mixing, cell_mixing_ref  # noqa: E402
 from repro_torch.kernels.pair_apply import pair_apply, pair_apply_ref  # noqa: E402
+from repro_torch.kernels.rwkv6 import rwkv6_ref, rwkv6_wkv  # noqa: E402
 
 
 def _schedule(rng, B, C, T, same=0.1):
@@ -70,3 +71,48 @@ def test_cell_mixing_kernel_on_card(cuda_device, m, d, rounds):
     torch.testing.assert_close(got, cell_mixing_ref(w, x, rounds=rounds),
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got.sum(1), x.sum(1), rtol=1e-4, atol=1e-4)
+
+
+# rwkv6: allclose in the working type.  f32 sums run in another order
+# than the plain version (3e-4, the reference kernel test's f32
+# tolerance); in bf16 the output rounds to bf16, whose ulp is 2^-8 of
+# the value (2e-2 rtol and atol).
+_RWKV_TYPES = {"f32": (torch.float32, torch.float32, 3e-4),
+               "bf16": (torch.bfloat16, torch.bfloat16, 2e-2),
+               "mixed": (torch.bfloat16, torch.float32, 2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "mixed"])
+@pytest.mark.parametrize("BH,T,N", [(2, 64, 32), (1, 130, 64), (3, 96, 16),
+                                    (5, 77, 64), (160, 300, 64)])
+def test_rwkv6_kernel_on_card(cuda_device, BH, T, N, kind):
+    dt, wdt, tol = _RWKV_TYPES[kind]
+    rng = np.random.default_rng(BH * T + N)
+    arrays = [rng.normal(size=(BH, T, N)), rng.normal(size=(BH, T, N)) * 0.3,
+              rng.normal(size=(BH, T, N)),
+              rng.uniform(0.85, 0.999, size=(BH, T, N)),
+              rng.normal(size=(BH, N)) * 0.2]
+    r, k, v, w, u = (torch.from_numpy(a.astype(np.float32)).to(
+        cuda_device, t) for a, t in zip(arrays, (dt, dt, dt, wdt, dt)))
+    before = rwkv6_wkv.launches
+    got = rwkv6_wkv(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv.launches == before + 1
+    assert got.dtype == dt and got.shape == (BH, T, N)
+    torch.testing.assert_close(got.float(), rwkv6_ref(r, k, v, w, u).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros((2, 8, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head size"):
+        rwkv6_wkv(x, x, x, x, torch.zeros((2, 48), device=cuda_device))
+    y = torch.zeros((2, 16, 8), device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_wkv(y, y, y, y, torch.zeros((2, 16), device=cuda_device))
+    h = torch.zeros((2, 8, 16), device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        rwkv6_wkv(h, h, h, h, torch.zeros((2, 16), device=cuda_device,
+                                          dtype=torch.float16))

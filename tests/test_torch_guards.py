@@ -87,6 +87,32 @@ def test_unported_scenarios_raise(rgg500, x0_500, failures, cost):
             cost=cost, options=P.ExecOptions(backend="ref", device="cpu"))
 
 
+def test_model_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import Transformer, params_from_reference
+    from repro_torch.serve import Generator
+
+    cfg = reduce_config(get_config("rwkv6-3b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Transformer(cfg).init(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_reference({"groups": []}, cfg)
+    model = Transformer(cfg).init(seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Generator(cfg, model)
+    Generator(cfg, model, device="cpu")
+
+
+def test_generator_rejects_parameters_elsewhere():
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import Transformer
+    from repro_torch.serve import Generator
+
+    cfg = reduce_config(get_config("rwkv6-3b"))
+    with pytest.raises(ValueError, match="parameters lie on meta"):
+        Generator(cfg, Transformer(cfg), device="cpu")
+
+
 def test_kernel_ops_reject_other_devices():
     from repro_torch.kernels.cell_mixing import cell_mixing
     from repro_torch.kernels.pair_apply import pair_apply
