@@ -217,7 +217,7 @@ def compose_schedule(num_slots: int, i, j, upd_i, upd_j,
     ``(T, B, C, C)``: meant for the small per-cell matrices of the
     hierarchy.
     """
-    from ..kernels.cell_mixing.ref import no_tf32
+    from .._tf32 import no_tf32
 
     T, B = i.shape
     C = num_slots

@@ -9,11 +9,14 @@
 // with S (keys x values) and all arithmetic in f32, y_t written in the
 // inputs' type (bf16 rounded to nearest even).
 //
-// What bounds it on an H100: about 7 N^2 f32 operations per step per
-// b·h against (3 + 1) N loads and N stores, so at N = 64 the operations
-// bound it (the rwkv6-3b prefill at BH=160, T=4096: 18.8 GFLOP, 0.28 ms
-// at 67 TFLOP/s, against 0.15 ms for its bytes).  Time is a serial
-// chain, so only b·h and the state's columns run in parallel.
+// What bounds it on an H100: the function needs 5 N^2 + 5 N f32
+// operations per step per b·h (S^T r, diag(w) S + k v^T, and the bonus
+// as v (u·k·r), a dot product) against (3 + 1) N loads and N stores, so
+// at N = 64 the operations bound it (the rwkv6-3b prefill at BH=160,
+// T=4096: 13.6 GFLOP, 0.20 ms at 67 TFLOP/s, against 0.15 ms for its
+// bytes).  This kernel forms (u * k_t) v_t^T per column, 7 N^2 a step.
+// Time is a serial chain, so only b·h and the state's columns run in
+// parallel.
 //
 // Design: column m of S evolves on its own given r_t, k_t, w_t and
 // v_t[m], so one block serves one b·h with N threads and thread m keeps

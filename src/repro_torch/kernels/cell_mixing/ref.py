@@ -2,23 +2,11 @@
 in full f32 (TF32 off)."""
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
-__all__ = ["cell_mixing_ref", "no_tf32"]
+from ..._tf32 import no_tf32
 
-
-@contextlib.contextmanager
-def no_tf32():
-    """Run float32 matmuls in full f32 on the card, whatever the global
-    TF32 setting (TF32 keeps about three decimal digits)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+__all__ = ["cell_mixing_ref"]
 
 
 def cell_mixing_ref(w, x, *, rounds: int = 1):

@@ -28,22 +28,6 @@ def _lib():
     return fn
 
 
-def _plain(r, k, v, w, u, block_t: int):
-    """The plain version with the reference op's time chunking: chunks of
-    `block_t` steps, the state carried from one to the next, when T is a
-    multiple of `block_t` larger than it; else one pass."""
-    T = r.shape[1]
-    if T <= block_t or T % block_t:
-        return rwkv6_ref(r, k, v, w, u)
-    s, outs = None, []
-    for t0 in range(0, T, block_t):
-        sl = slice(t0, t0 + block_t)
-        out, s = rwkv6_ref(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, s0=s,
-                           return_state=True)
-        outs.append(out)
-    return torch.cat(outs, 1)
-
-
 def _check_cuda(r, k, v, w, u):
     if r.dim() != 3:
         raise ValueError(f"r must be (BH, T, N), got {tuple(r.shape)}")
@@ -66,17 +50,18 @@ def _check_cuda(r, k, v, w, u):
         raise ValueError(f"head size {N} is not one of {_HEAD_SIZES}")
 
 
-def rwkv6_wkv(r, k, v, w, u, *, block_t: int = 256):
+def rwkv6_wkv(r, k, v, w, u):
     """RWKV-6 wkv over (BH, T, N) streams; u is the (BH, N) bonus.
 
     r, k, v, u share one type (float32 or bfloat16); w may be float32
     beside bfloat16 inputs, as the model passes it.  Returns (BH, T, N)
-    in ``r.dtype``.  `block_t` is the plain version's time chunk.
+    in ``r.dtype``.  One pass over T: the reference op's time chunks
+    carry the state exactly, so they change nothing here.
     """
     if r.device.type == "cpu":
         if any(a.device.type != "cpu" for a in (k, v, w, u)):
             raise ValueError("r, k, v, w and u must lie on one device")
-        return _plain(r, k, v, w, u, block_t)
+        return rwkv6_ref(r, k, v, w, u)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_wkv runs on cpu or cuda, not {r.device}")
     _check_cuda(r, k, v, w, u)

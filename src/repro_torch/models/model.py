@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .._tf32 import no_tf32
 from ..core.options import resolve_device
-from ..kernels.cell_mixing.ref import no_tf32
 from .config import ModelConfig
 from .layers import DTYPES, P_, count_params, dense, layer_norm, rms_norm
 from .rwkv import (

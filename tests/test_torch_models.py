@@ -11,8 +11,22 @@ Tolerances:
   single logits differ by a bf16 ulp of their own size or more, and an
   element-wise 2e-2 does not hold for every logit.  The port's bf16
   results must instead be as close to the f32 computation on the same
-  bf16 weights as the reference's bf16 results are: mean absolute error
-  over all positions at most 1.5x the reference's.
+  bf16 weights (`ref32`) as the reference's bf16 results (`ref16`) are,
+  read three ways:
+
+  - the mean of |port - ref32| over everything at most 1.5x the mean of
+    |ref16 - ref32|;
+  - the largest element of |port - ref32| at most 1.5x the largest of
+    |ref16 - ref32|;
+  - per row, the mean of |port - ref32| at most 2.5x that row's mean of
+    |ref16 - ref32|.  A row is one index of the two leading axes: one
+    position's logits (batch x position, or step x batch), one layer's
+    cache of one slot (layer x batch) or of one batch-head (layer x
+    batch-head).
+
+  The last two fail a bf16 fault that hits only a few rows or elements,
+  which the mean alone would average away.  (Measured at these seeds:
+  at most 1.08, 1.17 and 1.94.)
 """
 import dataclasses
 
@@ -39,7 +53,9 @@ from repro_torch.models import (  # noqa: E402
 from repro_torch.serve import Generator  # noqa: E402
 
 F32_TOL = 1e-5
-BF16_ERR_RATIO = 1.5
+BF16_MEAN_RATIO = 1.5
+BF16_MAX_RATIO = 1.5
+BF16_ROW_RATIO = 2.5
 
 
 def _cfgs(dtype="bfloat16", **changes):
@@ -72,9 +88,17 @@ def _f32_twin(ref_cfg, ref_params):
 
 def _assert_bf16_close(port, ref16, ref32):
     port, ref16, ref32 = (np.asarray(a, np.float32) for a in (port, ref16, ref32))
-    port_err = np.abs(port - ref32).mean()
-    ref_err = np.abs(ref16 - ref32).mean()
-    assert port_err <= BF16_ERR_RATIO * ref_err, (port_err, ref_err)
+    port_err, ref_err = np.abs(port - ref32), np.abs(ref16 - ref32)
+    assert port_err.mean() <= BF16_MEAN_RATIO * ref_err.mean(), (
+        port_err.mean(), ref_err.mean())
+    assert port_err.max() <= BF16_MAX_RATIO * ref_err.max(), (
+        port_err.max(), ref_err.max())
+    rows = port.shape[0] * port.shape[1]
+    port_rows = port_err.reshape(rows, -1).mean(1)
+    ref_rows = ref_err.reshape(rows, -1).mean(1)
+    worst = int(np.argmax(port_rows / ref_rows))
+    assert (port_rows <= BF16_ROW_RATIO * ref_rows).all(), (
+        worst, port_rows[worst], ref_rows[worst])
 
 
 # ------------------------------ configs -------------------------------

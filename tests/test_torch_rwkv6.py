@@ -77,19 +77,27 @@ def test_rwkv6_ref_state_matches_reference(kind):
 
 @pytest.mark.parametrize("kind", ["f32", "mixed"])
 def test_rwkv6_wkv_chunked_matches_reference_chunked(kind):
-    """T=512 runs as two 256-step chunks in both ops."""
+    """The reference op runs T=512 as two 256-step chunks; the port's one
+    pass must give the same output."""
     jargs, targs = _inputs(2, 512, 16, kind, seed=7)
     want = rwkv6_wkv_jax(*jargs, use_pallas=False)
     _close(rwkv6_wkv(*targs), want, TOL[kind])
 
 
 def test_rwkv6_state_streaming_across_chunks():
-    """Splitting T into chunks must not reset the state (the reference's
-    one-block vs four-block check)."""
+    """Splitting T into chunks, each started from the last one's state,
+    must not reset the state (the reference's one-block vs four-block
+    check), and gives the op's one pass exactly."""
     _, targs = _inputs(1, 128, 32, "f32", seed=21)
-    one_chunk = rwkv6_wkv(*targs, block_t=128)
-    four_chunks = rwkv6_wkv(*targs, block_t=32)
-    torch.testing.assert_close(one_chunk, four_chunks, rtol=1e-5, atol=1e-5)
+    r, k, v, w, u = targs
+    s, outs = None, []
+    for t0 in range(0, 128, 32):
+        part = slice(t0, t0 + 32)
+        out, s = rwkv6_ref(r[:, part], k[:, part], v[:, part], w[:, part], u,
+                           s0=s, return_state=True)
+        outs.append(out)
+    torch.testing.assert_close(torch.cat(outs, 1), rwkv6_wkv(*targs),
+                               rtol=0, atol=0)
 
 
 def test_rwkv6_wkv_rejects_other_devices():
