@@ -14,8 +14,14 @@ with parameters drawn on the card from a seed: `forward` on 4 prompts of
 4096 tokens (one rwkv6 kernel launch per layer, finite logits, a traced
 run), `Generator` answering 8 requests through decode alone (no rwkv6
 launch), and forward against token-by-token decode in bf16 (reported)
-and in a float32 copy of the model (checked).  Any failed check raises,
-and the script exits non-zero.
+and in a float32 copy of the model (checked).  Then the flash-attention
+kernel against its plain version at nine shapes, and the llama3.2-3b
+serving path at full width and depth: `forward` on 4 prompts of 4096
+tokens (one flash launch per layer, finite logits, a traced run),
+`Generator` on 8 requests (no flash launch), and each block's attention
+on the kernel route against `decode_attention` fed token by token, in
+bf16 (reported) and in a float32 copy (checked).  Any failed check
+raises, and the script exits non-zero.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` (per kernel: its launches on each path that runs
@@ -70,9 +76,21 @@ RWKV6_TOL = {"bfloat16": 2e-2, "float32": 3e-4}
 # of 0.25 (0.090 on an H100 at 32 layers).  In bf16 both are reported
 # only: the two paths round at other places.
 AGREE_F32_TOL = {"block": 1e-4, "logits": 0.25}
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores; the PCIe part is slower
-PEAKS = {"sxm": (3.35e12, 67e12), "pcie": (2.0e12, 51e12)}
+# llama3.2-3b serving (src/repro/configs/llama3_2_3b.py, full width and
+# depth): the same prefill, serving and agreement sizes as rwkv6-3b.  The
+# prefill is a cut from prefill_32k's 32 x 32768: its f32 logits alone
+# would be 538 GB there and are 8.4 GB at 4 x 4096.
+# flash kernel vs plain version, allclose at the reference kernel tests'
+# tolerances (tests/test_kernels.py): f32 2e-5, bf16 3e-2
+FLASH_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
+# each block's attention sublayer on the kernel route (chunk_threshold=0)
+# against decode_attention fed the same input token by token, in a float32
+# copy of the config: rtol and atol 1e-4 (f32 sums in other orders)
+AGREE_ATTN_TOL = 1e-4
+# published H100 peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores, dense bf16 FLOP/s on the tensor cores; the
+# PCIe part is slower
+PEAKS = {"sxm": (3.35e12, 67e12, 989e12), "pcie": (2.0e12, 51e12, 756e12)}
 
 
 def log(msg: str) -> None:
@@ -94,7 +112,7 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.name = torch.cuda.get_device_name(0)
         part = "pcie" if "PCIE" in self.name.upper() else "sxm"
-        self.hbm, self.f32 = PEAKS[part]
+        self.hbm, self.f32, self.bf16 = PEAKS[part]
         self.report: dict = {"device": self.name}
         self.kernels: dict = {}
 
@@ -113,30 +131,40 @@ class Smoke:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def bound_ms(self, nbytes: float, flops: float):
-        t_bytes, t_ops = nbytes / self.hbm, flops / self.f32
+    def bound_ms(self, nbytes: float, flops: float, peak=None):
+        """The larger of the bytes over HBM and the operations over `peak`
+        (the f32 CUDA-core rate unless given)."""
+        t_bytes, t_ops = nbytes / self.hbm, flops / (peak or self.f32)
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                            else "operations")
 
     def gen(self, seed: int):
         return self.torch.Generator(device=self.dev).manual_seed(seed)
 
+    @staticmethod
+    def ops():
+        """Each kernel's op (its wrapper holds the launch count)."""
+        from repro_torch.kernels.cell_mixing import cell_mixing
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.pair_apply import pair_apply
+        from repro_torch.kernels.rwkv6 import rwkv6_wkv
+
+        return {"pair_apply": pair_apply, "cell_mixing": cell_mixing,
+                "rwkv6": rwkv6_wkv, "flash_attention": flash_attention}
+
     def zero_counts(self):
-        from repro_torch.kernels.cell_mixing import cell_mixing
-        from repro_torch.kernels.pair_apply import pair_apply
-        from repro_torch.kernels.rwkv6 import rwkv6_wkv
+        for op in self.ops().values():
+            op.launches = 0
 
-        pair_apply.launches = 0
-        cell_mixing.launches = 0
-        rwkv6_wkv.launches = 0
+    def read_counts(self) -> dict:
+        """Each kernel's launches since zero_counts."""
+        return {name: op.launches for name, op in self.ops().items()}
 
-    def read_counts(self):
-        """(pair_apply, cell_mixing, rwkv6) launches since zero_counts."""
-        from repro_torch.kernels.cell_mixing import cell_mixing
-        from repro_torch.kernels.pair_apply import pair_apply
-        from repro_torch.kernels.rwkv6 import rwkv6_wkv
-
-        return pair_apply.launches, cell_mixing.launches, rwkv6_wkv.launches
+    @staticmethod
+    def check_idle(counts: dict, runs, label: str):
+        """Every kernel but `runs` launched no time."""
+        others = {k: n for k, n in counts.items() if k != runs and n}
+        check(not others, f"{label} launched {others}")
 
     # ----------------------------------------------------------- phases
     def build(self):
@@ -355,7 +383,8 @@ class Smoke:
         want_msgs, want_err = LARGE_N[n]
         self.zero_counts()
         res, exec_s = self.run(g, plan, x0, "cuda")
-        launches, mixing, wkv = self.read_counts()
+        counts = self.read_counts()
+        launches = counts["pair_apply"]
         err = res.error(x0)
         log(f"[main n={n}] cuda backend: messages {res.messages}, error "
             f"{err:.9f}, pair_apply launches {launches}; graph {graph_s:.2f} "
@@ -364,8 +393,7 @@ class Smoke:
         check(launches == want_launches == MAIN_PATH_LAUNCHES[n],
               f"n={n}: pair_apply launched {launches} times; the plan gives "
               f"{want_launches}, recorded {MAIN_PATH_LAUNCHES[n]}")
-        check(mixing == wkv == 0,
-              f"n={n}: the cuda backend launched cell_mixing or rwkv6")
+        self.check_idle(counts, "pair_apply", f"n={n} cuda backend")
         check(res.messages == want_msgs,
               f"n={n}: messages {res.messages} != recorded {want_msgs}")
         check(abs(err - want_err) <= 1e-6,
@@ -452,13 +480,13 @@ class Smoke:
 
         self.zero_counts()
         mm, mm_s = self.run(g, plan, x0, "matmul")
-        pairs, launches, wkv = self.read_counts()
+        counts = self.read_counts()
+        launches = counts["cell_mixing"]
         want_launches = self.fi_chunks(plan)
         check(launches == want_launches,
               f"n=20000 matmul: cell_mixing launched {launches} times, the "
               f"plan gives {want_launches}")
-        check(pairs == wkv == 0, "the matmul backend launched pair_apply "
-              "or rwkv6")
+        self.check_idle(counts, "cell_mixing", "the matmul backend")
         cu, _ = self.run(g, plan, x0, "cuda")
         check(mm.messages == LARGE_N[20_000][0] == cu.messages,
               f"n=20000 matmul messages {mm.messages} != "
@@ -487,7 +515,8 @@ class Smoke:
         t0 = time.perf_counter()
         sy = P.synchronous_multiscale(g, x0, eps=1e-4, chunk=SYNC_CHUNK)
         sy_s = time.perf_counter() - t0
-        pairs, launches, wkv = self.read_counts()
+        counts = self.read_counts()
+        launches = counts["cell_mixing"]
         host = P.synchronous_multiscale(g, x0, eps=1e-4, chunk=SYNC_CHUNK,
                                         device="cpu")
         check(sy.messages == host.messages
@@ -500,8 +529,7 @@ class Smoke:
         check(launches == want_launches > 0,
               f"synchronous: cell_mixing launched {launches} times, its "
               f"rounds per level {sy.rounds_per_level} give {want_launches}")
-        check(pairs == wkv == 0, "synchronous_multiscale launched "
-              "pair_apply or rwkv6")
+        self.check_idle(counts, "cell_mixing", "synchronous_multiscale")
         log(f"[synchronous n=2000] messages {sy.messages}, rounds per level "
             f"{sy.rounds_per_level}, error {sy.error(x0[:, None]):.3e}, "
             f"{sy_s:.3f} s, cell_mixing launches {launches}")
@@ -584,10 +612,11 @@ class Smoke:
             f"on the card in {time.perf_counter() - t0:.2f} s")
         return model
 
-    def prefill(self, model, cfg):
-        """rwkv6-3b `forward` at full width and depth on 4 prompts of 4096
-        tokens: 32 wkv launches, finite logits, execute seconds, and one
-        traced forward."""
+    def prefill(self, model, cfg, kernel: str, want: int, symbol: str):
+        """`forward` at full width and depth on 4 prompts of 4096 tokens:
+        `want` launches of `kernel` (one a layer) and none of the others,
+        finite logits, execute seconds, and one traced forward (`symbol`
+        names the kernel in the trace)."""
         torch = self.torch
         from repro_torch.models import forward
 
@@ -599,11 +628,12 @@ class Smoke:
         self.zero_counts()
         logits = forward(model, cfg, batch)
         torch.cuda.synchronize()
-        pairs, mixing, launches = self.read_counts()
-        check(launches == cfg.num_layers == 32,
-              f"forward launched the rwkv6 kernel {launches} times, not once "
-              f"per layer ({cfg.num_layers})")
-        check(pairs == mixing == 0, "forward launched a gossip kernel")
+        counts = self.read_counts()
+        launches = counts[kernel]
+        check(launches == cfg.num_layers == want,
+              f"{cfg.name} forward launched the {kernel} kernel {launches} "
+              f"times, not once per layer ({cfg.num_layers})")
+        self.check_idle(counts, kernel, f"{cfg.name} forward")
         check(tuple(logits.shape) == (B, S, cfg.vocab_size)
               and logits.dtype == torch.float32, "forward logits shape/dtype")
         check(bool(torch.isfinite(logits).all()), "forward logits not finite")
@@ -616,24 +646,26 @@ class Smoke:
             torch.cuda.synchronize()
             warm.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"[prefill {B}x{S}] rwkv6 launches {launches}, logits finite; "
+        log(f"[prefill {cfg.name} {B}x{S}] {kernel} launches {launches}, "
+            f"logits finite; "
             f"warm execute {warm[0]:.4f} s, {warm[1]:.4f} s "
             f"({B * S / min(warm):.0f} tokens/s), peak memory {peak:.2f} GiB")
-        row = dict(batch=B, seq=S, rwkv6_launches=launches, execute_s=warm,
+        row = dict(batch=B, seq=S, launches=launches, execute_s=warm,
                    tokens_per_s=B * S / min(warm), peak_gib=peak)
+        label = f"prefill {cfg.name} {B}x{S}"
         rows, traced_s = self.trace(lambda: forward(model, cfg, batch))
-        row.update(self.busy(f"prefill {B}x{S}", rows, traced_s, min(warm),
-                             "rwkv6"))
+        row.update(self.busy(label, rows, traced_s, min(warm), symbol))
         if "device_busy_ms" in row:
-            row["rwkv6_share"] = row["rwkv6_device_ms"] / row["device_busy_ms"]
-            log(f"[profile prefill {B}x{S}] rwkv6 share of device time "
-                f"{row['rwkv6_share']:.4f}")
-        self.report["prefill_rwkv6_3b"] = row
+            row["kernel_share"] = (row[f"{symbol}_device_ms"]
+                                   / row["device_busy_ms"])
+            log(f"[profile {label}] {symbol} share of device time "
+                f"{row['kernel_share']:.4f}")
+        self.report[f"prefill_{cfg.name}"] = row
         return launches
 
-    def serve(self, model, cfg):
+    def serve(self, model, cfg, symbol: str):
         """`Generator` answers 8 requests (64-token prompts, 32 greedy
-        steps) through decode_step alone: no wkv launch."""
+        steps) through decode_step alone: no kernel launch."""
         import numpy as np
         from repro_torch.models import decode_step, init_cache
         from repro_torch.serve import Generator
@@ -649,10 +681,9 @@ class Smoke:
         out = gen.generate(prompts, steps)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        pairs, mixing, launches = self.read_counts()
-        check(launches == 0, f"Generator launched the rwkv6 kernel "
-              f"{launches} times; its prefill is teacher-forced decode")
-        check(pairs == mixing == 0, "Generator launched a gossip kernel")
+        counts = self.read_counts()
+        self.check_idle(counts, None, f"{cfg.name} Generator (its prefill is "
+                        f"teacher-forced decode)")
         stats = dict(gen.last_stats)
         check(out.shape == (B, stats["decode_steps"]) and 0 < out.shape[1]
               <= steps and out.min() >= 0 and out.max() < cfg.vocab_size,
@@ -665,12 +696,13 @@ class Smoke:
         check(np.array_equal(out, again), "greedy generate is not repeatable")
         # every token, prompt or generated, is one decode_step row
         step_tokens = B * (P + stats["decode_steps"])
-        log(f"[serve {B}x({P}+{steps})] rwkv6 launches {launches}; "
+        log(f"[serve {cfg.name} {B}x({P}+{steps})] launches "
+            f"{counts}; "
             f"{stats}; cold {cold_s:.3f} s, warm {warm_s:.3f} s: "
             f"{step_tokens / warm_s:.1f} decode tokens/s, "
             f"{stats['live_tokens'] / warm_s:.1f} generated tokens/s")
         row = dict(
-            requests=B, prompt=P, steps=steps, rwkv6_launches=launches,
+            requests=B, prompt=P, steps=steps, launches=counts,
             cold_s=cold_s, warm_s=warm_s, last_stats=stats,
             decode_tokens_per_s=step_tokens / warm_s,
             generated_tokens_per_s=stats["live_tokens"] / warm_s)
@@ -678,10 +710,10 @@ class Smoke:
         cache = init_cache(model, cfg, B, P + steps)
         rows, traced_s = self.trace(
             lambda: decode_step(model, cfg, cache, prompts[:, 0]))
-        row.update(self.busy(f"decode step {B}", rows, traced_s,
-                             warm_s / (P + stats["decode_steps"]), "rwkv6"))
-        self.report["serve_rwkv6_3b"] = row
-        return launches
+        row.update(self.busy(f"decode step {cfg.name} {B}", rows, traced_s,
+                             warm_s / (P + stats["decode_steps"]), symbol))
+        self.report[f"serve_{cfg.name}"] = row
+        return sum(counts.values())
 
     def agreement(self, model, cfg, checked: bool):
         """forward (through the wkv kernel) against decode_step fed token
@@ -718,7 +750,8 @@ class Smoke:
             state = init_rwkv_state(cfg, B, self.dev)
             outs = []
             for t in range(S):
-                out, state = _block_decode(p, cfg, x[:, t:t + 1], state)
+                out, state = _block_decode(p, cfg, "rwkv", x[:, t:t + 1],
+                                           state, t)
                 outs.append(out)
             return torch.cat(outs, 1)
 
@@ -727,7 +760,7 @@ class Smoke:
         with no_tf32(), torch.no_grad():
             x = xd = _embed(model, cfg, tokens)
             for p in model.blocks:
-                y = _block_forward(p, cfg, x).float()
+                y = _block_forward(p, cfg, "rwkv", x, None).float()
                 yd = decode_seq(p, x).float()
                 xd = decode_seq(p, xd)
                 block_diff.append(float((yd - y).abs().max()))
@@ -756,6 +789,161 @@ class Smoke:
             gap_growth_per_layer=growth,
             tol=AGREE_F32_TOL if checked else None)
 
+
+    # ------------------------------------------------------ llama3.2-3b
+    def flash(self):
+        """The flash kernel against its plain version on the card: at the
+        llama3.2-3b prefill's per-layer shape (bf16, causal) and at the
+        reference kernel tests' shapes and options; times at the first."""
+        import math
+
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.flash_attention import (
+            attention_ref, flash_attention)
+
+        bf16, f32 = torch.bfloat16, torch.float32
+        g = self.gen(16)
+        cases = (((4, 24, 8, 4096, 128), bf16, {}),
+                 ((2, 4, 2, 256, 64), bf16, {}),
+                 ((1, 8, 1, 128, 128), f32, {}),
+                 ((1, 2, 2, 200, 64), f32, {}),
+                 ((1, 2, 2, 384, 64), f32, {"window": 64}),
+                 ((1, 2, 2, 384, 64), f32, {"window": 128}),
+                 ((1, 2, 2, 256, 64), f32, {"softcap": 30.0}),
+                 ((1, 2, 2, 256, 64), f32, {"causal": False}),
+                 ((1, 4, 4, 300, 256), bf16, {}))
+        worst, main = 0.0, None
+        for (B, Hq, Hkv, S, D), dt, opts in cases:
+            q, k, v = (torch.randn((B, h, S, D), generator=g, device=self.dev)
+                       .to(dt) for h in (Hq, Hkv, Hkv))
+            got = flash_attention(q, k, v, **opts)
+            torch.cuda.synchronize()
+            want = attention_ref(q, k, v, **opts)
+            err = float((got.float() - want.float()).abs().max())
+            worst = max(worst, err)
+            tol = FLASH_TOL["bfloat16" if dt == bf16 else "float32"]
+            check(got.dtype == dt and got.shape == q.shape,
+                  f"flash kernel output {got.dtype} {tuple(got.shape)}")
+            check(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol),
+                  f"flash kernel != plain version at {(B, Hq, Hkv, S, D)} "
+                  f"{dt} {opts} (max abs err {err})")
+            del want
+            if main is None:
+                main = (q, k, v)
+        q, k, v = main
+        B, Hq, S, D = q.shape
+        Hkv = k.shape[1]
+        scale = 1.0 / math.sqrt(D)
+        ms = self.time_ms(lambda: flash_attention(q, k, v), reps=10)
+        plain = self.time_ms(lambda: attention_ref(q, k, v), reps=2, warmup=1)
+        library = self.time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True), reps=20)
+        # q, k, v read once and o written once; the operations the causal
+        # function needs: two products of length D for each of the
+        # S(S+1)/2 (query, key) pairs a head keeps, on bf16 inputs with
+        # f32 sums, so the tensor cores' bf16 rate bounds them
+        nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
+        flops = 4 * D * B * Hq * S * (S + 1) // 2
+        bound, by = self.bound_ms(nbytes, flops, peak=self.bf16)
+        log(f"[flash] allclose to the plain version ({FLASH_TOL}) at "
+            f"{len(cases)} shapes, max abs err {worst:.3e}; at "
+            f"{(B, Hq, Hkv, S, D)} bf16 causal: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.2f} ms, SDPA "
+            f"{library:.4f} ms, bound {bound:.4f} ms ({by}, "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        self.kernels["flash_attention"] = dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:40",
+            launches=None, max_abs_err=worst, ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=library,
+            shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, dtype="bfloat16",
+                       causal=True))
+
+    def agreement_attn(self, model, cfg, checked: bool):
+        """Each block's attention sublayer on the kernel route
+        (`chunk_threshold=0`) against `decode_attention` fed the same
+        input token by token; held to AGREE_ATTN_TOL when `checked`, else
+        reported.  Also reported: forward's logits against token-by-token
+        decode_step, and the gap between the two paths' hidden states
+        after every block (the forward chain on the kernel route)."""
+        torch = self.torch
+        from repro_torch._tf32 import no_tf32
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.models import decode_step, forward, init_cache
+        from repro_torch.models.attention import (
+            attention, decode_attention, init_kv_cache)
+        from repro_torch.models.model import (
+            _apply_norm, _block_decode, _block_forward, _embed)
+
+        B, S = AGREE
+        tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                               generator=self.gen(17), device=self.dev)
+        full = forward(model, cfg, {"tokens": tokens})
+        cache = init_cache(model, cfg, B, S)
+        steps = []
+        for t in range(S):
+            logits, cache = decode_step(model, cfg, cache, tokens[:, t])
+            steps.append(logits)
+        dec = torch.stack(steps, 1)
+        diff = float((dec - full).abs().max())
+        scale = float(full.abs().max())
+        check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
+              f"{cfg.dtype} agreement: logits not finite")
+        positions = torch.arange(S, device=self.dev)[None].expand(B, S)
+
+        def decode_attn(p, kind, z):
+            kv = init_kv_cache(cfg, kind, B, S, self.dev)
+            return torch.cat([decode_attention(p, cfg, z[:, t:t + 1], kv, t,
+                                               kind=kind)[0]
+                              for t in range(S)], 1)
+
+        def decode_block(p, kind, x):
+            kv = init_kv_cache(cfg, kind, B, S, self.dev)
+            return torch.cat([_block_decode(p, cfg, kind, x[:, t:t + 1], kv,
+                                            t)[0] for t in range(S)], 1)
+
+        attn_diff, chain_diff = [], []
+        with no_tf32(), torch.no_grad():
+            x = xd = _embed(model, cfg, tokens)
+            for p, kind in zip(model.blocks, cfg.layer_kinds()):
+                z = _apply_norm(p["ln1"], cfg, x)
+                before = flash_attention.launches
+                a = attention(p["attn"], cfg, z, positions,
+                              chunk_threshold=0).float()
+                check(flash_attention.launches == before + 1,
+                      "attention at chunk_threshold=0 did not take the "
+                      "flash route")
+                ad = decode_attn(p["attn"], kind, z).float()
+                attn_diff.append(float((ad - a).abs().max()))
+                check(not checked or torch.allclose(
+                    ad, a, rtol=AGREE_ATTN_TOL, atol=AGREE_ATTN_TOL),
+                      f"{cfg.dtype} block {len(attn_diff) - 1}: attention "
+                      f"on the kernel route vs decode_attention max abs diff "
+                      f"{attn_diff[-1]} beyond {AGREE_ATTN_TOL}")
+                y = _block_forward(p, cfg, kind, x, positions,
+                                   chunk_threshold=0)
+                xd = decode_block(p, kind, xd)
+                chain_diff.append(float((xd.float() - y.float()).abs().max()))
+                x = y
+        growth = ((chain_diff[-1] / chain_diff[0]) ** (1 / (len(chain_diff) - 1))
+                  if chain_diff[0] > 0 else None)
+        log(f"[agree {cfg.name} {cfg.dtype} {B}x{S}] attention on the kernel "
+            f"route vs decode_attention, per block up to {max(attn_diff):.3e}"
+            + (f" (within {AGREE_ATTN_TOL})" if checked
+               else " (reported only)")
+            + f"; max |forward - decode| {diff:.3e} over logits up to "
+            f"{scale:.3f} (reported); hidden-state gap {chain_diff[0]:.3e} "
+            f"after block 0, {chain_diff[-1]:.3e} after block "
+            f"{len(chain_diff) - 1} (growth a layer: "
+            f"{'none' if growth is None else f'{growth:.3f}x'})")
+        self.report[f"agreement_{cfg.name}_{cfg.dtype}"] = dict(
+            batch=B, seq=S, attn_max_abs_diff=attn_diff,
+            logits_max_abs_diff=diff, max_abs_logit=scale,
+            hidden_gap=chain_diff, gap_growth_per_layer=growth,
+            tol=AGREE_ATTN_TOL if checked else None)
 
 
 def main() -> int:
@@ -816,8 +1004,8 @@ def main() -> int:
     model = smoke.model(cfg)
     forward_path = f"forward rwkv6-3b {PREFILL[0]}x{PREFILL[1]}"
     serve_path = f"Generator rwkv6-3b {SERVE[0]}x({SERVE[1]}+{SERVE[2]})"
-    wkv = smoke.prefill(model, cfg)
-    served = smoke.serve(model, cfg)
+    wkv = smoke.prefill(model, cfg, "rwkv6", 32, "rwkv6")
+    served = smoke.serve(model, cfg, "rwkv6")
     smoke.agreement(model, cfg, checked=False)
     smoke.kernels["rwkv6"].update(
         launches=wkv, path=forward_path,
@@ -827,6 +1015,27 @@ def main() -> int:
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model32 = smoke.model(cfg32)
     smoke.agreement(model32, cfg32, checked=True)
+    del model32
+    torch.cuda.empty_cache()
+
+    # the llama3.2-3b serving path; the rwkv6-3b models are freed first
+    smoke.flash()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-3b")
+    model = smoke.model(cfg)
+    forward_path = f"forward llama3.2-3b {PREFILL[0]}x{PREFILL[1]}"
+    serve_path = f"Generator llama3.2-3b {SERVE[0]}x({SERVE[1]}+{SERVE[2]})"
+    flash = smoke.prefill(model, cfg, "flash_attention", 28, "flash_kernel")
+    served = smoke.serve(model, cfg, "flash_kernel")
+    smoke.agreement_attn(model, cfg, checked=False)
+    smoke.kernels["flash_attention"].update(
+        launches=flash, path=forward_path,
+        launches_by_path={forward_path: flash, serve_path: served})
+    del model
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = smoke.model(cfg32)
+    smoke.agreement_attn(model32, cfg32, checked=True)
     del model32
     torch.cuda.empty_cache()
 

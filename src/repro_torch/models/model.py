@@ -1,11 +1,13 @@
 """The decoder stack of the reference's unified transformer, for rwkv
-blocks (rwkv6-3b).
+blocks (rwkv6-3b) and dense attention blocks (llama3.2-3b, yi-6b,
+gemma-7b, qwen2-vl-72b below the flash route's threshold).
 
 The reference stacks each homogeneous group of layers and scans over
 it; here `Transformer` is an `nn.Module` holding one block per layer in
 a `ModuleList`, and the stack is a Python loop.  Remat and sharding
-constraints have no role when serving.  Other block kinds (attention,
-RG-LRU, MoE) and the encoder are not ported yet and raise.
+constraints have no role when serving.  The other block kinds
+(sliding-window "local" attention, RG-LRU), MoE and the encoder are not
+ported yet and raise.
 
 Entry points:
   Transformer(cfg)                    — parameters on the meta device,
@@ -20,8 +22,11 @@ from torch import nn
 
 from .._tf32 import no_tf32
 from ..core.options import resolve_device
+from .attention import attention, attn_params, decode_attention, init_kv_cache
 from .config import ModelConfig
-from .layers import DTYPES, P_, count_params, dense, layer_norm, rms_norm
+from .layers import (
+    DTYPES, P_, count_params, dense, layer_norm, mlp, mlp_params, rms_norm,
+)
 from .rwkv import (
     init_rwkv_state, rwkv_channel_mix, rwkv_channel_mix_decode, rwkv_params,
     rwkv_time_mix, rwkv_time_mix_decode,
@@ -30,7 +35,7 @@ from .rwkv import (
 __all__ = ["Transformer", "forward", "init_cache", "decode_step",
            "model_params"]
 
-_PORTED_KINDS = ("rwkv",)
+_PORTED_KINDS = ("rwkv", "attn")
 
 
 # --------------------------- parameter tree ---------------------------
@@ -56,8 +61,19 @@ def block_params(cfg: ModelConfig, kind: str) -> dict:
         raise NotImplementedError(
             f"block kind {kind!r} of {cfg.name} is not ported yet; the port "
             f"runs {_PORTED_KINDS} blocks")
-    return {"ln1": _norm_params(cfg, kind), "ln2": _norm_params(cfg, kind),
-            **rwkv_params(cfg)}
+    d: dict = {"ln1": _norm_params(cfg, kind), "ln2": _norm_params(cfg, kind)}
+    if kind == "rwkv":
+        d.update(rwkv_params(cfg))
+        return d
+    if cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE feed-forward is not ported yet")
+    d["attn"] = attn_params(cfg)
+    d["mlp"] = mlp_params(cfg.d_model, cfg.d_ff, cfg.mlp_kind)
+    if cfg.post_norms:
+        d["post1"] = _norm_params(cfg, kind)
+        d["post2"] = _norm_params(cfg, kind)
+    return d
 
 
 def model_params(cfg: ModelConfig) -> dict:
@@ -107,9 +123,29 @@ def flat_tree(tree, prefix=""):
 # ------------------------------ forward -------------------------------
 
 
-def _block_forward(p, cfg: ModelConfig, x):
-    x = x + rwkv_time_mix(p["time"], cfg, _apply_norm(p["ln1"], cfg, x))
-    return x + rwkv_channel_mix(p["channel"], cfg, _apply_norm(p["ln2"], cfg, x))
+def _block_forward(p, cfg: ModelConfig, kind: str, x, positions, *,
+                   chunk_threshold: int = 2047):
+    """One block over a full sequence.  `chunk_threshold` is the
+    attention's (keys beyond it take the flash route)."""
+    if kind == "rwkv":
+        x = x + rwkv_time_mix(p["time"], cfg, _apply_norm(p["ln1"], cfg, x))
+        return x + rwkv_channel_mix(p["channel"], cfg,
+                                    _apply_norm(p["ln2"], cfg, x))
+    h = attention(p["attn"], cfg, _apply_norm(p["ln1"], cfg, x), positions,
+                  kind=kind, chunk_threshold=chunk_threshold)
+    return _attn_block_rest(p, cfg, x, h)
+
+
+def _attn_block_rest(p, cfg: ModelConfig, x, h):
+    """An attention block after its attention output `h`: the residual,
+    then the MLP's, each with its post-norm where the config has them."""
+    if cfg.post_norms:
+        h = _apply_norm(p["post1"], cfg, h)
+    x = x + h
+    h = mlp(_apply_norm(p["ln2"], cfg, x), p["mlp"], cfg.mlp_kind)
+    if cfg.post_norms:
+        h = _apply_norm(p["post2"], cfg, h)
+    return x + h
 
 
 def _embed(params, cfg: ModelConfig, tokens):
@@ -137,16 +173,27 @@ def _tokens(params, tokens):
     return torch.as_tensor(tokens, device=params.embed.device).long()
 
 
+def _positions(cfg: ModelConfig, batch: dict, tokens):
+    """(B, S) positions 0..S-1, or the batch's (B, S, 3) M-RoPE ids."""
+    if cfg.mrope_sections is not None:
+        return torch.as_tensor(batch["positions"], device=tokens.device)
+    B, S = tokens.shape
+    return torch.arange(S, device=tokens.device)[None].expand(B, S)
+
+
 def _hidden(params, cfg: ModelConfig, batch: dict):
     """Backbone through the final norm (pre-unembed)."""
-    x = _embed(params, cfg, _tokens(params, batch["tokens"]))
-    for p in params.blocks:
-        x = _block_forward(p, cfg, x)
+    tokens = _tokens(params, batch["tokens"])
+    positions = _positions(cfg, batch, tokens)
+    x = _embed(params, cfg, tokens)
+    for p, kind in zip(params.blocks, cfg.layer_kinds()):
+        x = _block_forward(p, cfg, kind, x, positions)
     return _apply_norm(params.final_norm, cfg, x)
 
 
 def forward(params, cfg: ModelConfig, batch: dict):
-    """batch: tokens (B,S). Returns fp32 logits (B,S,V)."""
+    """batch: tokens (B,S) [+ positions (B,S,3) for M-RoPE].  Returns
+    fp32 logits (B,S,V)."""
     with no_tf32(), torch.no_grad():
         return _unembed(params, cfg, _hidden(params, cfg, batch))
 
@@ -159,32 +206,40 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int) -> dict:
     the attention cache length; recurrent layers keep O(1) state."""
     device = params.embed.device
     return {
-        "layers": [init_rwkv_state(cfg, batch, device)
-                   for _ in cfg.layer_kinds()],
+        "layers": [init_rwkv_state(cfg, batch, device) if kind == "rwkv"
+                   else init_kv_cache(cfg, kind, batch, max_len, device)
+                   for kind in cfg.layer_kinds()],
         "step": 0,
     }
 
 
-def _block_decode(p, cfg: ModelConfig, x, state):
-    h, new_t = rwkv_time_mix_decode(
-        p["time"], cfg, _apply_norm(p["ln1"], cfg, x), state)
-    x = x + h
-    h, new_c = rwkv_channel_mix_decode(
-        p["channel"], cfg, _apply_norm(p["ln2"], cfg, x), new_t)
-    return x + h, new_c
+def _block_decode(p, cfg: ModelConfig, kind: str, x, state, step: int):
+    if kind == "rwkv":
+        h, new_t = rwkv_time_mix_decode(
+            p["time"], cfg, _apply_norm(p["ln1"], cfg, x), state)
+        x = x + h
+        h, new_c = rwkv_channel_mix_decode(
+            p["channel"], cfg, _apply_norm(p["ln2"], cfg, x), new_t)
+        return x + h, new_c
+    h, new = decode_attention(p["attn"], cfg, _apply_norm(p["ln1"], cfg, x),
+                              state, step, kind=kind)
+    return _attn_block_rest(p, cfg, x, h), new
 
 
 def decode_step(params, cfg: ModelConfig, cache: dict, tokens):
-    """One serving step: tokens (B,) -> logits (B, V), updated cache."""
+    """One serving step: tokens (B,) -> logits (B, V), updated cache.
+    Attention layers write their KV cache in place."""
+    step = cache["step"]
     with no_tf32(), torch.no_grad():
         x = _embed(params, cfg, _tokens(params, tokens)[:, None])
         layers = []
-        for p, state in zip(params.blocks, cache["layers"]):
-            x, new = _block_decode(p, cfg, x, state)
+        for p, kind, state in zip(params.blocks, cfg.layer_kinds(),
+                                  cache["layers"]):
+            x, new = _block_decode(p, cfg, kind, x, state, step)
             layers.append(new)
         x = _apply_norm(params.final_norm, cfg, x)
         logits = _unembed(params, cfg, x)[:, 0]
-    return logits, {"layers": layers, "step": cache["step"] + 1}
+    return logits, {"layers": layers, "step": step + 1}
 
 
 # ------------------------------ facade --------------------------------

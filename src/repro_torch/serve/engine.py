@@ -3,8 +3,9 @@
 `make_serve_step(cfg)` builds the single-token step; `Generator` drives
 it (greedy or temperature sampling, batched requests with per-slot stop
 handling).  The prompt is teacher-forced through the same step, token by
-token, as in the reference, so serving launches no wkv kernel: decode
-runs the O(1) recurrence.
+token, as in the reference, so serving launches neither the wkv nor the
+flash kernel: rwkv layers run the O(1) recurrence, attention layers
+attend over a `max_len` KV cache in plain tensor code.
 """
 from __future__ import annotations
 

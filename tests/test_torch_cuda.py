@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.cell_mixing import cell_mixing, cell_mixing_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.pair_apply import pair_apply, pair_apply_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import rwkv6_ref, rwkv6_wkv  # noqa: E402
 
@@ -116,3 +117,59 @@ def test_rwkv6_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         rwkv6_wkv(h, h, h, h, torch.zeros((2, 16), device=cuda_device,
                                           dtype=torch.float16))
+
+
+# flash_attention: allclose to the plain version at the reference kernel
+# tests' tolerances, f32 2e-5 and bf16 3e-2 (the kernel and the plain
+# version sum in other orders; a bf16 output rounds to 2^-8 of itself).
+_FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,dtype,opts", [
+    (2, 4, 2, 256, 64, torch.bfloat16, {}),
+    (1, 8, 1, 128, 128, torch.float32, {}),
+    (1, 2, 2, 200, 64, torch.float32, {}),
+    (1, 2, 2, 384, 64, torch.float32, {"window": 64}),
+    (1, 2, 2, 384, 64, torch.float32, {"window": 128}),
+    (1, 2, 2, 256, 64, torch.float32, {"softcap": 30.0}),
+    (1, 2, 2, 256, 64, torch.float32, {"causal": False}),
+    (1, 4, 4, 300, 256, torch.bfloat16, {}),
+    (1, 24, 8, 1000, 128, torch.bfloat16, {}),
+], ids=["gqa-bf16", "mqa-f32", "unaligned", "window64", "window128",
+        "softcap", "noncausal", "d256", "llama-heads"])
+def test_flash_attention_kernel_on_card(cuda_device, B, Hq, Hkv, S, D, dtype,
+                                        opts):
+    rng = np.random.default_rng(S + D)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, h, S, D)).astype(
+        np.float32)).to(cuda_device, dtype) for h in (Hq, Hkv, Hkv))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, Hq, S, D)
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v, **opts).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros((1, 2, 16, 96), device=cuda_device)
+    with pytest.raises(ValueError, match="head size"):
+        flash_attention(x, x, x)
+    h = torch.zeros((1, 2, 16, 64), device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(h, h, h)
+    y = torch.zeros((1, 16, 2, 64), device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(y, y, y)
+    q = torch.zeros((1, 3, 16, 64), device=cuda_device)
+    kv = torch.zeros((1, 2, 16, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="group"):
+        flash_attention(q, kv, kv)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(kv, kv, kv, window=0)
+    assert flash_attention.launches == before

@@ -1,0 +1,110 @@
+"""The port's flash-attention op on CPU tensors (its plain version,
+`attention_ref`) against the reference's oracle and its Pallas kernel in
+interpret mode, on the same inputs, at the shapes and options of the
+reference's own kernel tests.  The CUDA kernel is held against the plain
+version on the card by tests/test_torch_cuda.py.
+
+Tolerances are the reference kernel tests': f32 2e-5, bf16 3e-2 (rtol
+and atol).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import attention_ref as attention_ref_jax  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as flash_jax  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
+
+TOL = {"f32": 2e-5, "bf16": 3e-2}
+_JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+_TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _inputs(B, Hq, Hkv, S, D, kind, seed):
+    """q, k, v drawn with numpy, rounded to the working type once, handed
+    to both packages."""
+    rng = np.random.default_rng(seed)
+    shapes = ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D))
+    jax_args = [jnp.asarray(rng.normal(size=s), _JNP[kind]) for s in shapes]
+    torch_args = [torch.from_numpy(np.array(a, np.float32)).to(_TORCH[kind])
+                  for a in jax_args]
+    return jax_args, torch_args
+
+
+def _check(B, Hq, Hkv, S, D, kind, seed, **opts):
+    jargs, targs = _inputs(B, Hq, Hkv, S, D, kind, seed)
+    before = flash_attention.launches
+    got = flash_attention(*targs, **opts)
+    assert flash_attention.launches == before  # the CPU runs no kernel
+    assert got.dtype == _TORCH[kind] and got.shape == (B, Hq, S, D)
+    got = got.float().numpy()
+    tol = TOL[kind]
+    oracle = attention_ref_jax(*jargs, **opts)
+    np.testing.assert_allclose(got, np.asarray(oracle, np.float32),
+                               rtol=tol, atol=tol)
+    pallas = flash_jax(*jargs, **opts, block_q=128, block_k=128,
+                       use_pallas=True, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64),
+                                          (1, 8, 1, 128, 128)])
+def test_causal_matches_reference(B, Hq, Hkv, S, D, kind):
+    _check(B, Hq, Hkv, S, D, kind, seed=S + Hq, causal=True)
+
+
+@pytest.mark.parametrize("window", [64, 128])
+def test_sliding_window_matches_reference(window):
+    _check(1, 2, 2, 384, 64, "f32", seed=window, causal=True, window=window)
+
+
+def test_softcap_matches_reference():
+    _check(1, 2, 2, 256, 64, "f32", seed=9, causal=True, softcap=30.0)
+
+
+def test_unaligned_sequence_matches_reference():
+    _check(1, 2, 2, 200, 64, "f32", seed=11, causal=True)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_noncausal_matches_reference(kind):
+    _check(1, 2, 2, 256, 64, kind, seed=13, causal=False)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_gqa_groups_match_reference(group):
+    _check(2, 8, 8 // group, 200, 64, "f32", seed=group, causal=True)
+
+
+def test_scale_and_window_without_causal_match_reference():
+    _check(1, 4, 2, 300, 128, "f32", seed=17, causal=False, window=100,
+           scale=0.05)
+
+
+def test_attention_ref_is_the_plain_softmax():
+    """The plain version by hand: one head, every row's softmax over the
+    keys it may see."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 1, 5, 4)).astype(
+        np.float32)) for _ in range(3))
+    got = attention_ref(q, k, v, causal=True, window=2)
+    s = (q[0, 0] @ k[0, 0].T) / 2.0
+    for i in range(5):
+        keep = [j for j in range(5) if i - 2 < j <= i]
+        p = torch.softmax(s[i, keep], 0)
+        torch.testing.assert_close(got[0, 0, i], p @ v[0, 0, keep])
+
+
+def test_op_rejects_other_devices():
+    q = torch.zeros((1, 2, 8, 64), device="meta")
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention(torch.zeros((1, 2, 8, 64)), q, q)
+    assert flash_attention.launches == before

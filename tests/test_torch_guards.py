@@ -103,6 +103,34 @@ def test_model_entry_points_raise_without_cuda(no_cuda):
     Generator(cfg, model, device="cpu")
 
 
+def test_dense_model_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import Transformer, params_from_reference
+    from repro_torch.serve import Generator
+
+    full = get_config("llama3.2-3b")
+    cfg = reduce_config(full)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Transformer(full).init(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_reference({"groups": []}, cfg)
+    model = Transformer(cfg).init(seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Generator(cfg, model)
+    Generator(cfg, model, device="cpu")
+
+
+def test_attention_modules_import_neither_jax_nor_reference():
+    code = ("import sys; import repro_torch.models.attention, "
+            "repro_torch.kernels.flash_attention; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_generator_rejects_parameters_elsewhere():
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.models import Transformer
@@ -125,3 +153,15 @@ def test_kernel_ops_reject_other_devices():
     with pytest.raises(ValueError):
         cell_mixing(torch.zeros((2, 3, 3), device="meta"), x)
     assert pair_apply.launches == 0 and cell_mixing.launches == 0
+
+
+def test_flash_attention_rejects_other_devices():
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    before = flash_attention.launches
+    q = torch.zeros((1, 2, 8, 64), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention(torch.zeros((1, 2, 8, 64)), q, q)
+    assert flash_attention.launches == before

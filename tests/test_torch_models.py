@@ -1,7 +1,11 @@
-"""The port's rwkv6-3b serving path against the reference package, on
-the CPU, at `reduce_config(get_config("rwkv6-3b"))` size (2 layers,
-d 64, head 16, vocab 512) on the reference's initialised parameters
-(`params_from_reference`).
+"""The port's serving path against the reference package, on the CPU,
+at `reduce_config` size (2 layers, d 64, heads of 16, vocab 512) on the
+reference's initialised parameters (`params_from_reference`): rwkv6-3b,
+and the dense attention models llama3.2-3b (tied, GQA), yi-6b (untied)
+and gemma-7b (GeGLU, scaled embeddings, MHA).  One forward runs 2100
+tokens, past the reference's `chunk_threshold`, so the model itself
+takes the flash route (the op's plain version on CPU tensors) where the
+reference runs `chunked_attention`.
 
 Tolerances:
 
@@ -58,11 +62,14 @@ BF16_MAX_RATIO = 1.5
 BF16_ROW_RATIO = 2.5
 
 
-def _cfgs(dtype="bfloat16", **changes):
+DENSE = ("llama3.2-3b", "yi-6b", "gemma-7b")
+
+
+def _cfgs(dtype="bfloat16", arch="rwkv6-3b", **changes):
     ref = dataclasses.replace(
-        ref_configs.reduce_config(ref_configs.get_config("rwkv6-3b")),
+        ref_configs.reduce_config(ref_configs.get_config(arch)),
         dtype=dtype, **changes)
-    port = dataclasses.replace(reduce_config(get_config("rwkv6-3b")),
+    port = dataclasses.replace(reduce_config(get_config(arch)),
                                dtype=dtype, **changes)
     return ref, port
 
@@ -127,11 +134,25 @@ def test_num_params_match_reference(reduced):
     assert all(p.device.type == "meta" for p in model.parameters())
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "recurrentgemma-9b",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["gemma2-27b", "recurrentgemma-9b",
+                                  "whisper-tiny",
+                                  "llama4-maverick-400b-a17b"])
 def test_unported_block_kinds_raise(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Transformer(reduce_config(get_config(arch)))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("reduced", [True, False])
+def test_dense_num_params_match_reference(arch, reduced):
+    cfg, ref_cfg = get_config(arch), ref_configs.get_config(arch)
+    if reduced:
+        cfg, ref_cfg = reduce_config(cfg), ref_configs.reduce_config(ref_cfg)
+    model = Transformer(cfg)
+    want = ref_models.Transformer(ref_cfg, model_axis=1).num_params
+    assert model.num_params == want == sum(p.numel() for p in model.parameters())
+    if arch == "llama3.2-3b" and not reduced:
+        assert want == 3_212_749_824
 
 
 def test_init_from_seed():
@@ -306,3 +327,137 @@ def test_generator_temperature_sampling_is_seeded():
     np.testing.assert_array_equal(a, b)
     assert not np.array_equal(a, c)
     assert a.shape == (4, 6) and a.min() >= 0 and a.max() < cfg.vocab_size
+
+
+# ------------------------- dense attention models ---------------------
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_forward_matches_reference_f32(arch):
+    ref_cfg, cfg = _cfgs("float32", arch)
+    ref_p, port_p = _params(ref_cfg, cfg, seed=0)
+    toks = _tokens(cfg, 2, 16, seed=1)
+    want = ref_models.forward(ref_p, ref_cfg, {"tokens": jnp.asarray(toks)})
+    got = forward(port_p, cfg, {"tokens": toks})
+    assert got.dtype == torch.float32 and got.shape == (2, 16, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_forward_matches_reference_bf16(arch):
+    ref_cfg, cfg = _cfgs("bfloat16", arch)
+    ref_p, port_p = _params(ref_cfg, cfg, seed=3)
+    toks = _tokens(cfg, 2, 16, seed=4)
+    want16 = ref_models.forward(ref_p, ref_cfg, {"tokens": jnp.asarray(toks)})
+    want32 = ref_models.forward(*reversed(_f32_twin(ref_cfg, ref_p)),
+                                {"tokens": jnp.asarray(toks)})
+    _assert_bf16_close(port_p({"tokens": toks}), want16, want32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_forward_past_chunk_threshold_matches_reference(dtype):
+    """2100 tokens: every layer's attention takes the flash route (the
+    reference: chunked_attention over 1024-key chunks)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    ref_cfg, cfg = _cfgs(dtype, "llama3.2-3b")
+    ref_p, port_p = _params(ref_cfg, cfg, seed=6)
+    toks = _tokens(cfg, 1, 2100, seed=7)
+    batch = {"tokens": jnp.asarray(toks)}
+    want = ref_models.forward(ref_p, ref_cfg, batch)
+    before = flash_attention.launches
+    got = forward(port_p, cfg, {"tokens": toks})
+    assert flash_attention.launches == before  # CPU: the plain version
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=F32_TOL, atol=F32_TOL)
+    else:
+        want32 = ref_models.forward(*reversed(_f32_twin(ref_cfg, ref_p)),
+                                    batch)
+        _assert_bf16_close(got, want, want32)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_decode_step_and_cache_match_reference_f32(arch):
+    ref_cfg, cfg = _cfgs("float32", arch)
+    ref_p, port_p = _params(ref_cfg, cfg, seed=2)
+    B, steps = 2, 8
+    toks = _tokens(cfg, B, steps, seed=3)
+    ref_c = ref_models.init_cache(ref_p, ref_cfg, batch=B, max_len=16)
+    port_c = init_cache(port_p, cfg, B, 16)
+    _cache_close(port_c, cache_from_reference(jax.tree.map(np.asarray, ref_c),
+                                              cfg, device="cpu"),
+                 np.testing.assert_array_equal)
+    for t in range(steps):
+        want, ref_c = ref_models.decode_step(ref_p, ref_cfg, ref_c,
+                                             jnp.asarray(toks[:, t]))
+        got, port_c = decode_step(port_p, cfg, port_c, toks[:, t])
+        assert got.shape == (B, cfg.vocab_size) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=F32_TOL, atol=F32_TOL)
+    want_c = cache_from_reference(jax.tree.map(np.asarray, ref_c), cfg,
+                                  device="cpu")
+    _cache_close(port_c, want_c, lambda a, b: np.testing.assert_allclose(
+        a, b, rtol=F32_TOL, atol=F32_TOL))
+
+
+def test_dense_decode_step_and_cache_match_reference_bf16():
+    ref_cfg, cfg = _cfgs("bfloat16", "llama3.2-3b")
+    ref_p, port_p = _params(ref_cfg, cfg, seed=2)
+    twin_cfg, twin_p = _f32_twin(ref_cfg, ref_p)
+    B, steps = 2, 8
+    toks = _tokens(cfg, B, steps, seed=3)
+    ref_c = ref_models.init_cache(ref_p, ref_cfg, batch=B, max_len=steps)
+    twin_c = ref_models.init_cache(twin_p, twin_cfg, batch=B, max_len=steps)
+    port_c = init_cache(port_p, cfg, B, steps)
+    logits = {"port": [], "ref": [], "twin": []}
+    for t in range(steps):
+        tok = jnp.asarray(toks[:, t])
+        want, ref_c = ref_models.decode_step(ref_p, ref_cfg, ref_c, tok)
+        want32, twin_c = ref_models.decode_step(twin_p, twin_cfg, twin_c, tok)
+        got, port_c = decode_step(port_p, cfg, port_c, toks[:, t])
+        for k, v in (("port", got), ("ref", want), ("twin", want32)):
+            logits[k].append(np.asarray(v, np.float32))
+    _assert_bf16_close(*(np.stack(logits[k]) for k in ("port", "ref", "twin")))
+    caches = [cache_from_reference(jax.tree.map(np.asarray, c), cfg,
+                                   device="cpu") for c in (ref_c, twin_c)]
+    assert port_c["step"] == caches[0]["step"] == steps
+    for key in ("k", "v"):
+        assert port_c["layers"][0][key].dtype == torch.bfloat16
+        _assert_bf16_close(*(np.stack([layer[key].float().numpy()
+                                       for layer in c["layers"]])
+                             for c in (port_c, *caches)))
+    for mine, ref in zip(port_c["layers"], caches[0]["layers"]):
+        assert torch.equal(mine["pos"], ref["pos"])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_decode_matches_forward(arch):
+    """Teacher-forced decode logits equal the forward's at every position
+    (f32 at 1e-4: the two paths sum in other orders)."""
+    cfg = dataclasses.replace(reduce_config(get_config(arch)),
+                              dtype="float32")
+    model = Transformer(cfg).init(seed=4, device="cpu")
+    B, S = 2, 10
+    toks = _tokens(cfg, B, S, seed=6)
+    full = forward(model, cfg, {"tokens": toks})
+    cache = init_cache(model, cfg, B, S)
+    outs = []
+    for t in range(S):
+        logits, cache = decode_step(model, cfg, cache, toks[:, t])
+        outs.append(logits)
+    torch.testing.assert_close(torch.stack(outs, 1), full, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_generator_greedy_matches_reference(arch):
+    ref_cfg, cfg = _cfgs("float32", arch)
+    ref_p, port_p = _params(ref_cfg, cfg, seed=5)
+    prompts = _tokens(cfg, 3, 6, seed=7)
+    ref_gen = RefGenerator(ref_cfg, ref_p, max_len=32)
+    gen = Generator(cfg, port_p, max_len=32, device="cpu")
+    want = ref_gen.generate(prompts, steps=8)
+    got = gen.generate(prompts, steps=8)
+    np.testing.assert_array_equal(got, want)
+    assert gen.last_stats == ref_gen.last_stats
