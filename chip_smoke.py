@@ -67,26 +67,26 @@ AGREE = (2, 64)
 # wkv kernel vs plain version, allclose in the working type: f32 sums in
 # another order; bf16 output rounds to 2^-8 of its value
 RWKV6_TOL = {"bfloat16": 2e-2, "float32": 3e-4}
-# forward (wkv kernel) vs decode_step (recurrence) in a float32 copy of
-# the config.  Each block alone, fed the same input on both paths, agrees
-# to f32 rounding: rtol and atol 1e-4.  Through the whole stack the
-# randomly drawn model amplifies any difference layer by layer (the
-# agreement phase prints the hidden-state gap after every block and its
-# growth a layer), so the logits are held only to a max abs difference
-# of 0.25 (0.090 on an H100 at 32 layers).  In bf16 both are reported
-# only: the two paths round at other places.
+# forward vs decode_step in a float32 copy of the config: each block
+# through its kernel (rwkv6's wkv; flash attention, forced onto its route
+# with chunk_threshold=0) against decode (the wkv recurrence; the KV
+# cache and decode_attention).  Each block alone, fed the same input on
+# both paths, agrees to f32 rounding: rtol and atol 1e-4.  Through the
+# whole stack the randomly drawn model amplifies any difference layer by
+# layer (the agreement phase prints the hidden-state gap after every
+# block and its growth a layer), so the logits are held only to a max
+# abs difference of 0.25 (0.090 on an H100 for rwkv6-3b at 32 layers).
+# In bf16 both are reported only: the two paths round at other places.
 AGREE_F32_TOL = {"block": 1e-4, "logits": 0.25}
 # llama3.2-3b serving (src/repro/configs/llama3_2_3b.py, full width and
 # depth): the same prefill, serving and agreement sizes as rwkv6-3b.  The
 # prefill is a cut from prefill_32k's 32 x 32768: its f32 logits alone
 # would be 538 GB there and are 8.4 GB at 4 x 4096.
 # flash kernel vs plain version, allclose at the reference kernel tests'
-# tolerances (tests/test_kernels.py): f32 2e-5, bf16 3e-2
+# tolerances (tests/test_kernels.py): f32 2e-5, bf16 3e-2.  The bf16 limit
+# is as large as a typical output at the prefill's shape, so that shape
+# is also checked in f32, on the same inputs, at 2e-5.
 FLASH_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
-# each block's attention sublayer on the kernel route (chunk_threshold=0)
-# against decode_attention fed the same input token by token, in a float32
-# copy of the config: rtol and atol 1e-4 (f32 sums in other orders)
-AGREE_ATTN_TOL = 1e-4
 # published H100 peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores; the
 # PCIe part is slower
@@ -716,16 +716,18 @@ class Smoke:
         return sum(counts.values())
 
     def agreement(self, model, cfg, checked: bool):
-        """forward (through the wkv kernel) against decode_step fed token
-        by token (the O(1) recurrence): the logits at every position, and
-        every block alone on the same input.  Held to AGREE_F32_TOL when
+        """forward against decode_step fed token by token: the logits at
+        every position, and every block alone on the same input, the
+        sequence through the block's kernel (the wkv kernel, or the flash
+        kernel forced onto its route with chunk_threshold=0) against the
+        same tokens one by one through decode (the wkv recurrence, or
+        decode_attention over the KV cache).  Held to AGREE_F32_TOL when
         `checked`, else reported only."""
         torch = self.torch
         from repro_torch._tf32 import no_tf32
         from repro_torch.models import decode_step, forward, init_cache
         from repro_torch.models.model import (
-            _block_decode, _block_forward, _embed)
-        from repro_torch.models.rwkv import init_rwkv_state
+            _block_decode, _block_forward, _embed, layer_state)
 
         B, S = AGREE
         tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=self.gen(15),
@@ -740,55 +742,62 @@ class Smoke:
         diff = float((dec - full).abs().max())
         scale = float(full.abs().max())
         check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
-              f"{cfg.dtype} agreement: logits not finite")
-        # each block on the forward path's input to it: the sequence through
-        # the kernel against the same tokens one by one through the decode
-        # recurrence, with no amplification by the blocks before it; and
-        # the decode path's own hidden states beside the forward path's,
-        # layer by layer, which shows how the stack amplifies their gap
-        def decode_seq(p, x):
-            state = init_rwkv_state(cfg, B, self.dev)
+              f"{cfg.name} {cfg.dtype} agreement: logits not finite")
+        # each block on the forward path's input to it, with no
+        # amplification by the blocks before it; and the decode path's own
+        # hidden states beside the forward path's, layer by layer, which
+        # shows how the stack amplifies their gap
+        def decode_seq(p, kind, x):
+            state = layer_state(cfg, kind, B, S, self.dev)
             outs = []
             for t in range(S):
-                out, state = _block_decode(p, cfg, "rwkv", x[:, t:t + 1],
+                out, state = _block_decode(p, cfg, kind, x[:, t:t + 1],
                                            state, t)
                 outs.append(out)
             return torch.cat(outs, 1)
 
+        ops = self.ops()
         block_diff, chain_diff = [], []
         tol = AGREE_F32_TOL["block"]
         with no_tf32(), torch.no_grad():
             x = xd = _embed(model, cfg, tokens)
-            for p in model.blocks:
-                y = _block_forward(p, cfg, "rwkv", x, None).float()
-                yd = decode_seq(p, x).float()
-                xd = decode_seq(p, xd)
+            for p, kind in zip(model.blocks, cfg.layer_kinds()):
+                op = ops["rwkv6" if kind == "rwkv" else "flash_attention"]
+                before = op.launches
+                y = _block_forward(p, cfg, kind, x, None,
+                                   chunk_threshold=0).float()
+                check(op.launches == before + 1,
+                      f"{cfg.name} block {len(block_diff)} ({kind}) did not "
+                      f"launch its kernel once")
+                yd = decode_seq(p, kind, x).float()
+                xd = decode_seq(p, kind, xd)
                 block_diff.append(float((yd - y).abs().max()))
                 chain_diff.append(float((xd.float() - y).abs().max()))
                 check(not checked or torch.allclose(yd, y, rtol=tol, atol=tol),
-                      f"{cfg.dtype} block {len(block_diff) - 1}: forward vs "
-                      f"decode max abs diff {block_diff[-1]} beyond {tol}")
+                      f"{cfg.name} {cfg.dtype} block {len(block_diff) - 1}: "
+                      f"forward vs decode max abs diff {block_diff[-1]} "
+                      f"beyond {tol}")
                 x = y.to(xd.dtype)
         # the gap's mean growth a layer, from the first block to the last
         growth = ((chain_diff[-1] / chain_diff[0]) ** (1 / (len(chain_diff) - 1))
                   if chain_diff[0] > 0 else None)
         if checked:
             tol = AGREE_F32_TOL["logits"]
-            check(diff <= tol, f"{cfg.dtype} forward vs decode: max abs "
-                  f"logit diff {diff} (max |logit| {scale}) beyond {tol}")
-        log(f"[agree {cfg.dtype} {B}x{S}] max |forward - decode| {diff:.3e} "
-            f"over logits up to {scale:.3f}; per block up to "
+            check(diff <= tol, f"{cfg.name} {cfg.dtype} forward vs decode: "
+                  f"max abs logit diff {diff} (max |logit| {scale}) beyond "
+                  f"{tol}")
+        log(f"[agree {cfg.name} {cfg.dtype} {B}x{S}] max |forward - decode| "
+            f"{diff:.3e} over logits up to {scale:.3f}; per block up to "
             f"{max(block_diff):.3e}; hidden-state gap {chain_diff[0]:.3e} "
             f"after block 0, {chain_diff[-1]:.3e} after block "
             f"{len(chain_diff) - 1} (growth a layer: "
             f"{'none' if growth is None else f'{growth:.3f}x'})"
             + (f", within {AGREE_F32_TOL}" if checked else " (reported only)"))
-        self.report[f"agreement_{cfg.dtype}"] = dict(
+        self.report[f"agreement_{cfg.name}_{cfg.dtype}"] = dict(
             batch=B, seq=S, max_abs_diff=diff, max_abs_logit=scale,
             block_max_abs_diff=block_diff, hidden_gap=chain_diff,
             gap_growth_per_layer=growth,
             tol=AGREE_F32_TOL if checked else None)
-
 
     # ------------------------------------------------------ llama3.2-3b
     def flash(self):
@@ -831,7 +840,20 @@ class Smoke:
                   f"{dt} {opts} (max abs err {err})")
             del want
             if main is None:
-                main = (q, k, v)
+                main, main_err = (q, k, v), err
+        # the prefill's shape in f32, on the same inputs: every key tile of
+        # every row held at the f32 tolerance
+        q32, k32, v32 = (t.float() for t in main)
+        got = flash_attention(q32, k32, v32)
+        torch.cuda.synchronize()
+        want = attention_ref(q32, k32, v32)
+        err32 = float((got - want).abs().max())
+        worst = max(worst, err32)
+        check(torch.allclose(got, want, rtol=FLASH_TOL["float32"],
+                             atol=FLASH_TOL["float32"]),
+              f"flash kernel != plain version at {tuple(q32.shape)} f32 "
+              f"(max abs err {err32})")
+        del q32, k32, v32, got, want
         q, k, v = main
         B, Hq, S, D = q.shape
         Hkv = k.shape[1]
@@ -848,7 +870,9 @@ class Smoke:
         flops = 4 * D * B * Hq * S * (S + 1) // 2
         bound, by = self.bound_ms(nbytes, flops, peak=self.bf16)
         log(f"[flash] allclose to the plain version ({FLASH_TOL}) at "
-            f"{len(cases)} shapes, max abs err {worst:.3e}; at "
+            f"{len(cases)} shapes and the first again in f32, max abs err "
+            f"{worst:.3e}; at the first, max abs err bf16 {main_err:.3e}, "
+            f"f32 {err32:.3e}; at "
             f"{(B, Hq, Hkv, S, D)} bf16 causal: kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.2f} ms, SDPA "
             f"{library:.4f} ms, bound {bound:.4f} ms ({by}, "
@@ -861,89 +885,8 @@ class Smoke:
             bound_ms=bound, bound_by=by, library_ms=library,
             shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, dtype="bfloat16",
                        causal=True))
-
-    def agreement_attn(self, model, cfg, checked: bool):
-        """Each block's attention sublayer on the kernel route
-        (`chunk_threshold=0`) against `decode_attention` fed the same
-        input token by token; held to AGREE_ATTN_TOL when `checked`, else
-        reported.  Also reported: forward's logits against token-by-token
-        decode_step, and the gap between the two paths' hidden states
-        after every block (the forward chain on the kernel route)."""
-        torch = self.torch
-        from repro_torch._tf32 import no_tf32
-        from repro_torch.kernels.flash_attention import flash_attention
-        from repro_torch.models import decode_step, forward, init_cache
-        from repro_torch.models.attention import (
-            attention, decode_attention, init_kv_cache)
-        from repro_torch.models.model import (
-            _apply_norm, _block_decode, _block_forward, _embed)
-
-        B, S = AGREE
-        tokens = torch.randint(0, cfg.vocab_size, (B, S),
-                               generator=self.gen(17), device=self.dev)
-        full = forward(model, cfg, {"tokens": tokens})
-        cache = init_cache(model, cfg, B, S)
-        steps = []
-        for t in range(S):
-            logits, cache = decode_step(model, cfg, cache, tokens[:, t])
-            steps.append(logits)
-        dec = torch.stack(steps, 1)
-        diff = float((dec - full).abs().max())
-        scale = float(full.abs().max())
-        check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
-              f"{cfg.dtype} agreement: logits not finite")
-        positions = torch.arange(S, device=self.dev)[None].expand(B, S)
-
-        def decode_attn(p, kind, z):
-            kv = init_kv_cache(cfg, kind, B, S, self.dev)
-            return torch.cat([decode_attention(p, cfg, z[:, t:t + 1], kv, t,
-                                               kind=kind)[0]
-                              for t in range(S)], 1)
-
-        def decode_block(p, kind, x):
-            kv = init_kv_cache(cfg, kind, B, S, self.dev)
-            return torch.cat([_block_decode(p, cfg, kind, x[:, t:t + 1], kv,
-                                            t)[0] for t in range(S)], 1)
-
-        attn_diff, chain_diff = [], []
-        with no_tf32(), torch.no_grad():
-            x = xd = _embed(model, cfg, tokens)
-            for p, kind in zip(model.blocks, cfg.layer_kinds()):
-                z = _apply_norm(p["ln1"], cfg, x)
-                before = flash_attention.launches
-                a = attention(p["attn"], cfg, z, positions,
-                              chunk_threshold=0).float()
-                check(flash_attention.launches == before + 1,
-                      "attention at chunk_threshold=0 did not take the "
-                      "flash route")
-                ad = decode_attn(p["attn"], kind, z).float()
-                attn_diff.append(float((ad - a).abs().max()))
-                check(not checked or torch.allclose(
-                    ad, a, rtol=AGREE_ATTN_TOL, atol=AGREE_ATTN_TOL),
-                      f"{cfg.dtype} block {len(attn_diff) - 1}: attention "
-                      f"on the kernel route vs decode_attention max abs diff "
-                      f"{attn_diff[-1]} beyond {AGREE_ATTN_TOL}")
-                y = _block_forward(p, cfg, kind, x, positions,
-                                   chunk_threshold=0)
-                xd = decode_block(p, kind, xd)
-                chain_diff.append(float((xd.float() - y.float()).abs().max()))
-                x = y
-        growth = ((chain_diff[-1] / chain_diff[0]) ** (1 / (len(chain_diff) - 1))
-                  if chain_diff[0] > 0 else None)
-        log(f"[agree {cfg.name} {cfg.dtype} {B}x{S}] attention on the kernel "
-            f"route vs decode_attention, per block up to {max(attn_diff):.3e}"
-            + (f" (within {AGREE_ATTN_TOL})" if checked
-               else " (reported only)")
-            + f"; max |forward - decode| {diff:.3e} over logits up to "
-            f"{scale:.3f} (reported); hidden-state gap {chain_diff[0]:.3e} "
-            f"after block 0, {chain_diff[-1]:.3e} after block "
-            f"{len(chain_diff) - 1} (growth a layer: "
-            f"{'none' if growth is None else f'{growth:.3f}x'})")
-        self.report[f"agreement_{cfg.name}_{cfg.dtype}"] = dict(
-            batch=B, seq=S, attn_max_abs_diff=attn_diff,
-            logits_max_abs_diff=diff, max_abs_logit=scale,
-            hidden_gap=chain_diff, gap_growth_per_layer=growth,
-            tol=AGREE_ATTN_TOL if checked else None)
+        self.report["flash_main_shape_err"] = {"bfloat16": main_err,
+                                               "float32": err32}
 
 
 def main() -> int:
@@ -1027,7 +970,7 @@ def main() -> int:
     serve_path = f"Generator llama3.2-3b {SERVE[0]}x({SERVE[1]}+{SERVE[2]})"
     flash = smoke.prefill(model, cfg, "flash_attention", 28, "flash_kernel")
     served = smoke.serve(model, cfg, "flash_kernel")
-    smoke.agreement_attn(model, cfg, checked=False)
+    smoke.agreement(model, cfg, checked=False)
     smoke.kernels["flash_attention"].update(
         launches=flash, path=forward_path,
         launches_by_path={forward_path: flash, serve_path: served})
@@ -1035,7 +978,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model32 = smoke.model(cfg32)
-    smoke.agreement_attn(model32, cfg32, checked=True)
+    smoke.agreement(model32, cfg32, checked=True)
     del model32
     torch.cuda.empty_cache()
 

@@ -5,9 +5,11 @@ Where the reference runs `chunked_attention` (keys beyond
 `chunk_threshold`), `attention` runs the `flash_attention` op instead:
 the CUDA kernel on the card, its plain version on the CPU.  That kernel
 masks by index (query i and key j from 0) where `chunked_attention`
-masks by position, so the route takes only self-attention whose
-positions are 0..S-1 in every row, the positions `models.model._hidden`
-builds; anything else there raises.  Below the threshold, and in all of
+masks by position, so the route takes only self-attention at index
+positions: `positions=None`, which means 0..S-1 in every row, as
+`models.model._hidden` passes it for every config without M-RoPE.
+Explicit positions or cross-attention there raise, without reading
+the device.  Below the threshold, and in all of
 decode, attention is plain tensor code (`full_attention`), as the
 reference computes it outside any kernel.
 
@@ -97,19 +99,11 @@ def full_attention(q, k, v, bias, *, softcap, scale):
     return o.reshape(B, H, Sq, dh).to(q.dtype)
 
 
-def _index_positions(positions) -> bool:
-    """True when `positions` (B, S) is 0..S-1 in every row: the index the
-    kernel masks by.  Reads the tensor (one device sync)."""
-    B, S = positions.shape
-    want = torch.arange(S, device=positions.device, dtype=positions.dtype)
-    return bool(torch.equal(positions, want.expand(B, S)))
-
-
 def attention(
     params,
     cfg: ModelConfig,
     x,
-    positions,
+    positions=None,                     # None: 0..S-1 in every row
     *,
     kind: str = "attn",                 # attn | local
     causal: bool = True,
@@ -117,8 +111,16 @@ def attention(
     memory_positions=None,
     chunk_threshold: int = 2047,
 ):
-    """Self- (or cross-) attention over a full sequence (prefill)."""
+    """Self- (or cross-) attention over a full sequence (prefill).
+    `positions` is (B, S), or (B, S, 3) for M-RoPE; None means index
+    positions 0..S-1, the only ones the flash route takes."""
     H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
+    index = positions is None
+    if index:
+        if cfg.mrope_sections is not None:
+            raise ValueError(f"{cfg.name}: M-RoPE needs (B, S, 3) positions")
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
     window = cfg.window if kind == "local" else None
     src = x if memory is None else memory
     q = _heads(dense(x, params["wq"]), H, dh)
@@ -144,16 +146,12 @@ def attention(
     if Sk > chunk_threshold:
         # the reference's chunked_attention route: the flash kernel,
         # which masks by index, so only self-attention at 0..S-1
-        if memory is not None or positions.dim() != 2:
+        if memory is not None or not index:
             raise NotImplementedError(
-                "the flash route above chunk_threshold takes self-attention "
-                "at positions 0..S-1 only; cross-attention and M-RoPE "
-                "positions there are not ported yet (ROADMAP Queue A 11)")
-        if not _index_positions(positions):
-            raise NotImplementedError(
-                "the flash route above chunk_threshold masks by index: "
-                "positions other than 0..S-1 in every row are not ported "
-                "yet (ROADMAP Queue A 11)")
+                "the flash route above chunk_threshold masks by index and "
+                "takes self-attention at positions=None (0..S-1) only; "
+                "cross-attention and explicit or M-RoPE positions there are "
+                "not ported yet (ROADMAP Queue A 11)")
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal, window=window, softcap=softcap,
                             scale=scale)

@@ -174,11 +174,11 @@ def _tokens(params, tokens):
 
 
 def _positions(cfg: ModelConfig, batch: dict, tokens):
-    """(B, S) positions 0..S-1, or the batch's (B, S, 3) M-RoPE ids."""
+    """The batch's (B, S, 3) M-RoPE ids, or None: positions 0..S-1 in
+    every row, which the attention's flash route takes."""
     if cfg.mrope_sections is not None:
         return torch.as_tensor(batch["positions"], device=tokens.device)
-    B, S = tokens.shape
-    return torch.arange(S, device=tokens.device)[None].expand(B, S)
+    return None
 
 
 def _hidden(params, cfg: ModelConfig, batch: dict):
@@ -206,11 +206,19 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int) -> dict:
     the attention cache length; recurrent layers keep O(1) state."""
     device = params.embed.device
     return {
-        "layers": [init_rwkv_state(cfg, batch, device) if kind == "rwkv"
-                   else init_kv_cache(cfg, kind, batch, max_len, device)
+        "layers": [layer_state(cfg, kind, batch, max_len, device)
                    for kind in cfg.layer_kinds()],
         "step": 0,
     }
+
+
+def layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                device) -> dict:
+    """One layer's empty decode state: a KV cache for attention, the
+    recurrent state for rwkv."""
+    if kind == "rwkv":
+        return init_rwkv_state(cfg, batch, device)
+    return init_kv_cache(cfg, kind, batch, max_len, device)
 
 
 def _block_decode(p, cfg: ModelConfig, kind: str, x, state, step: int):

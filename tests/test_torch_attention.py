@@ -123,7 +123,8 @@ def test_attention_routes_match_reference(arch, changes, threshold, causal):
     want = ref_attn.attention(tree, ref_cfg, jnp.asarray(x), jnp.asarray(pos),
                               causal=causal, chunk_threshold=threshold)
     before = flash_attention.launches
-    got = attn.attention(params, cfg, _t(x), _t(pos), causal=causal,
+    # positions=None: index positions 0..S-1, the flash route's only ones
+    got = attn.attention(params, cfg, _t(x), None, causal=causal,
                          chunk_threshold=threshold)
     assert flash_attention.launches == before  # CPU tensors: plain version
     assert got.shape == (B, S, cfg.d_model) and got.dtype == torch.float32
@@ -131,18 +132,21 @@ def test_attention_routes_match_reference(arch, changes, threshold, causal):
 
 
 def test_flash_route_takes_only_index_positions():
-    """Above the threshold the kernel masks by index: M-RoPE positions,
-    cross-attention and positions other than 0..S-1 raise there, and the
-    direct route below it still takes them."""
+    """Above the threshold the kernel masks by index: it takes
+    positions=None (0..S-1) only.  Explicit positions, even 0..S-1,
+    M-RoPE positions and cross-attention raise there, and the direct
+    route below it still takes them."""
     _, cfg = _cfgs("llama3.2-3b")
     _, params = _attn_params(_cfgs("llama3.2-3b")[0], seed=1)
     x = torch.randn((1, 12, cfg.d_model))
     shifted = torch.arange(12)[None] + 5
+    for pos in (shifted, torch.arange(12)[None]):
+        with pytest.raises(NotImplementedError, match="Queue A 11"):
+            attn.attention(params, cfg, x, pos, chunk_threshold=4)
+        attn.attention(params, cfg, x, pos)
+    attn.attention(params, cfg, x, None, chunk_threshold=4)
     with pytest.raises(NotImplementedError, match="Queue A 11"):
-        attn.attention(params, cfg, x, shifted, chunk_threshold=4)
-    attn.attention(params, cfg, x, shifted)
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        attn.attention(params, cfg, x, torch.arange(12)[None],
+        attn.attention(params, cfg, x, None,
                        memory=torch.randn((1, 9, cfg.d_model)),
                        chunk_threshold=4)
     _, vl = _cfgs("qwen2-vl-72b")
@@ -151,6 +155,8 @@ def test_flash_route_takes_only_index_positions():
     with pytest.raises(NotImplementedError, match="Queue A 11"):
         attn.attention(vl_params, vl, torch.randn((1, 12, vl.d_model)), pos3,
                        chunk_threshold=4)
+    with pytest.raises(ValueError, match="M-RoPE"):
+        attn.attention(vl_params, vl, torch.randn((1, 12, vl.d_model)))
 
 
 def test_mrope_attention_matches_reference_on_the_direct_route():
@@ -219,7 +225,6 @@ def test_decode_attention_matches_prefill_attention():
     _, params = _attn_params(_cfgs("llama3.2-3b")[0], seed=9)
     S = 12
     x = torch.randn((2, S, cfg.d_model), generator=torch.Generator().manual_seed(0))
-    pos = torch.arange(S)[None].expand(2, S)
     cache = attn.init_kv_cache(cfg, "attn", 2, S, "cpu")
     rows = []
     for t in range(S):
@@ -227,5 +232,5 @@ def test_decode_attention_matches_prefill_attention():
         rows.append(out)
     dec = torch.cat(rows, 1)
     for threshold in (4, 2047):
-        full = attn.attention(params, cfg, x, pos, chunk_threshold=threshold)
+        full = attn.attention(params, cfg, x, None, chunk_threshold=threshold)
         torch.testing.assert_close(dec, full, rtol=1e-5, atol=1e-5)
