@@ -15,9 +15,11 @@ with parameters drawn on the card from a seed: `forward` on 4 prompts of
 run), `Generator` answering 8 requests through decode alone (no rwkv6
 launch), and forward against token-by-token decode in bf16 (reported)
 and in a float32 copy of the model (checked).  Then the flash-attention
-kernel against its plain version at nine shapes, and the llama3.2-3b
-serving path at full width and depth: `forward` on 4 prompts of 4096
-tokens (one flash launch per layer, finite logits, a traced run),
+kernels against their plain version at 18 shapes and the prefill's
+again in f32 (bf16 on the wgmma kernel, f32 on the FMA kernel; both
+timed at the prefill's shape), and the llama3.2-3b serving path at full
+width and depth: `forward` on 4 prompts of 4096 tokens (one launch of
+the bf16 flash kernel per layer, finite logits, a traced run),
 `Generator` on 8 requests (no flash launch), and each block's attention
 on the kernel route against `decode_attention` fed token by token, in
 bf16 (reported) and in a float32 copy (checked).  Any failed check
@@ -87,6 +89,14 @@ AGREE_F32_TOL = {"block": 1e-4, "logits": 0.25}
 # is as large as a typical output at the prefill's shape, so that shape
 # is also checked in f32, on the same inputs, at 2e-5.
 FLASH_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
+# the bf16 kernel rounds P to bf16 before the P V product, which adds
+# about the output's own bf16 rounding: at the prefill shape its mean
+# abs error against the f32 plain version is held to 2.5x that of the
+# plain version's output rounded to bf16
+FLASH_BUDGET = 2.5
+# the bf16 kernel at the prefill shape takes at most 3x SDPA's time in
+# the same run
+FLASH_SDPA_LIMIT = 3.0
 # published H100 peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores; the
 # PCIe part is slower
@@ -155,10 +165,18 @@ class Smoke:
     def zero_counts(self):
         for op in self.ops().values():
             op.launches = 0
+        counts = self.flash_kernels()
+        for name in counts:
+            counts[name] = 0
 
     def read_counts(self) -> dict:
         """Each kernel's launches since zero_counts."""
         return {name: op.launches for name, op in self.ops().items()}
+
+    def flash_kernels(self) -> dict:
+        """The flash op's launches of each CUDA kernel, by source name
+        (bf16: flash_attention_sm90, f32: flash_attention)."""
+        return self.ops()["flash_attention"].kernel_launches
 
     @staticmethod
     def check_idle(counts: dict, runs, label: str):
@@ -612,9 +630,11 @@ class Smoke:
             f"on the card in {time.perf_counter() - t0:.2f} s")
         return model
 
-    def prefill(self, model, cfg, kernel: str, want: int, symbol: str):
+    def prefill(self, model, cfg, kernel: str, want: int, symbol: str,
+                by_kernel=None):
         """`forward` at full width and depth on 4 prompts of 4096 tokens:
-        `want` launches of `kernel` (one a layer) and none of the others,
+        `want` launches of `kernel` (one a layer) and none of the others
+        (for flash, exactly `by_kernel` of each of its CUDA kernels),
         finite logits, execute seconds, and one traced forward (`symbol`
         names the kernel in the trace)."""
         torch = self.torch
@@ -634,6 +654,10 @@ class Smoke:
               f"{cfg.name} forward launched the {kernel} kernel {launches} "
               f"times, not once per layer ({cfg.num_layers})")
         self.check_idle(counts, kernel, f"{cfg.name} forward")
+        if by_kernel is not None:
+            check(self.flash_kernels() == by_kernel,
+                  f"{cfg.name} forward launched {self.flash_kernels()}, not "
+                  f"{by_kernel}")
         check(tuple(logits.shape) == (B, S, cfg.vocab_size)
               and logits.dtype == torch.float32, "forward logits shape/dtype")
         check(bool(torch.isfinite(logits).all()), "forward logits not finite")
@@ -646,11 +670,13 @@ class Smoke:
             torch.cuda.synchronize()
             warm.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"[prefill {cfg.name} {B}x{S}] {kernel} launches {launches}, "
+        log(f"[prefill {cfg.name} {B}x{S}] {kernel} launches {launches}"
+            + (f" {by_kernel}" if by_kernel is not None else "") + ", "
             f"logits finite; "
             f"warm execute {warm[0]:.4f} s, {warm[1]:.4f} s "
             f"({B * S / min(warm):.0f} tokens/s), peak memory {peak:.2f} GiB")
-        row = dict(batch=B, seq=S, launches=launches, execute_s=warm,
+        row = dict(batch=B, seq=S, launches=launches, by_kernel=by_kernel,
+                   execute_s=warm,
                    tokens_per_s=B * S / min(warm), peak_gib=peak)
         label = f"prefill {cfg.name} {B}x{S}"
         rows, traced_s = self.trace(lambda: forward(model, cfg, batch))
@@ -757,6 +783,9 @@ class Smoke:
             return torch.cat(outs, 1)
 
         ops = self.ops()
+        from repro_torch.kernels.flash_attention.ops import KERNELS
+
+        flash = KERNELS[getattr(torch, cfg.dtype)]  # this dtype's kernel
         block_diff, chain_diff = [], []
         tol = AGREE_F32_TOL["block"]
         with no_tf32(), torch.no_grad():
@@ -764,11 +793,18 @@ class Smoke:
             for p, kind in zip(model.blocks, cfg.layer_kinds()):
                 op = ops["rwkv6" if kind == "rwkv" else "flash_attention"]
                 before = op.launches
+                by_kernel = dict(self.flash_kernels())
                 y = _block_forward(p, cfg, kind, x, None,
                                    chunk_threshold=0).float()
                 check(op.launches == before + 1,
                       f"{cfg.name} block {len(block_diff)} ({kind}) did not "
                       f"launch its kernel once")
+                if kind != "rwkv":
+                    by_kernel[flash] += 1
+                check(self.flash_kernels() == by_kernel,
+                      f"{cfg.name} {cfg.dtype} block {len(block_diff)}: "
+                      f"flash launches {self.flash_kernels()}, not "
+                      f"{by_kernel}")
                 yd = decode_seq(p, kind, x).float()
                 xd = decode_seq(p, kind, xd)
                 block_diff.append(float((yd - y).abs().max()))
@@ -801,15 +837,21 @@ class Smoke:
 
     # ------------------------------------------------------ llama3.2-3b
     def flash(self):
-        """The flash kernel against its plain version on the card: at the
-        llama3.2-3b prefill's per-layer shape (bf16, causal) and at the
-        reference kernel tests' shapes and options; times at the first."""
+        """The flash kernels against their plain version on the card: bf16
+        on the wgmma kernel, f32 on the FMA kernel, each case checked to
+        launch its dtype's kernel once and the other not at all.  At the
+        llama3.2-3b prefill's per-layer shape (bf16, causal), then at the
+        reference kernel tests' shapes and options in both dtypes; the
+        prefill shape again in f32 on the same inputs, and the bf16
+        kernel's mean error there against the plain version's own bf16
+        rounding.  Times both kernels at the prefill shape."""
         import math
 
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.flash_attention import (
             attention_ref, flash_attention)
+        from repro_torch.kernels.flash_attention.ops import KERNELS
 
         bf16, f32 = torch.bfloat16, torch.float32
         g = self.gen(16)
@@ -821,13 +863,27 @@ class Smoke:
                  ((1, 2, 2, 384, 64), f32, {"window": 128}),
                  ((1, 2, 2, 256, 64), f32, {"softcap": 30.0}),
                  ((1, 2, 2, 256, 64), f32, {"causal": False}),
-                 ((1, 4, 4, 300, 256), bf16, {}))
+                 ((1, 4, 4, 300, 256), bf16, {}),
+                 ((1, 8, 1, 128, 128), bf16, {}),
+                 ((1, 2, 2, 200, 64), bf16, {}),
+                 ((1, 2, 2, 384, 64), bf16, {"window": 64}),
+                 ((1, 2, 2, 384, 64), bf16, {"window": 128}),
+                 ((1, 2, 2, 256, 64), bf16, {"softcap": 30.0}),
+                 ((1, 2, 2, 256, 64), bf16, {"causal": False}),
+                 ((1, 4, 4, 300, 64), bf16, {}),
+                 ((1, 24, 8, 1000, 128), bf16, {}),
+                 ((2, 6, 2, 130, 128), bf16, {}))
         worst, main = 0.0, None
         for (B, Hq, Hkv, S, D), dt, opts in cases:
             q, k, v = (torch.randn((B, h, S, D), generator=g, device=self.dev)
                        .to(dt) for h in (Hq, Hkv, Hkv))
+            before = dict(self.flash_kernels())
             got = flash_attention(q, k, v, **opts)
             torch.cuda.synchronize()
+            before[KERNELS[dt]] += 1
+            check(self.flash_kernels() == before,
+                  f"flash at {(B, Hq, Hkv, S, D)} {dt} launched "
+                  f"{self.flash_kernels()}, not {before}")
             want = attention_ref(q, k, v, **opts)
             err = float((got.float() - want.float()).abs().max())
             worst = max(worst, err)
@@ -838,14 +894,18 @@ class Smoke:
                                  atol=tol),
                   f"flash kernel != plain version at {(B, Hq, Hkv, S, D)} "
                   f"{dt} {opts} (max abs err {err})")
-            del want
             if main is None:
-                main, main_err = (q, k, v), err
-        # the prefill's shape in f32, on the same inputs: every key tile of
-        # every row held at the f32 tolerance
+                main, main_err, main_out, main_ref = (q, k, v), err, got, want
+            del want
+        # the prefill's shape in f32, on the same inputs, on the f32 kernel:
+        # every key tile of every row held at the f32 tolerance
         q32, k32, v32 = (t.float() for t in main)
+        before = dict(self.flash_kernels())
         got = flash_attention(q32, k32, v32)
         torch.cuda.synchronize()
+        before[KERNELS[f32]] += 1
+        check(self.flash_kernels() == before,
+              f"flash in f32 launched {self.flash_kernels()}")
         want = attention_ref(q32, k32, v32)
         err32 = float((got - want).abs().max())
         worst = max(worst, err32)
@@ -853,12 +913,23 @@ class Smoke:
                              atol=FLASH_TOL["float32"]),
               f"flash kernel != plain version at {tuple(q32.shape)} f32 "
               f"(max abs err {err32})")
-        del q32, k32, v32, got, want
+        # the bf16 kernel's error budget against the f32 plain version: P
+        # in bf16 adds about the output's own rounding, so its mean error
+        # is held to FLASH_BUDGET times that of the plain version rounded
+        # to bf16
+        mean_err = float((main_out.float() - want).abs().mean())
+        mean_round = float((main_ref.float() - want).abs().mean())
+        check(mean_err <= FLASH_BUDGET * mean_round,
+              f"flash bf16 mean abs err {mean_err} beyond {FLASH_BUDGET}x "
+              f"the bf16 rounding's {mean_round}")
         q, k, v = main
         B, Hq, S, D = q.shape
         Hkv = k.shape[1]
+        f32_ms = self.time_ms(lambda: flash_attention(q32, k32, v32), reps=3,
+                              warmup=1)
+        del q32, k32, v32, got, want, main_out, main_ref
         scale = 1.0 / math.sqrt(D)
-        ms = self.time_ms(lambda: flash_attention(q, k, v), reps=10)
+        ms = self.time_ms(lambda: flash_attention(q, k, v), reps=20)
         plain = self.time_ms(lambda: attention_ref(q, k, v), reps=2, warmup=1)
         library = self.time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=scale, enable_gqa=True), reps=20)
@@ -869,24 +940,36 @@ class Smoke:
         nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
         flops = 4 * D * B * Hq * S * (S + 1) // 2
         bound, by = self.bound_ms(nbytes, flops, peak=self.bf16)
+        # in f32: twice the bytes; the FMA kernel's f32 rate bounds it
+        bound32, by32 = self.bound_ms(2 * nbytes, flops)
         log(f"[flash] allclose to the plain version ({FLASH_TOL}) at "
             f"{len(cases)} shapes and the first again in f32, max abs err "
-            f"{worst:.3e}; at the first, max abs err bf16 {main_err:.3e}, "
-            f"f32 {err32:.3e}; at "
-            f"{(B, Hq, Hkv, S, D)} bf16 causal: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.2f} ms, SDPA "
-            f"{library:.4f} ms, bound {bound:.4f} ms ({by}, "
+            f"{worst:.3e}; at the first, max abs err bf16 {main_err:.3e} "
+            f"(mean {mean_err:.3e}, {mean_err / mean_round:.3f}x the bf16 "
+            f"rounding's {mean_round:.3e}), f32 {err32:.3e}; at "
+            f"{(B, Hq, Hkv, S, D)} causal: bf16 kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of its "
+            f"bound), f32 kernel {f32_ms:.4f} ms "
+            f"({flops / f32_ms / 1e9:.1f} TFLOP/s, bound {bound32:.4f} ms "
+            f"{by32}), plain {plain:.2f} ms, SDPA {library:.4f} ms "
+            f"({ms / library:.3f}x), bound {bound:.4f} ms ({by}, "
             f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        check(ms <= FLASH_SDPA_LIMIT * library,
+              f"flash bf16 kernel {ms} ms beyond {FLASH_SDPA_LIMIT}x SDPA's "
+              f"{library} ms")
         self.kernels["flash_attention"] = dict(
             name="flash_attention", route="cuda",
-            source="src/repro_torch/csrc/flash_attention.cu",
+            source="src/repro_torch/csrc/flash_attention_sm90.cu",
             replaces="src/repro/kernels/flash_attention/kernel.py:40",
             launches=None, max_abs_err=worst, ms=ms, plain_ms=plain,
             bound_ms=bound, bound_by=by, library_ms=library,
+            f32_source="src/repro_torch/csrc/flash_attention.cu",
+            f32_ms=f32_ms, f32_bound_ms=bound32,
             shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, dtype="bfloat16",
                        causal=True))
-        self.report["flash_main_shape_err"] = {"bfloat16": main_err,
-                                               "float32": err32}
+        self.report["flash_main_shape_err"] = {
+            "bfloat16": main_err, "float32": err32,
+            "bfloat16_mean": mean_err, "bfloat16_rounding_mean": mean_round}
 
 
 def main() -> int:
@@ -968,8 +1051,10 @@ def main() -> int:
     model = smoke.model(cfg)
     forward_path = f"forward llama3.2-3b {PREFILL[0]}x{PREFILL[1]}"
     serve_path = f"Generator llama3.2-3b {SERVE[0]}x({SERVE[1]}+{SERVE[2]})"
-    flash = smoke.prefill(model, cfg, "flash_attention", 28, "flash_kernel")
-    served = smoke.serve(model, cfg, "flash_kernel")
+    flash = smoke.prefill(model, cfg, "flash_attention", 28,
+                          "flash_kernel_sm90",
+                          {"flash_attention_sm90": 28, "flash_attention": 0})
+    served = smoke.serve(model, cfg, "flash_kernel_sm90")
     smoke.agreement(model, cfg, checked=False)
     smoke.kernels["flash_attention"].update(
         launches=flash, path=forward_path,

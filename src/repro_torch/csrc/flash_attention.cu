@@ -1,4 +1,7 @@
-// flash_attention: blocked online-softmax attention, forward.
+// flash_attention: blocked online-softmax attention, forward, on f32
+// q, k, v.  bf16 inputs go to csrc/flash_attention_sm90.cu (wgmma, TMA);
+// this kernel serves f32 only, because tensor-core products in TF32 or
+// bf16 would not hold the reference tests' f32 tolerance of 2e-5.
 //
 // Replaces the TPU kernel `_flash_kernel` / `flash_attention_pallas`
 // (src/repro/kernels/flash_attention/kernel.py), which streams KV blocks
@@ -10,7 +13,7 @@
 //     s_j = -1e30 unless j < Sk, (j <= i if causal), (j > i - window)
 //     o_i = sum_j softmax(s)_j v_j          online over key tiles, f32
 //
-// and o_i / max(l, 1e-30) is written in the inputs' type.  The masks are
+// and o_i / max(l, 1e-30) is written in f32.  The masks are
 // by index (i and j count from 0), as in the reference kernel; a masked
 // score is the -1e30 sentinel, not -inf, so a row that meets a wholly
 // masked tile first carries exp(0) = 1 terms until a real score arrives
@@ -21,17 +24,14 @@
 // What bounds it on an H100: the function needs 4 D operations per
 // (query, key) pair it keeps (two products of length D), 412 GFLOP at the
 // llama3.2-3b prefill shape (B=4, Hq=24, S=4096, D=128, causal) against
-// 268 MB of q, k, v and o: operations bound it by far.  This kernel runs
-// them as f32 FMAs on the CUDA cores, not on the tensor cores, so it can
-// reach at most 67 TFLOP/s, against the 989 TFLOP/s bf16 tensor-core peak
-// that bounds the function.  That is the simple design this port starts
-// from; wgmma, TMA and a producer warp are the next step.
+// 537 MB of f32 q, k, v and o: operations bound it by far.  In f32 they
+// run as FMAs on the CUDA cores, at most 67 TFLOP/s.
 //
 // Design: one block of 256 threads per (query tile of 64 rows, query
 // head, batch row); causal blocks with more key tiles are scheduled
-// first.  The query tile (pre-scaled, f32) stays in shared memory; each
-// 64-key tile of K, then of V, is staged into one shared f32 buffer (84
-// KB in all at D = 128, so two blocks share an SM).  Thread (ty, tx) of a
+// first.  The query tile (pre-scaled) stays in shared memory; each
+// 64-key tile of K, then of V, is staged into one shared buffer (84 KB
+// in all at D = 128, so two blocks share an SM).  Thread (ty, tx) of a
 // 16 x 16 grid owns query rows 4 ty .. 4 ty + 3: it computes the scores
 // of those rows against keys tx + 16 c (c < 4) from float4 reads of
 // shared memory, 64 FMAs per eight reads; the 16 threads that own a row
@@ -43,7 +43,6 @@
 // Sq are computed on zeros and not stored, keys past Sk are masked and
 // read as zeros.  expf and tanhf are the accurate ones (no fast math).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,30 +57,14 @@ constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
 
-// rows [row0, row0 + 64) of a (rows, D) matrix into shared memory as f32
-// times `mul`, row stride D + 4; rows at or past `rows` are zeros
-template <int D, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int row0,
+// rows [row0, row0 + 64) of a (rows, D) matrix into shared memory times
+// `mul`, row stride D + 4; rows at or past `rows` are zeros
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
                                       int rows, float mul) {
   constexpr int V = D / 4;  // 4-element vectors a row
   for (int e = threadIdx.x; e < 64 * V; e += THREADS) {
@@ -95,10 +78,10 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int row0,
   }
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(THREADS, D <= 128 ? 2 : 1)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Hq,
+    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int Hq,
                  int Hkv, int Sq, int Sk, int causal, int window,
                  float scale, float softcap) {
   constexpr int LD = D + 4;   // row stride of the Q and K/V tiles
@@ -115,10 +98,10 @@ __global__ void __launch_bounds__(THREADS, D <= 128 ? 2 : 1)
   const int q0 = qt * BQ;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
-  const T* qg = q + ((size_t)b * Hq + h) * Sq * D;
-  const T* kg = k + ((size_t)b * Hkv + hk) * Sk * D;
-  const T* vg = v + ((size_t)b * Hkv + hk) * Sk * D;
-  T* og = o + ((size_t)b * Hq + h) * Sq * D;
+  const float* qg = q + ((size_t)b * Hq + h) * Sq * D;
+  const float* kg = k + ((size_t)b * Hkv + hk) * Sk * D;
+  const float* vg = v + ((size_t)b * Hkv + hk) * Sk * D;
+  float* og = o + ((size_t)b * Hq + h) * Sq * D;
 
   // key tiles this query tile needs: up to the causal frontier, from the
   // first key any of its rows keeps in the window
@@ -250,63 +233,49 @@ __global__ void __launch_bounds__(THREADS, D <= 128 ? 2 : 1)
   }
 }
 
-template <int D, typename T>
-int launch_typed(const void* q, const void* k, const void* v, void* o,
-                 int B, int Hq, int Hkv, int Sq, int Sk, int causal,
-                 int window, float scale, float softcap,
-                 cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * (2 * 64 * (D + 4) + BK * LDP);
-  // more than 48 KB of dynamic shared memory only when asked for
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_kernel<D, T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, causal,
-      window, scale, softcap);
-  return (int)cudaGetLastError();
-}
-
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
              int Hq, int Hkv, int Sq, int Sk, int causal, int window,
-             float scale, float softcap, int bf16, cudaStream_t stream) {
-  if (bf16)
-    return launch_typed<D, __nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                          causal, window, scale, softcap,
-                                          stream);
-  return launch_typed<D, float>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal,
-                                window, scale, softcap, stream);
+             float scale, float softcap, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(float) * (2 * 64 * (D + 4) + BK * LDP);
+  // more than 48 KB of dynamic shared memory only when asked for
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  flash_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Sk,
+      causal, window, scale, softcap);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o: (B, Hq, Sq, D) contiguous; k, v: (B, Hkv, Sk, D) contiguous; all
-// bf16 (bf16 != 0) or all f32.  causal: 0 or 1; window: 0 for none;
-// softcap: 0 for none.  Launch on `stream`; returns cudaGetLastError() (0
-// on success), or cudaErrorInvalidValue for a D not compiled here or heads
-// that do not group.
+// q, o: (B, Hq, Sq, D) contiguous f32; k, v: (B, Hkv, Sk, D) contiguous
+// f32.  causal: 0 or 1; window: 0 for none; softcap: 0 for none.  Launch
+// on `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a D not compiled here or heads that do not
+// group.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int Sq, int Sk, int D,
                                       int causal, int window, float scale,
-                                      float softcap, int bf16,
-                                      void* stream) {
+                                      float softcap, void* stream) {
   if (B == 0 || Hq == 0 || Sq == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
       return launch_d<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                          scale, softcap, bf16, st);
+                          scale, softcap, st);
     case 128:
       return launch_d<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                           scale, softcap, bf16, st);
+                           scale, softcap, st);
     case 256:
       return launch_d<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, window,
-                           scale, softcap, bf16, st);
+                           scale, softcap, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,10 +1,13 @@
 """The flash-attention op: a CPU tensor goes to the plain version, a
-CUDA tensor to the hand-written kernel (``csrc/flash_attention.cu``),
-anything else raises.
+CUDA tensor to the one hand-written kernel of its dtype, anything else
+raises.  bf16 runs on ``csrc/flash_attention_sm90.cu`` (wgmma, TMA), f32
+on ``csrc/flash_attention.cu`` (f32 FMAs, which hold the reference
+tests' f32 tolerance that tensor-core products would not).
 
 Unlike the reference op, nothing is padded to block multiples: the
-kernel bounds-checks the ragged query and key tails itself.
-`flash_attention.launches` counts the kernel's launches.
+kernels handle the ragged query and key tails themselves.
+`flash_attention.launches` counts the launches of both kernels,
+`flash_attention.kernel_launches` those of each, by source name.
 """
 from __future__ import annotations
 
@@ -19,15 +22,31 @@ from .ref import attention_ref
 
 __all__ = ["flash_attention"]
 
-_HEAD_SIZES = (64, 128, 256)  # the kernel is compiled for these D
-_DTYPES = (torch.float32, torch.bfloat16)
+_HEAD_SIZES = (64, 128, 256)  # the kernels are compiled for these D
+# the source of the one CUDA kernel of each dtype
+KERNELS = {torch.bfloat16: "flash_attention_sm90",
+           torch.float32: "flash_attention"}
 
 
-def _lib():
-    fn = load("flash_attention").flash_attention_launch
+def kernel_for(device_type: str, dtype) -> Optional[str]:
+    """The kernel that runs q of this device type and dtype: None (the
+    plain version) on the CPU, else the CUDA kernel of the dtype."""
+    if device_type == "cpu":
+        return None
+    if device_type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{device_type}")
+    if dtype not in KERNELS:
+        raise ValueError("q, k and v must share one dtype, float32 or "
+                         "bfloat16")
+    return KERNELS[dtype]
+
+
+def _lib(name: str):
+    fn = getattr(load(name), f"{name}_launch")
     if fn.argtypes is None:
         p, n, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, n, n, n, n, n, n, n, n, f, f, n, p]
+        fn.argtypes = [p, p, p, p, n, n, n, n, n, n, n, n, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -44,15 +63,18 @@ def _check_cuda(q, k, v, window, softcap):
         raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
     if D not in _HEAD_SIZES:
         raise ValueError(f"head size {D} is not one of {_HEAD_SIZES}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one dtype, float32 or "
                          "bfloat16")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one device")
     if not all(a.is_contiguous() for a in (q, k, v)):
         raise ValueError("q, k and v must be contiguous")
+    # what TMA needs: 16-byte aligned base addresses and row strides
     if any(a.data_ptr() % 16 for a in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary")
+    if any(a.stride(2) * a.element_size() % 16 for a in (q, k, v)):
+        raise ValueError("the rows of q, k and v must be 16-byte aligned")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"batch {B} or heads {Hq} beyond the grid's 65535")
     if window is not None and window < 1:
@@ -68,16 +90,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Attention of q (B, Hq, Sq, D) over k, v (B, Hkv, Sk, D), with the
     reference op's options: causal and window masks by index (query i,
     key j from 0), softcap on the scores, GQA as head h reading KV head
-    ``h // (Hq / Hkv)``.  f32 math; returns (B, Hq, Sq, D) in q's dtype.
+    ``h // (Hq / Hkv)``.  f32 sums (bf16 products for bf16 inputs);
+    returns (B, Hq, Sq, D) in q's dtype.
     """
-    if q.device.type == "cpu":
+    name = kernel_for(q.device.type, q.dtype)
+    if name is None:
         if k.device.type != "cpu" or v.device.type != "cpu":
             raise ValueError("q, k and v must lie on one device")
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
-                         f"{q.device}")
     _check_cuda(q, k, v, window, softcap)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -87,17 +108,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if o.numel() == 0:
         return o
     with torch.cuda.device(q.device):
-        rc = _lib()(
+        rc = _lib(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             B, Hq, Hkv, Sq, Sk, D, int(causal), window or 0, scale,
-            softcap or 0.0, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+            softcap or 0.0, torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: error {rc}")
     flash_attention.launches += 1
+    flash_attention.kernel_launches[name] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.kernel_launches = {name: 0 for name in KERNELS.values()}

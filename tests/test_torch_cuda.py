@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.cell_mixing import cell_mixing, cell_mixing_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import KERNELS  # noqa: E402
 from repro_torch.kernels.pair_apply import pair_apply, pair_apply_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import rwkv6_ref, rwkv6_wkv  # noqa: E402
 
@@ -122,32 +123,71 @@ def test_rwkv6_kernel_rejects_what_it_does_not_take(cuda_device):
 # flash_attention: allclose to the plain version at the reference kernel
 # tests' tolerances, f32 2e-5 and bf16 3e-2 (the kernel and the plain
 # version sum in other orders; a bf16 output rounds to 2^-8 of itself).
+# bf16 runs on the wgmma kernel, f32 on the FMA kernel: each case checks
+# that its dtype's kernel, and only it, launched.
 _FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+_BF16, _F32 = torch.bfloat16, torch.float32
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Hq,Hkv,S,D,dtype,opts", [
-    (2, 4, 2, 256, 64, torch.bfloat16, {}),
-    (1, 8, 1, 128, 128, torch.float32, {}),
-    (1, 2, 2, 200, 64, torch.float32, {}),
-    (1, 2, 2, 384, 64, torch.float32, {"window": 64}),
-    (1, 2, 2, 384, 64, torch.float32, {"window": 128}),
-    (1, 2, 2, 256, 64, torch.float32, {"softcap": 30.0}),
-    (1, 2, 2, 256, 64, torch.float32, {"causal": False}),
-    (1, 4, 4, 300, 256, torch.bfloat16, {}),
-    (1, 24, 8, 1000, 128, torch.bfloat16, {}),
+    (2, 4, 2, 256, 64, _BF16, {}),
+    (1, 8, 1, 128, 128, _F32, {}),
+    (1, 2, 2, 200, 64, _F32, {}),
+    (1, 2, 2, 384, 64, _F32, {"window": 64}),
+    (1, 2, 2, 384, 64, _F32, {"window": 128}),
+    (1, 2, 2, 256, 64, _F32, {"softcap": 30.0}),
+    (1, 2, 2, 256, 64, _F32, {"causal": False}),
+    (1, 4, 4, 300, 256, _BF16, {}),
+    (1, 24, 8, 1000, 128, _BF16, {}),
+    (1, 8, 1, 128, 128, _BF16, {}),
+    (1, 2, 2, 200, 64, _BF16, {}),
+    (1, 2, 2, 384, 64, _BF16, {"window": 64}),
+    (1, 2, 2, 384, 64, _BF16, {"window": 128}),
+    (1, 2, 2, 256, 64, _BF16, {"softcap": 30.0}),
+    (1, 2, 2, 256, 64, _BF16, {"causal": False}),
+    (1, 4, 4, 300, 64, _BF16, {}),
+    (1, 4, 2, 300, 128, _BF16, {"causal": False, "window": 100}),
+    (2, 6, 2, 130, 128, _BF16, {}),
+    (1, 2, 1, 64, 128, _BF16, {}),
 ], ids=["gqa-bf16", "mqa-f32", "unaligned", "window64", "window128",
-        "softcap", "noncausal", "d256", "llama-heads"])
+        "softcap", "noncausal", "d256", "llama-heads", "mqa-bf16",
+        "unaligned-bf16", "window64-bf16", "window128-bf16", "softcap-bf16",
+        "noncausal-bf16", "d64-bf16", "window-noncausal-bf16",
+        "tile-tail-bf16", "short-bf16"])
 def test_flash_attention_kernel_on_card(cuda_device, B, Hq, Hkv, S, D, dtype,
                                         opts):
     rng = np.random.default_rng(S + D)
     q, k, v = (torch.from_numpy(rng.normal(size=(B, h, S, D)).astype(
         np.float32)).to(cuda_device, dtype) for h in (Hq, Hkv, Hkv))
     before = flash_attention.launches
+    by_kernel = dict(flash_attention.kernel_launches)
     got = flash_attention(q, k, v, **opts)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    name = KERNELS[dtype]
+    assert flash_attention.kernel_launches == {
+        **by_kernel, name: by_kernel[name] + 1}
     assert got.dtype == dtype and got.shape == (B, Hq, S, D)
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v, **opts).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [_BF16, _F32])
+@pytest.mark.parametrize("Sq,Sk,opts", [
+    (100, 300, {"causal": False}), (300, 100, {"causal": False}),
+    (257, 129, {}), (129, 300, {"window": 50})])
+def test_flash_attention_kernel_other_key_lengths_on_card(cuda_device, Sq,
+                                                          Sk, opts, dtype):
+    """Sq != Sk: query i sees key j by index, keys past Sk are masked."""
+    rng = np.random.default_rng(Sq * Sk)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda_device, dtype) for s in ((2, 4, Sq, 128), (2, 2, Sk, 128),
+                                      (2, 2, Sk, 128)))
+    got = flash_attention(q, k, v, **opts)
     tol = _FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(),
                                attention_ref(q, k, v, **opts).float(),
@@ -169,6 +209,11 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     kv = torch.zeros((1, 2, 16, 64), device=cuda_device)
     with pytest.raises(ValueError, match="group"):
         flash_attention(q, kv, kv)
+    b = torch.zeros(2 * 16 * 64 + 1, device=cuda_device,
+                    dtype=torch.bfloat16)[1:].view(1, 2, 16, 64)
+    assert b.is_contiguous() and b.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(b, b, b)
     before = flash_attention.launches
     with pytest.raises(ValueError, match="window"):
         flash_attention(kv, kv, kv, window=0)
