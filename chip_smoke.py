@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-against its plain PyTorch version on the card, then drives the main
+against its plain PyTorch version on the card (the gossip kernels also
+timed on the device alone, from a CUDA graph; every compiled split of
+the rwkv6 kernel timed at the prefill's shape), then drives the main
 path — `repro_torch.core.multiscale_gossip`, the paper's Algorithm 1 in
 its fixed-iterations large-n configuration — at n=10^5 and n=10^6 nodes,
 the matmul backend at n=20000 and `synchronous_multiscale` at n=2000,
@@ -69,6 +71,9 @@ AGREE = (2, 64)
 # wkv kernel vs plain version, allclose in the working type: f32 sums in
 # another order; bf16 output rounds to 2^-8 of its value
 RWKV6_TOL = {"bfloat16": 2e-2, "float32": 3e-4}
+# the wkv kernel at the prefill's shape (160, 4096, 64) takes at most this
+# many ms: under half of the first design's 2.05 ms
+RWKV6_LIMIT_MS = 1.0
 # forward vs decode_step in a float32 copy of the config: each block
 # through its kernel (rwkv6's wkv; flash attention, forced onto its route
 # with chunk_threshold=0) against decode (the wkv recurrence; the KV
@@ -139,6 +144,32 @@ class Smoke:
             fn()
         end.record()
         torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def device_ms(self, fn, reps: int) -> float:
+        """Device time per call of `fn`: `reps` calls captured in one CUDA
+        graph, its replay timed with CUDA events, so the host's time to
+        issue each call is not in it."""
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up outside the capture
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del graph
         return start.elapsed_time(end) / reps
 
     def bound_ms(self, nbytes: float, flops: float, peak=None):
@@ -285,19 +316,21 @@ class Smoke:
                             f"device-memory state {(B2, C2, V2, T2)}",
                             smem_cap=0)
         ms = self.time_ms(lambda: pair_apply(x, i, j, act, act), reps=50)
+        dev_ms = self.device_ms(lambda: pair_apply(x, i, j, act, act), 50)
         plain = self.time_ms(lambda: pair_apply_ref(x, i, j, act, act),
                              reps=3, warmup=1)
         nbytes = 2 * B * C * V * 4 + T * B * (4 + 4 + 1 + 1)
         bound, by = self.bound_ms(nbytes, 2 * T * B * V)
         log(f"[pair_apply] bitwise == plain version at n=1e5 finest level "
             f"and C in (4, 9, 16, 49, 130); at {(B, C, V, T)}: kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by})")
+            f"{ms:.4f} ms a call, {dev_ms:.4f} ms on the device (CUDA "
+            f"graph), plain {plain:.4f} ms, bound {bound:.4f} ms ({by})")
         self.kernels["pair_apply"] = dict(
             name="pair_apply", route="cuda",
             source="src/repro_torch/csrc/pair_apply.cu",
             replaces="src/repro/kernels/pair_apply/kernel.py:40",
-            launches=None, max_abs_err=worst, ms=ms, plain_ms=plain,
-            bound_ms=bound, bound_by=by, library_ms=None,
+            launches=None, max_abs_err=worst, ms=ms, device_ms=dev_ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None,
             shape=dict(B=B, C=C, V=V, T=T))
 
     def cell_mixing(self, plan20k):
@@ -340,21 +373,36 @@ class Smoke:
         worst = max(worst, err)
         check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
               f"cell_mixing != plain version on a composed chunk ({err})")
-        ms = self.time_ms(lambda: cell_mixing(m, x), reps=100)
-        plain = self.time_ms(lambda: cell_mixing_ref(m, x), reps=100)
+        # per call: events around 100 back-to-back calls, the host's issue
+        # included, as the matmul backend's chunk loop pays it, the least
+        # of five such means taken in turns with torch.bmm's (the host's
+        # clock varies more than the device's); on the device: the same
+        # calls replayed from a CUDA graph
         with no_tf32():
-            library = self.time_ms(lambda: torch.bmm(m, x), reps=100)
+            turns = [(self.time_ms(lambda: cell_mixing(m, x), reps=100),
+                      self.time_ms(lambda: torch.bmm(m, x), reps=100))
+                     for _ in range(5)]
+            ms = min(t[0] for t in turns)
+            library = min(t[1] for t in turns)
+            plain = self.time_ms(lambda: cell_mixing_ref(m, x), reps=100)
+            dev_ms = self.device_ms(lambda: cell_mixing(m, x), 100)
+            dev_library = self.device_ms(lambda: torch.bmm(m, x), 100)
         bound, by = self.bound_ms((B * C * C + 2 * B * C * 2) * 4,
                                   2 * B * C * C * 2)
         log(f"[cell_mixing] allclose 1e-5 and mass kept at rounds 1, 8; at "
-            f"{(B, C, 2)}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"torch.bmm {library:.4f} ms, bound {bound:.4f} ms ({by})")
+            f"{(B, C, 2)}: kernel {ms:.4f} ms a call, {dev_ms:.4f} ms on "
+            f"the device (CUDA graph); torch.bmm {library:.4f} ms a call, "
+            f"{dev_library:.4f} ms on the device; plain {plain:.4f} ms, "
+            f"bound {bound:.4f} ms ({by})")
+        check(ms <= library, f"cell_mixing {ms} ms a call, slower than "
+              f"torch.bmm's {library} ms in the same run")
         self.kernels["cell_mixing"] = dict(
             name="cell_mixing", route="cuda",
             source="src/repro_torch/csrc/cell_mixing.cu",
             replaces="src/repro/kernels/cell_mixing/kernel.py:27",
-            launches=None, max_abs_err=worst, ms=ms, plain_ms=plain,
-            bound_ms=bound, bound_by=by, library_ms=library,
+            launches=None, max_abs_err=worst, ms=ms, device_ms=dev_ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=library,
+            library_device_ms=dev_library,
             shape=dict(B=B, m=C, d=2, rounds=1))
 
     def setup(self, n):
@@ -562,6 +610,7 @@ class Smoke:
         and at odd ones (T not a multiple of 32, N=16, all f32)."""
         torch = self.torch
         from repro_torch.kernels.rwkv6 import rwkv6_ref, rwkv6_wkv
+        from repro_torch.kernels.rwkv6.ops import SPLITS, _launch, launch_config
 
         bf16, f32 = torch.bfloat16, torch.float32
         g = self.gen(12)
@@ -599,6 +648,19 @@ class Smoke:
             if main is None:
                 main = args
         BH, T, N = main[0].shape
+        # every compiled split of this head size on the same inputs, each
+        # held to the plain version; the op launches the first
+        want = rwkv6_ref(*main).float()
+        splits = {}
+        for split in SPLITS[N]:
+            got = _launch(*main, split).float()
+            err = float((got - want).abs().max())
+            check(torch.allclose(got, want, rtol=RWKV6_TOL["bfloat16"],
+                                 atol=RWKV6_TOL["bfloat16"]),
+                  f"rwkv6 split {split} != plain version (max abs err {err})")
+            splits[split] = self.time_ms(lambda: _launch(*main, split),
+                                         reps=20)
+        del got, want
         ms = self.time_ms(lambda: rwkv6_wkv(*main), reps=20)
         plain = self.time_ms(lambda: rwkv6_ref(*main), reps=1, warmup=1)
         # each input read once (r, k, v, u bf16; w f32), y written once;
@@ -608,14 +670,24 @@ class Smoke:
         elems = BH * T * N
         nbytes = elems * (3 * 2 + 4 + 2) + BH * N * 2
         bound, by = self.bound_ms(nbytes, (5 * N * N + 5 * N) * T * BH)
-        log(f"[rwkv6] allclose to the plain version ({RWKV6_TOL}) at 6 shapes, max abs err {worst:.3e}; at "
-            f"{(BH, T, N)} bf16 (f32 w): kernel {ms:.4f} ms, plain "
-            f"{plain:.2f} ms, bound {bound:.4f} ms ({by})")
+        vc, ks, cpt = launch_config(N)
+        log(f"[rwkv6] allclose to the plain version ({RWKV6_TOL}) at 6 "
+            f"shapes, max abs err {worst:.3e}; at {(BH, T, N)} bf16 (f32 "
+            f"w): kernel {ms:.4f} ms with VC={vc} columns a block, KS={ks} "
+            f"lanes a column, CPT={cpt} columns a lane ({ms / bound:.2f}x "
+            f"its bound, {bound / ms:.3f} of it), plain {plain:.2f} ms, "
+            f"bound {bound:.4f} ms ({by})")
+        log("[rwkv6] each split (VC, KS, CPT) at that shape: " + ", ".join(
+            f"{sp} {t:.4f} ms" for sp, t in splits.items()))
+        check(ms <= RWKV6_LIMIT_MS, f"rwkv6 kernel {ms} ms at {(BH, T, N)}, "
+              f"beyond {RWKV6_LIMIT_MS} ms")
         self.kernels["rwkv6"] = dict(
             name="rwkv6", route="cuda", source="src/repro_torch/csrc/rwkv6.cu",
             replaces="src/repro/kernels/rwkv6/kernel.py:33",
             launches=None, max_abs_err=worst, ms=ms, plain_ms=plain,
             bound_ms=bound, bound_by=by, library_ms=None,
+            split=dict(VC=vc, KS=ks, CPT=cpt),
+            split_ms={str(sp): t for sp, t in splits.items()},
             shape=dict(BH=BH, T=T, N=N, dtype="bfloat16", w="float32"))
 
     def model(self, cfg):
@@ -849,6 +921,7 @@ class Smoke:
 
         torch = self.torch
         import torch.nn.functional as F
+        from repro_torch._tf32 import no_tf32
         from repro_torch.kernels.flash_attention import (
             attention_ref, flash_attention)
         from repro_torch.kernels.flash_attention.ops import KERNELS
@@ -927,8 +1000,18 @@ class Smoke:
         Hkv = k.shape[1]
         f32_ms = self.time_ms(lambda: flash_attention(q32, k32, v32), reps=3,
                               warmup=1)
-        del q32, k32, v32, got, want, main_out, main_ref
         scale = 1.0 / math.sqrt(D)
+        del got, want, main_out, main_ref
+        # the same f32 function by one PyTorch call (TF32 off) and by the
+        # plain version
+        with no_tf32():
+            f32_library = self.time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q32, k32, v32, is_causal=True, scale=scale,
+                    enable_gqa=True), reps=3, warmup=1)
+        f32_plain = self.time_ms(lambda: attention_ref(q32, k32, v32),
+                                 reps=2, warmup=1)
+        del q32, k32, v32
         ms = self.time_ms(lambda: flash_attention(q, k, v), reps=20)
         plain = self.time_ms(lambda: attention_ref(q, k, v), reps=2, warmup=1)
         library = self.time_ms(lambda: F.scaled_dot_product_attention(
@@ -951,7 +1034,8 @@ class Smoke:
             f"({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of its "
             f"bound), f32 kernel {f32_ms:.4f} ms "
             f"({flops / f32_ms / 1e9:.1f} TFLOP/s, bound {bound32:.4f} ms "
-            f"{by32}), plain {plain:.2f} ms, SDPA {library:.4f} ms "
+            f"{by32}; f32 SDPA {f32_library:.4f} ms, f32 plain "
+            f"{f32_plain:.2f} ms), plain {plain:.2f} ms, SDPA {library:.4f} ms "
             f"({ms / library:.3f}x), bound {bound:.4f} ms ({by}, "
             f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
         check(ms <= FLASH_SDPA_LIMIT * library,
@@ -964,7 +1048,8 @@ class Smoke:
             launches=None, max_abs_err=worst, ms=ms, plain_ms=plain,
             bound_ms=bound, bound_by=by, library_ms=library,
             f32_source="src/repro_torch/csrc/flash_attention.cu",
-            f32_ms=f32_ms, f32_bound_ms=bound32,
+            f32_ms=f32_ms, f32_bound_ms=bound32, f32_plain_ms=f32_plain,
+            f32_library_ms=f32_library,
             shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, dtype="bfloat16",
                        causal=True))
         self.report["flash_main_shape_err"] = {

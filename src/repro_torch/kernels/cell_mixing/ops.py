@@ -9,6 +9,7 @@ kernel (``csrc/cell_mixing.cu``) or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -20,6 +21,9 @@ __all__ = ["mixing_matrix", "pad_mixing", "cell_mixing", "launch_config"]
 
 _SMEM_CAP = 200 * 1024
 _DT = 64
+_THREADS = 256  # threads of a block-path block
+_CELLS_PER_BLOCK = 8  # warps of a warp-path block (kernel's kCellsPerBlock)
+_LAUNCH = None
 
 
 def _round_up(v: int, mult: int) -> int:
@@ -65,54 +69,68 @@ def pad_mixing(w, x, m_mult: int = 8, d_mult: int = 128):
     return w, x, (m, d)
 
 
+@functools.lru_cache(maxsize=None)
 def launch_config(m: int, d: int, smem_cap: int = _SMEM_CAP):
-    """(d-tile, W in shared memory?, threads per block) for (m, d) cells."""
+    """How the kernel runs (m, d) cells: ``("warp", 0, False, 32, 8)`` for
+    m <= 32 (a warp a cell, 8 cells a block), else ``("block", dt,
+    w_in_smem, nx, ny)``: a block of nx columns by ny rows of threads per
+    (cell, dt-column tile), W in shared memory if it fits."""
+    if m <= 32:
+        return "warp", 0, False, 32, _CELLS_PER_BLOCK
     dt = min(d, _DT)
     while dt > 1 and 2 * m * dt * 4 > smem_cap:
         dt //= 2
-    w_in_smem = (m * m + 2 * m * dt) * 4 <= smem_cap
-    threads = min(256, _round_up(max(m * dt, 1), 32))
-    return dt, w_in_smem, threads
+    w_in_smem = (m * (m | 1) + 2 * m * dt) * 4 <= smem_cap
+    nx = min(32, 1 << (dt - 1).bit_length())
+    ny = min(_THREADS // nx, _round_up(m, max(1, 32 // nx)))
+    return "block", dt, w_in_smem, nx, ny
 
 
 def _lib():
-    fn = load("cell_mixing").cell_mixing_launch
-    if fn.argtypes is None:
+    """The kernel's C entry point, its signature set on first use."""
+    global _LAUNCH
+    if _LAUNCH is None:
+        fn = load("cell_mixing").cell_mixing_launch
         p, n = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, n, n, n, n, n, n, n, p]
+        fn.argtypes = [p, p, p, n, n, n, n, n, n, n, n, p]
         fn.restype = ctypes.c_int
-    return fn
+        _LAUNCH = fn
+    return _LAUNCH
 
 
 def cell_mixing(w, x, *, rounds: int = 1):
     """Apply `rounds` synchronous gossip rounds per cell: W[b]^R @ x[b].
 
     w: (B, m, m), x: (B, m, d), both float32; on the card both must be
-    contiguous and on one device.
+    contiguous and on one device.  The path to the kernel is kept short:
+    at the matmul backend's sizes the host's time per call is most of
+    the op's.
     """
-    if x.device.type == "cpu":
-        return cell_mixing_ref(w, x, rounds=rounds)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return cell_mixing_ref(w, x, rounds=rounds)
         raise ValueError(f"cell_mixing runs on cpu or cuda, not {x.device}")
     if x.dim() != 3 or x.dtype != torch.float32 or w.dtype != torch.float32:
         raise ValueError("w and x must be float32 (B, m, m) and (B, m, d)")
     B, m, d = x.shape
-    if tuple(w.shape) != (B, m, m):
+    if w.shape != (B, m, m):
         raise ValueError(f"w must be {(B, m, m)}, got {tuple(w.shape)}")
-    if w.device != x.device:
+    idx = x.get_device()
+    if w.get_device() != idx:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
     if not (w.is_contiguous() and x.is_contiguous()):
         raise ValueError("w and x must be contiguous")
     if rounds < 0:
         raise ValueError("rounds must be >= 0")
+    _, dt, w_in_smem, nx, ny = launch_config(m, d)
     y = torch.empty_like(x)
-    dt, w_in_smem, threads = launch_config(m, d)
-    with torch.cuda.device(x.device):
-        rc = _lib()(
-            w.data_ptr(), x.data_ptr(), y.data_ptr(), B, m, d, dt,
-            int(rounds), int(w_in_smem), threads,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    args = (w.data_ptr(), x.data_ptr(), y.data_ptr(), B, m, d, rounds, dt,
+            w_in_smem, nx, ny)
+    if idx == torch._C._cuda_getDevice():
+        rc = _lib()(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            rc = _lib()(*args, torch._C._cuda_getCurrentRawStream(idx))
     if rc != 0:
         raise RuntimeError(f"cell_mixing kernel launch failed: CUDA error {rc}")
     cell_mixing.launches += 1

@@ -11,11 +11,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.cell_mixing import cell_mixing, cell_mixing_ref  # noqa: E402
+from repro_torch.kernels.cell_mixing import (  # noqa: E402
+    cell_mixing,
+    cell_mixing_ref,
+    pad_mixing,
+)
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import KERNELS  # noqa: E402
 from repro_torch.kernels.pair_apply import pair_apply, pair_apply_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import rwkv6_ref, rwkv6_wkv  # noqa: E402
+from repro_torch.kernels.rwkv6.ops import SPLITS, _launch  # noqa: E402
 
 
 def _schedule(rng, B, C, T, same=0.1):
@@ -61,18 +66,46 @@ def test_pair_apply_kernel_bitwise_on_card(cuda_device, C, smem_cap):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+# cell_mixing: a warp a cell for m <= 32 (8, 16 or 32 rows a warp, 16-byte
+# W loads where m is 8, 16 or 32), a block a cell above (W in shared
+# memory up to m=130 at these widths, from device memory at m=300); B=13
+# is not a multiple of the 8 cells of a warp-path block
 @pytest.mark.cuda
-@pytest.mark.parametrize("rounds", [1, 8])
-@pytest.mark.parametrize("m,d", [(9, 2), (49, 33), (300, 2)])
+@pytest.mark.parametrize("rounds", [0, 1, 8])
+@pytest.mark.parametrize("d", [1, 2, 33])
+@pytest.mark.parametrize("m", [1, 8, 9, 15, 16, 32, 33, 49, 300])
 def test_cell_mixing_kernel_on_card(cuda_device, m, d, rounds):
     rng = np.random.default_rng(m + d)
-    w = torch.from_numpy(_random_mixing(rng, 7, m)).to(cuda_device)
-    x = torch.from_numpy(rng.normal(size=(7, m, d)).astype(np.float32)).to(
+    w = torch.from_numpy(_random_mixing(rng, 13, m)).to(cuda_device)
+    x = torch.from_numpy(rng.normal(size=(13, m, d)).astype(np.float32)).to(
         cuda_device)
+    before = cell_mixing.launches
     got = cell_mixing(w, x, rounds=rounds)
+    torch.cuda.synchronize()
+    assert cell_mixing.launches == before + 1
     torch.testing.assert_close(got, cell_mixing_ref(w, x, rounds=rounds),
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got.sum(1), x.sum(1), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(15, 2), (30, 3), (49, 33)])
+def test_cell_mixing_kernel_padded_layout_on_card(cuda_device, m, d):
+    """pad_mixing's identity-padded layout (m to a multiple of 8, d of
+    128): the padded rows stay zero and the live block equals the
+    unpadded product."""
+    rng = np.random.default_rng(m * d)
+    w = torch.from_numpy(_random_mixing(rng, 21, m)).to(cuda_device)
+    x = torch.from_numpy(rng.normal(size=(21, m, d)).astype(np.float32)).to(
+        cuda_device)
+    wp, xp, dims = pad_mixing(w, x)
+    assert dims == (m, d) and xp.shape[1] % 8 == 0 and xp.shape[2] == 128
+    got = cell_mixing(wp.contiguous(), xp.contiguous(), rounds=8)
+    torch.testing.assert_close(got, cell_mixing_ref(wp, xp, rounds=8),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[:, :m, :d], cell_mixing_ref(w, x, rounds=8),
+                               rtol=1e-5, atol=1e-5)
+    assert not got[:, m:].any() and not got[:, :, d:].any()
 
 
 # rwkv6: allclose in the working type.  f32 sums run in another order
@@ -107,6 +140,32 @@ def test_rwkv6_kernel_on_card(cuda_device, BH, T, N, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "mixed"])
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("T", [1, 31, 33, 1000])
+@pytest.mark.parametrize("BH", [1, 7, 160])
+def test_rwkv6_kernel_every_split_on_card(cuda_device, BH, T, N, kind):
+    """Every split compiled for N (VC columns a block, KS lanes a column,
+    CPT columns a lane) against the plain version: T below, at and past
+    the 32-step chunk and the last chunk's tail batch."""
+    dt, wdt, tol = _RWKV_TYPES[kind]
+    rng = np.random.default_rng(BH * 7919 + T * 31 + N)
+    arrays = [rng.normal(size=(BH, T, N)), rng.normal(size=(BH, T, N)) * 0.3,
+              rng.normal(size=(BH, T, N)),
+              rng.uniform(0.85, 0.999, size=(BH, T, N)),
+              rng.normal(size=(BH, N)) * 0.2]
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda_device, t)
+            for a, t in zip(arrays, (dt, dt, dt, wdt, dt))]
+    want = rwkv6_ref(*args).float()
+    for split in SPLITS[N]:
+        got = _launch(*args, split)
+        torch.cuda.synchronize()
+        assert got.dtype == dt and got.shape == (BH, T, N)
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol,
+                                   msg=lambda m: f"split {split}: {m}")
+
+
+@pytest.mark.cuda
 def test_rwkv6_kernel_rejects_what_it_does_not_take(cuda_device):
     x = torch.zeros((2, 8, 48), device=cuda_device)
     with pytest.raises(ValueError, match="head size"):
@@ -118,6 +177,10 @@ def test_rwkv6_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         rwkv6_wkv(h, h, h, h, torch.zeros((2, 16), device=cuda_device,
                                           dtype=torch.float16))
+    b = torch.zeros(2 * 8 * 16 + 1, device=cuda_device)[1:].view(2, 8, 16)
+    assert b.is_contiguous() and b.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_wkv(b, b, b, b, torch.zeros((2, 16), device=cuda_device))
 
 
 # flash_attention: allclose to the plain version at the reference kernel
