@@ -5,8 +5,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version on the card (the gossip kernels also
-timed on the device alone, from a CUDA graph; every compiled split of
-the rwkv6 kernel timed at the prefill's shape), then drives the main
+timed on the device alone, from a CUDA graph), then drives the main
 path — `repro_torch.core.multiscale_gossip`, the paper's Algorithm 1 in
 its fixed-iterations large-n configuration — at n=10^5 and n=10^6 nodes,
 the matmul backend at n=20000 and `synchronous_multiscale` at n=2000,
@@ -38,6 +37,7 @@ the repository beside it, the script fails and prints no result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -374,19 +374,21 @@ class Smoke:
         check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
               f"cell_mixing != plain version on a composed chunk ({err})")
         # per call: events around 100 back-to-back calls, the host's issue
-        # included, as the matmul backend's chunk loop pays it, the least
-        # of five such means taken in turns with torch.bmm's (the host's
-        # clock varies more than the device's); on the device: the same
-        # calls replayed from a CUDA graph
+        # included, as the matmul backend's chunk loop pays it; five such
+        # means taken in turns with torch.bmm's, the least of each side
+        # compared (the host's clock varies more than the device's) and
+        # all ten kept, so a failure reads as noise or as a regression.
+        # On the device: the same calls replayed from a CUDA graph.
         with no_tf32():
             turns = [(self.time_ms(lambda: cell_mixing(m, x), reps=100),
                       self.time_ms(lambda: torch.bmm(m, x), reps=100))
                      for _ in range(5)]
-            ms = min(t[0] for t in turns)
-            library = min(t[1] for t in turns)
             plain = self.time_ms(lambda: cell_mixing_ref(m, x), reps=100)
             dev_ms = self.device_ms(lambda: cell_mixing(m, x), 100)
             dev_library = self.device_ms(lambda: torch.bmm(m, x), 100)
+        ours, bmms = [t[0] for t in turns], [t[1] for t in turns]
+        ms, library = min(ours), min(bmms)
+        lost = sum(a > b for a, b in turns)  # turns in which bmm was faster
         bound, by = self.bound_ms((B * C * C + 2 * B * C * 2) * 4,
                                   2 * B * C * C * 2)
         log(f"[cell_mixing] allclose 1e-5 and mass kept at rounds 1, 8; at "
@@ -394,6 +396,12 @@ class Smoke:
             f"the device (CUDA graph); torch.bmm {library:.4f} ms a call, "
             f"{dev_library:.4f} ms on the device; plain {plain:.4f} ms, "
             f"bound {bound:.4f} ms ({by})")
+        log(f"[cell_mixing] a call, five turns: kernel "
+            f"{', '.join(f'{t:.4f}' for t in ours)} ms; torch.bmm "
+            f"{', '.join(f'{t:.4f}' for t in bmms)} ms; the kernel slower "
+            f"in {lost} of 5 turns")
+        check(dev_ms <= dev_library, f"cell_mixing {dev_ms} ms on the "
+              f"device, slower than torch.bmm's {dev_library} ms")
         check(ms <= library, f"cell_mixing {ms} ms a call, slower than "
               f"torch.bmm's {library} ms in the same run")
         self.kernels["cell_mixing"] = dict(
@@ -402,7 +410,8 @@ class Smoke:
             replaces="src/repro/kernels/cell_mixing/kernel.py:27",
             launches=None, max_abs_err=worst, ms=ms, device_ms=dev_ms,
             plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=library,
-            library_device_ms=dev_library,
+            library_device_ms=dev_library, turns_ms=ours,
+            library_turns_ms=bmms, turns_lost=lost,
             shape=dict(B=B, m=C, d=2, rounds=1))
 
     def setup(self, n):
@@ -610,7 +619,7 @@ class Smoke:
         and at odd ones (T not a multiple of 32, N=16, all f32)."""
         torch = self.torch
         from repro_torch.kernels.rwkv6 import rwkv6_ref, rwkv6_wkv
-        from repro_torch.kernels.rwkv6.ops import SPLITS, _launch, launch_config
+        from repro_torch.kernels._build import load
 
         bf16, f32 = torch.bfloat16, torch.float32
         g = self.gen(12)
@@ -648,19 +657,6 @@ class Smoke:
             if main is None:
                 main = args
         BH, T, N = main[0].shape
-        # every compiled split of this head size on the same inputs, each
-        # held to the plain version; the op launches the first
-        want = rwkv6_ref(*main).float()
-        splits = {}
-        for split in SPLITS[N]:
-            got = _launch(*main, split).float()
-            err = float((got - want).abs().max())
-            check(torch.allclose(got, want, rtol=RWKV6_TOL["bfloat16"],
-                                 atol=RWKV6_TOL["bfloat16"]),
-                  f"rwkv6 split {split} != plain version (max abs err {err})")
-            splits[split] = self.time_ms(lambda: _launch(*main, split),
-                                         reps=20)
-        del got, want
         ms = self.time_ms(lambda: rwkv6_wkv(*main), reps=20)
         plain = self.time_ms(lambda: rwkv6_ref(*main), reps=1, warmup=1)
         # each input read once (r, k, v, u bf16; w f32), y written once;
@@ -670,15 +666,16 @@ class Smoke:
         elems = BH * T * N
         nbytes = elems * (3 * 2 + 4 + 2) + BH * N * 2
         bound, by = self.bound_ms(nbytes, (5 * N * N + 5 * N) * T * BH)
-        vc, ks, cpt = launch_config(N)
+        split = (ctypes.c_int * 3)()
+        check(load("rwkv6").rwkv6_split(N, split) == 0,
+              f"rwkv6 kernel compiled for no head size {N}")
+        vc, ks, cpt = split
         log(f"[rwkv6] allclose to the plain version ({RWKV6_TOL}) at 6 "
             f"shapes, max abs err {worst:.3e}; at {(BH, T, N)} bf16 (f32 "
             f"w): kernel {ms:.4f} ms with VC={vc} columns a block, KS={ks} "
             f"lanes a column, CPT={cpt} columns a lane ({ms / bound:.2f}x "
             f"its bound, {bound / ms:.3f} of it), plain {plain:.2f} ms, "
             f"bound {bound:.4f} ms ({by})")
-        log("[rwkv6] each split (VC, KS, CPT) at that shape: " + ", ".join(
-            f"{sp} {t:.4f} ms" for sp, t in splits.items()))
         check(ms <= RWKV6_LIMIT_MS, f"rwkv6 kernel {ms} ms at {(BH, T, N)}, "
               f"beyond {RWKV6_LIMIT_MS} ms")
         self.kernels["rwkv6"] = dict(
@@ -687,7 +684,6 @@ class Smoke:
             launches=None, max_abs_err=worst, ms=ms, plain_ms=plain,
             bound_ms=bound, bound_by=by, library_ms=None,
             split=dict(VC=vc, KS=ks, CPT=cpt),
-            split_ms={str(sp): t for sp, t in splits.items()},
             shape=dict(BH=BH, T=T, N=N, dtype="bfloat16", w="float32"))
 
     def model(self, cfg):

@@ -24,13 +24,14 @@
 // __syncthreads anywhere, no integer division, W and x read from device
 // memory once whatever `rounds` is.
 //
-// Design, m > 32: one block of 256 threads per (cell, d-tile).  W (when
-// it fits) and two (m, dt) tiles of the state live in shared memory; the
-// threads form an (nx, ny) grid, nx columns by ny rows, and walk rows and
-// columns with strided loops (no division); the rounds ping-pong between
-// the two tiles with one __syncthreads per round.  W is stored with an
-// odd row stride, so the ny rows a warp reads fall in distinct banks.  A
-// W too large for shared memory is read from device memory instead.
+// Design, m > 32: one block of up to 256 threads per (cell, d-tile).  W
+// (when it fits) and two (m, dt) tiles of the state live in shared
+// memory; the threads form an (nx, ny) grid, nx columns by ny rows, and
+// walk rows and columns with strided loops (no division); the rounds
+// ping-pong between the two tiles with one __syncthreads per round.  W
+// is stored with an odd row stride, so the ny rows a warp reads fall in
+// distinct banks.  A W too large for shared memory is read from device
+// memory instead.
 //
 // Both paths form each output as a sequential fmaf chain over k, f32
 // throughout, no tensor cores, no TF32.  The sums run in another order
@@ -42,6 +43,7 @@
 namespace {
 
 constexpr int kCellsPerBlock = 8;  // warps, and cells, of a warp-path block
+constexpr int kBlockThreads = 256;  // most threads of a block-path block
 
 template <int MB>  // MB >= m: 8, 16 or 32
 __global__ void __launch_bounds__(32 * kCellsPerBlock)
@@ -143,14 +145,13 @@ __global__ void mixing_block_kernel(const float* __restrict__ w,
 }  // namespace
 
 // w: (B, m, m), x and y: (B, m, d), f32, contiguous.
-// m <= 32 takes the warp path (dt, w_in_smem, nx, ny are not read);
-// m > 32 the block path with d-tiles of dt columns, W in shared memory
-// if w_in_smem, and (nx, ny) threads.  Launch on `stream`; returns
-// cudaGetLastError() (0 on success).
+// m <= 32 takes the warp path (dt and w_in_smem are not read); m > 32
+// the block path with d-tiles of dt columns and W in shared memory if
+// w_in_smem.  Launch on `stream`; returns cudaGetLastError() (0 on
+// success).
 extern "C" int cell_mixing_launch(const float* w, const float* x, float* y,
                                   int B, int m, int d, int rounds, int dt,
-                                  int w_in_smem, int nx, int ny,
-                                  void* stream) {
+                                  int w_in_smem, void* stream) {
   if (B == 0 || m == 0 || d == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m <= 32) {
@@ -178,6 +179,13 @@ extern "C" int cell_mixing_launch(const float* w, const float* x, float* y,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+  // nx columns of a tile (a power of two, up to a warp) by ny rows of
+  // threads: whole warps, and no more rows than whole warps of m need
+  int nx = 1;
+  while (nx < dt && nx < 32) nx <<= 1;
+  const int rows_a_warp = 32 / nx;
+  const int ny = min(kBlockThreads / nx,
+                     (m + rows_a_warp - 1) / rows_a_warp * rows_a_warp);
   dim3 grid((unsigned)B, (unsigned)((d + dt - 1) / dt));
   mixing_block_kernel<<<grid, dim3(nx, ny), smem, st>>>(w, x, y, m, d, dt,
                                                         rounds, w_in_smem);

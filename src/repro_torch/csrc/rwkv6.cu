@@ -27,11 +27,13 @@
 // v_t[m], and keys only meet in the sum of y.  So the grid is (BH, N/VC):
 // a block owns VC columns of one b·h's S.  KS neighbouring lanes share a
 // group of CPT columns, each holding NK = N/KS keys of them in
-// registers.  The split the op launches at N=64 is VC=32, KS=16, CPT=4:
-// 320 blocks of 128 threads, 9.7 warps an SM, 4 keys by 4 columns a
-// lane.  Several columns a lane make each shared load of r, k, w serve
-// CPT columns; shared-memory traffic per column and the lane's share of
-// the per-key work fall by CPT, while KS keeps enough warps in flight.
+// registers.  One split is compiled per head size (`Split` below); at
+// N=64 it is VC=32, KS=16, CPT=4: 320 blocks of 128 threads, 9.7 warps an
+// SM, 4 keys by 4 columns a lane.  Several columns a lane make each shared
+// load of r, k, w serve CPT columns; shared-memory traffic per column and
+// the lane's share of the per-key work fall by CPT, while KS keeps enough
+// warps in flight.  It was the fastest of the splits timed at the rwkv6-3b
+// prefill shape on an H100 (PERF.md records them).
 //
 // The inner loop is three instructions per (key, column): kv = k v;
 // y += S r; S = w S + kv.  The bonus is taken once per key, not per
@@ -300,21 +302,30 @@ __global__ void __launch_bounds__(VC / CPT * KS)
   cp_async_wait<0>();  // no copy may outlive the block
 }
 
-// The splits compiled here, (N, VC, KS, CPT); kernels/rwkv6/ops.py lists
-// the same in SPLITS.
-#define RWKV6_SPLITS(X) \
-  X(16, 16, 4, 2)       \
-  X(32, 16, 8, 4)       \
-  X(64, 32, 16, 4)      \
-  X(64, 16, 16, 4)      \
-  X(64, 32, 8, 2)
+// The split launched for each head size: VC value columns a block, KS
+// lanes a column, CPT columns a lane.
+template <int N>
+struct Split;
+template <>
+struct Split<16> {
+  static constexpr int VC = 16, KS = 4, CPT = 2;
+};
+template <>
+struct Split<32> {
+  static constexpr int VC = 16, KS = 8, CPT = 4;
+};
+template <>
+struct Split<64> {
+  static constexpr int VC = 32, KS = 16, CPT = 4;
+};
 
-template <int N, int VC, int KS, int CPT, typename TI, typename TW>
+template <int N, typename TI, typename TW>
 int launch_typed(const void* r, const void* k, const void* v, const void* w,
                  const void* u, void* y, int BH, int T, cudaStream_t stream) {
-  auto kernel = rwkv6_kernel<N, VC, KS, CPT, TI, TW>;
-  constexpr int smem = NSTAGE * Stage<N, VC, TI, TW>::kBytes;
-  constexpr int threads = VC / CPT * KS;
+  using P = Split<N>;
+  auto kernel = rwkv6_kernel<N, P::VC, P::KS, P::CPT, TI, TW>;
+  constexpr int smem = NSTAGE * Stage<N, P::VC, TI, TW>::kBytes;
+  constexpr int threads = P::VC / P::CPT * P::KS;
   // the largest shared-memory carveout, so that the ring of several
   // blocks fits one SM beside the registers they need
   cudaError_t e = cudaFuncSetAttribute(
@@ -324,7 +335,7 @@ int launch_typed(const void* r, const void* k, const void* v, const void* w,
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)BH, N / VC);
+  dim3 grid((unsigned)BH, N / P::VC);
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const TI*>(r), static_cast<const TI*>(k),
       static_cast<const TI*>(v), static_cast<const TW*>(w),
@@ -332,39 +343,46 @@ int launch_typed(const void* r, const void* k, const void* v, const void* w,
   return (int)cudaGetLastError();
 }
 
-template <int N, int VC, int KS, int CPT>
-int launch_split(const void* r, const void* k, const void* v, const void* w,
-                 const void* u, void* y, int BH, int T, int in_bf16,
-                 int w_bf16, cudaStream_t st) {
+template <int N>
+int launch_n(const void* r, const void* k, const void* v, const void* w,
+             const void* u, void* y, int BH, int T, int in_bf16, int w_bf16,
+             cudaStream_t st) {
   using bf16 = __nv_bfloat16;
   if (in_bf16 && w_bf16)
-    return launch_typed<N, VC, KS, CPT, bf16, bf16>(r, k, v, w, u, y, BH, T, st);
-  if (in_bf16)
-    return launch_typed<N, VC, KS, CPT, bf16, float>(r, k, v, w, u, y, BH, T, st);
-  if (w_bf16)
-    return launch_typed<N, VC, KS, CPT, float, bf16>(r, k, v, w, u, y, BH, T, st);
-  return launch_typed<N, VC, KS, CPT, float, float>(r, k, v, w, u, y, BH, T, st);
+    return launch_typed<N, bf16, bf16>(r, k, v, w, u, y, BH, T, st);
+  if (in_bf16) return launch_typed<N, bf16, float>(r, k, v, w, u, y, BH, T, st);
+  if (w_bf16) return launch_typed<N, float, bf16>(r, k, v, w, u, y, BH, T, st);
+  return launch_typed<N, float, float>(r, k, v, w, u, y, BH, T, st);
 }
 
 }  // namespace
 
 // r, k, v, w: (BH, T, N) contiguous; u: (BH, N); y: (BH, T, N) in the
 // type of r; every pointer 16-byte aligned.  in_bf16: r, k, v, u, y are
-// bf16 (else f32); w_bf16: w is bf16 (else f32).  The split: VC columns a
-// block, KS lanes a column, CPT columns a lane.  Launch on `stream`;
-// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
-// for a head size and split not compiled here.
+// bf16 (else f32); w_bf16: w is bf16 (else f32); N is 16, 32 or 64.
+// Launch on `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for another head size.
 extern "C" int rwkv6_launch(const void* r, const void* k, const void* v,
                             const void* w, const void* u, void* y, int BH,
-                            int T, int N, int in_bf16, int w_bf16, int vc,
-                            int ks, int cpt, void* stream) {
+                            int T, int N, int in_bf16, int w_bf16,
+                            void* stream) {
   if (BH == 0 || T == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RWKV6_TRY(n_, vc_, ks_, cpt_)                                      \
-  if (N == n_ && vc == vc_ && ks == ks_ && cpt == cpt_)                     \
-    return launch_split<n_, vc_, ks_, cpt_>(r, k, v, w, u, y, BH, T,       \
-                                            in_bf16, w_bf16, st);
-  RWKV6_SPLITS(RWKV6_TRY)
-#undef RWKV6_TRY
+  if (N == 16) return launch_n<16>(r, k, v, w, u, y, BH, T, in_bf16, w_bf16, st);
+  if (N == 32) return launch_n<32>(r, k, v, w, u, y, BH, T, in_bf16, w_bf16, st);
+  if (N == 64) return launch_n<64>(r, k, v, w, u, y, BH, T, in_bf16, w_bf16, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split rwkv6_launch uses for head size N, for reports: {VC, KS, CPT}
+// into split[0..2]; returns 0, or cudaErrorInvalidValue for another N.
+extern "C" int rwkv6_split(int N, int* split) {
+  auto put3 = [split](int vc, int ks, int cpt) {
+    split[0] = vc, split[1] = ks, split[2] = cpt;
+    return 0;
+  };
+  if (N == 16) return put3(Split<16>::VC, Split<16>::KS, Split<16>::CPT);
+  if (N == 32) return put3(Split<32>::VC, Split<32>::KS, Split<32>::CPT);
+  if (N == 64) return put3(Split<64>::VC, Split<64>::KS, Split<64>::CPT);
   return (int)cudaErrorInvalidValue;
 }

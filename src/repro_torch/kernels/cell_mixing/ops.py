@@ -21,8 +21,6 @@ __all__ = ["mixing_matrix", "pad_mixing", "cell_mixing", "launch_config"]
 
 _SMEM_CAP = 200 * 1024
 _DT = 64
-_THREADS = 256  # threads of a block-path block
-_CELLS_PER_BLOCK = 8  # warps of a warp-path block (kernel's kCellsPerBlock)
 _LAUNCH = None
 
 
@@ -71,19 +69,15 @@ def pad_mixing(w, x, m_mult: int = 8, d_mult: int = 128):
 
 @functools.lru_cache(maxsize=None)
 def launch_config(m: int, d: int, smem_cap: int = _SMEM_CAP):
-    """How the kernel runs (m, d) cells: ``("warp", 0, False, 32, 8)`` for
-    m <= 32 (a warp a cell, 8 cells a block), else ``("block", dt,
-    w_in_smem, nx, ny)``: a block of nx columns by ny rows of threads per
-    (cell, dt-column tile), W in shared memory if it fits."""
-    if m <= 32:
-        return "warp", 0, False, 32, _CELLS_PER_BLOCK
+    """(d-tile, W in shared memory?) of the kernel's block path, which
+    takes cells of more than 32 slots: a block per (cell, d-tile), W in
+    shared memory (rows of m | 1 floats) if it fits beside two tiles of
+    the state.  The kernel picks its path and its threads from m."""
     dt = min(d, _DT)
     while dt > 1 and 2 * m * dt * 4 > smem_cap:
         dt //= 2
     w_in_smem = (m * (m | 1) + 2 * m * dt) * 4 <= smem_cap
-    nx = min(32, 1 << (dt - 1).bit_length())
-    ny = min(_THREADS // nx, _round_up(m, max(1, 32 // nx)))
-    return "block", dt, w_in_smem, nx, ny
+    return dt, w_in_smem
 
 
 def _lib():
@@ -92,7 +86,7 @@ def _lib():
     if _LAUNCH is None:
         fn = load("cell_mixing").cell_mixing_launch
         p, n = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, n, n, n, n, n, n, n, n, p]
+        fn.argtypes = [p, p, p, n, n, n, n, n, n, p]
         fn.restype = ctypes.c_int
         _LAUNCH = fn
     return _LAUNCH
@@ -122,10 +116,10 @@ def cell_mixing(w, x, *, rounds: int = 1):
         raise ValueError("w and x must be contiguous")
     if rounds < 0:
         raise ValueError("rounds must be >= 0")
-    _, dt, w_in_smem, nx, ny = launch_config(m, d)
+    dt, w_in_smem = launch_config(m, d)
     y = torch.empty_like(x)
-    args = (w.data_ptr(), x.data_ptr(), y.data_ptr(), B, m, d, rounds, dt,
-            w_in_smem, nx, ny)
+    args = (w.data_ptr(), x.data_ptr(), y.data_ptr(), B, m, d, int(rounds),
+            dt, w_in_smem)
     if idx == torch._C._cuda_getDevice():
         rc = _lib()(*args, torch._C._cuda_getCurrentRawStream(idx))
     else:

@@ -13,38 +13,19 @@ import torch
 from .._build import load
 from .ref import rwkv6_ref
 
-__all__ = ["rwkv6_wkv", "launch_config", "SPLITS"]
+__all__ = ["rwkv6_wkv"]
 
-# The splits the kernel is compiled for, by head size N: (VC, KS, CPT) =
-# VC value columns a block, KS lanes a column, CPT columns a lane
-# (csrc/rwkv6.cu, RWKV6_SPLITS).  The first of each is the one the op
-# launches; chip_smoke.py times the others at N=64 beside it.
-SPLITS = {
-    16: ((16, 4, 2),),
-    32: ((16, 8, 4),),
-    64: ((32, 16, 4), (16, 16, 4), (32, 8, 2)),
-}
-_HEAD_SIZES = tuple(SPLITS)  # the kernel is compiled for these N
+_HEAD_SIZES = (16, 32, 64)  # the kernel is compiled for these N
 _IN_DTYPES = (torch.float32, torch.bfloat16)
-_LAUNCH = None
-
-
-def launch_config(N: int):
-    """The (VC, KS, CPT) split the op launches for head size N: a grid of
-    (BH, N / VC) blocks of VC / CPT * KS threads."""
-    return SPLITS[N][0]
 
 
 def _lib():
-    """The kernel's C entry point, its signature set on first use."""
-    global _LAUNCH
-    if _LAUNCH is None:
-        fn = load("rwkv6").rwkv6_launch
+    fn = load("rwkv6").rwkv6_launch
+    if fn.argtypes is None:
         p, n = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, n, n, n, n, n, n, n, n, p]
+        fn.argtypes = [p, p, p, p, p, p, n, n, n, n, n, p]
         fn.restype = ctypes.c_int
-        _LAUNCH = fn
-    return _LAUNCH
+    return fn
 
 
 def _check_cuda(r, k, v, w, u):
@@ -71,26 +52,6 @@ def _check_cuda(r, k, v, w, u):
         raise ValueError("r, k, v, w and u must start 16-byte aligned")
 
 
-def _launch(r, k, v, w, u, split):
-    """Run the kernel with `split` (one of SPLITS[N]) on checked inputs;
-    the launch count is the caller's."""
-    BH, T, N = r.shape
-    y = torch.empty_like(r)
-    idx = r.device.index
-    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), y.data_ptr(), BH, T, N,
-            int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
-            *split)
-    if idx == torch._C._cuda_getDevice():
-        rc = _lib()(*args, torch._C._cuda_getCurrentRawStream(idx))
-    else:
-        with torch.cuda.device(idx):
-            rc = _lib()(*args, torch._C._cuda_getCurrentRawStream(idx))
-    if rc != 0:
-        raise RuntimeError(f"rwkv6 kernel launch failed: CUDA error {rc}")
-    return y
-
-
 def rwkv6_wkv(r, k, v, w, u):
     """RWKV-6 wkv over (BH, T, N) streams; u is the (BH, N) bonus.
 
@@ -106,7 +67,17 @@ def rwkv6_wkv(r, k, v, w, u):
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_wkv runs on cpu or cuda, not {r.device}")
     _check_cuda(r, k, v, w, u)
-    y = _launch(r, k, v, w, u, launch_config(r.shape[2]))
+    BH, T, N = r.shape
+    y = torch.empty_like(r)
+    with torch.cuda.device(r.device):
+        rc = _lib()(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), y.data_ptr(), BH, T, N,
+            int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"rwkv6 kernel launch failed: CUDA error {rc}")
     rwkv6_wkv.launches += 1
     return y
 

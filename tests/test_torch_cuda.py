@@ -20,7 +20,6 @@ from repro_torch.kernels.flash_attention import attention_ref, flash_attention  
 from repro_torch.kernels.flash_attention.ops import KERNELS  # noqa: E402
 from repro_torch.kernels.pair_apply import pair_apply, pair_apply_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import rwkv6_ref, rwkv6_wkv  # noqa: E402
-from repro_torch.kernels.rwkv6.ops import SPLITS, _launch  # noqa: E402
 
 
 def _schedule(rng, B, C, T, same=0.1):
@@ -89,6 +88,20 @@ def test_cell_mixing_kernel_on_card(cuda_device, m, d, rounds):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [15, 49])
+def test_cell_mixing_kernel_takes_numpy_rounds_on_card(cuda_device, m):
+    """`rounds` as a numpy integer, as a caller holding a schedule in
+    numpy passes it, on both kernel paths."""
+    rng = np.random.default_rng(m)
+    w = torch.from_numpy(_random_mixing(rng, 9, m)).to(cuda_device)
+    x = torch.from_numpy(rng.normal(size=(9, m, 2)).astype(np.float32)).to(
+        cuda_device)
+    got = cell_mixing(w, x, rounds=np.int64(3))
+    torch.testing.assert_close(got, cell_mixing_ref(w, x, rounds=3),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,d", [(15, 2), (30, 3), (49, 33)])
 def test_cell_mixing_kernel_padded_layout_on_card(cuda_device, m, d):
     """pad_mixing's identity-padded layout (m to a multiple of 8, d of
@@ -117,10 +130,18 @@ _RWKV_TYPES = {"f32": (torch.float32, torch.float32, 3e-4),
                "mixed": (torch.bfloat16, torch.float32, 2e-2)}
 
 
+# odd shapes, then every head size (each compiled with its one split of
+# value columns and keys) at T below, at and past the 32-step chunk and
+# with the last chunk's tail batch, for BH from one b*h to the prefill's
+_RWKV_SHAPES = [(2, 64, 32), (1, 130, 64), (3, 96, 16), (5, 77, 64),
+                (160, 300, 64)] + [(BH, T, N) for BH in (1, 7, 160)
+                                   for T in (1, 31, 33, 1000)
+                                   for N in (16, 32, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["f32", "bf16", "mixed"])
-@pytest.mark.parametrize("BH,T,N", [(2, 64, 32), (1, 130, 64), (3, 96, 16),
-                                    (5, 77, 64), (160, 300, 64)])
+@pytest.mark.parametrize("BH,T,N", _RWKV_SHAPES)
 def test_rwkv6_kernel_on_card(cuda_device, BH, T, N, kind):
     dt, wdt, tol = _RWKV_TYPES[kind]
     rng = np.random.default_rng(BH * T + N)
@@ -137,32 +158,6 @@ def test_rwkv6_kernel_on_card(cuda_device, BH, T, N, kind):
     assert got.dtype == dt and got.shape == (BH, T, N)
     torch.testing.assert_close(got.float(), rwkv6_ref(r, k, v, w, u).float(),
                                rtol=tol, atol=tol)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["f32", "bf16", "mixed"])
-@pytest.mark.parametrize("N", [16, 32, 64])
-@pytest.mark.parametrize("T", [1, 31, 33, 1000])
-@pytest.mark.parametrize("BH", [1, 7, 160])
-def test_rwkv6_kernel_every_split_on_card(cuda_device, BH, T, N, kind):
-    """Every split compiled for N (VC columns a block, KS lanes a column,
-    CPT columns a lane) against the plain version: T below, at and past
-    the 32-step chunk and the last chunk's tail batch."""
-    dt, wdt, tol = _RWKV_TYPES[kind]
-    rng = np.random.default_rng(BH * 7919 + T * 31 + N)
-    arrays = [rng.normal(size=(BH, T, N)), rng.normal(size=(BH, T, N)) * 0.3,
-              rng.normal(size=(BH, T, N)),
-              rng.uniform(0.85, 0.999, size=(BH, T, N)),
-              rng.normal(size=(BH, N)) * 0.2]
-    args = [torch.from_numpy(a.astype(np.float32)).to(cuda_device, t)
-            for a, t in zip(arrays, (dt, dt, dt, wdt, dt))]
-    want = rwkv6_ref(*args).float()
-    for split in SPLITS[N]:
-        got = _launch(*args, split)
-        torch.cuda.synchronize()
-        assert got.dtype == dt and got.shape == (BH, T, N)
-        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol,
-                                   msg=lambda m: f"split {split}: {m}")
 
 
 @pytest.mark.cuda

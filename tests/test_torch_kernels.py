@@ -126,16 +126,14 @@ def test_pair_apply_launch_config(C, V, threads, in_smem):
 
 
 @pytest.mark.parametrize("m,d,want", [
-    (15, 2, ("warp", 0, False, 32, 8)), (1, 1, ("warp", 0, False, 32, 8)),
-    (32, 33, ("warp", 0, False, 32, 8)),
-    (33, 1, ("block", 1, True, 1, 64)), (49, 2, ("block", 2, True, 2, 64)),
-    (49, 33, ("block", 33, True, 32, 8)), (130, 2, ("block", 2, True, 2, 128)),
-    (300, 2, ("block", 2, False, 2, 128)),
-    (400, 2, ("block", 2, False, 2, 128))])
+    (15, 2, (2, True)), (1, 1, (1, True)), (32, 33, (33, True)),
+    (33, 1, (1, True)), (49, 2, (2, True)), (49, 33, (33, True)),
+    (130, 2, (2, True)), (300, 2, (2, False)), (400, 2, (2, False))])
 def test_cell_mixing_launch_config(m, d, want):
+    """The block path's d-tile and W's place; the warp path (m <= 32)
+    reads neither.  Two state tiles always fit, and W beside them when
+    it is placed in shared memory (rows of m | 1 floats)."""
     assert mix_config(m, d) == want
-    path, dt, w_in_smem, nx, ny = want
-    if path == "block":  # whole warps, every column of a tile has a lane
-        assert (nx * ny) % 32 == 0 and nx * ny <= 256 and nx >= min(dt, 32)
-        smem = ((m * (m | 1) if w_in_smem else 0) + 2 * m * dt) * 4
-        assert smem <= 200 * 1024
+    dt, w_in_smem = want
+    smem = ((m * (m | 1) if w_in_smem else 0) + 2 * m * dt) * 4
+    assert smem <= 200 * 1024

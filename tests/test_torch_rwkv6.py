@@ -109,39 +109,3 @@ def test_rwkv6_wkv_rejects_other_devices():
     with pytest.raises(ValueError):
         rwkv6_wkv(cpu, cpu, cpu, x, torch.zeros((2, 16)))
     assert rwkv6_wkv.launches == 0
-
-
-@pytest.mark.parametrize("N,want", [(16, (16, 4, 2)), (32, (16, 8, 4)),
-                                    (64, (32, 16, 4))])
-def test_rwkv6_launch_config(N, want):
-    """The op's split for each head size, and every compiled split within
-    the kernel's constraints (csrc/rwkv6.cu's static_asserts, with its 16
-    steps a chunk): whole warps, 4-key groups, batches of KS / CPT steps,
-    16-byte rows of a block's bf16 v columns."""
-    from repro_torch.kernels.rwkv6.ops import SPLITS, launch_config
-
-    assert launch_config(N) == want == SPLITS[N][0]
-    for vc, ks, cpt in SPLITS[N]:
-        threads, keys = vc // cpt * ks, N // ks
-        assert N % vc == 0 and vc % cpt == 0 and ks % cpt == 0
-        assert cpt in (1, 2, 4)
-        assert 16 % (ks // cpt) == 0  # whole batches of steps in a chunk
-        assert threads % 32 == 0 and keys % 4 == 0
-        assert (vc * 2) % 16 == 0
-
-
-def test_rwkv6_splits_match_the_kernel_source():
-    """SPLITS lists exactly the splits csrc/rwkv6.cu compiles."""
-    import re
-    from pathlib import Path
-
-    from repro_torch.kernels.rwkv6.ops import SPLITS
-
-    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
-           / "csrc" / "rwkv6.cu").read_text()
-    block = src[src.index("#define RWKV6_SPLITS"):]
-    block = block[:block.index("\n\n")]
-    compiled = {tuple(int(v) for v in m) for m in
-                re.findall(r"X\((\d+), (\d+), (\d+), (\d+)\)", block)}
-    listed = {(N, *sp) for N, splits in SPLITS.items() for sp in splits}
-    assert compiled == listed
