@@ -7,15 +7,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version on the card (the gossip kernels also
 timed on the device alone, from a CUDA graph), then drives the main
 path — `repro_torch.core.multiscale_gossip`, the paper's Algorithm 1 in
-its fixed-iterations large-n configuration — at n=10^5 and n=10^6 nodes,
-the matmul backend at n=20000 and `synchronous_multiscale` at n=2000,
-and checks the results against the repository's recorded message counts
-and errors.  Then the rwkv6-3b serving path at full width and depth,
-with parameters drawn on the card from a seed: `forward` on 4 prompts of
-4096 tokens (one rwkv6 kernel launch per layer, finite logits, a traced
-run), `Generator` answering 8 requests through decode alone (no rwkv6
-launch), and forward against token-by-token decode in bf16 (reported)
-and in a float32 copy of the model (checked).  Then the flash-attention
+its fixed-iterations large-n configuration, each chunk drawn by the
+`sample_chunk` kernel and walked by `pair_apply` — at n=10^5 and n=10^6
+nodes, the matmul backend at n=20000 and `synchronous_multiscale` at
+n=2000, and checks the results against the repository's recorded
+message counts and errors.  Then the rwkv6-3b serving path at full
+width and depth, with parameters drawn on the card from a seed:
+`forward` on 4 prompts of 4096 tokens (one rwkv6 kernel launch per
+layer, finite logits, a traced run), `Generator` answering 8 requests
+through decode alone (no rwkv6 launch), and forward against
+token-by-token decode in bf16 (reported) and in a float32 copy of the
+model (checked).  Then the flash-attention
 kernels against their plain version at 18 shapes and the prefill's
 again in f32 (bf16 on the wgmma kernel, f32 on the FMA kernel; both
 timed at the prefill's shape), and the llama3.2-3b serving path at full
@@ -56,8 +58,15 @@ LARGE_N = {
 }
 FI = dict(eps=1e-3, seed=0, weighted=True, fixed_ticks_scale=0.2)
 # pair_apply launches of one FI trial: at n=10^5, 1 chunk on each of the
-# five finest levels, 3 on level 2, 26 on level 1
+# four finest levels, 3 on level 4, 26 on the top level; sample_chunk
+# launches once a chunk as well
 MAIN_PATH_LAUNCHES = {100_000: 33, 1_000_000: 120}
+# device launches in the traced n=10^5 FI trial, all kinds together: at
+# most this many (26112 while each chunk's draw ran as eager torch ops)
+MAIN_TRACE_LAUNCHES = 3000
+# pair_apply's device time at the n=10^5 finest level, at most this
+# multiple of its bound
+PAIR_APPLY_BOUND_LIMIT = 2.0
 SYNC_CHUNK = 8  # synchronous_multiscale's rounds per cell_mixing launch
 # rwkv6-3b serving (src/repro/configs/rwkv6_3b.py, full width and depth):
 # prefill on 4 prompts of 4096 tokens (a cut from prefill_32k's 32 x
@@ -104,8 +113,14 @@ FLASH_BUDGET = 2.5
 FLASH_SDPA_LIMIT = 3.0
 # published H100 peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores; the
-# PCIe part is slower
+# PCIe part is slower.  The int32 rate is the card's SMs x 64 int32
+# lanes x its maximum SM clock, read from the card.
 PEAKS = {"sxm": (3.35e12, 67e12, 989e12), "pcie": (2.0e12, 51e12, 756e12)}
+INT32_LANES_PER_SM = 64
+# threefry-2x32's own operations a hash (csrc/sample_chunk.cu): 20 rounds
+# of add, rotate (one funnel shift) and xor, 5 key injections of 2 adds,
+# 2 adds of the key at the start
+HASH_OPS = 20 * 3 + 5 * 2 + 2
 
 
 def log(msg: str) -> None:
@@ -130,6 +145,7 @@ class Smoke:
         self.hbm, self.f32, self.bf16 = PEAKS[part]
         self.report: dict = {"device": self.name}
         self.kernels: dict = {}
+        self.int32 = None  # int32 operations/s, set by build
 
     # ---------------------------------------------------------- helpers
     def time_ms(self, fn, reps: int, warmup: int = 2) -> float:
@@ -189,9 +205,11 @@ class Smoke:
         from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.pair_apply import pair_apply
         from repro_torch.kernels.rwkv6 import rwkv6_wkv
+        from repro_torch.kernels.sample_chunk import sample_chunk
 
-        return {"pair_apply": pair_apply, "cell_mixing": cell_mixing,
-                "rwkv6": rwkv6_wkv, "flash_attention": flash_attention}
+        return {"pair_apply": pair_apply, "sample_chunk": sample_chunk,
+                "cell_mixing": cell_mixing, "rwkv6": rwkv6_wkv,
+                "flash_attention": flash_attention}
 
     def zero_counts(self):
         for op in self.ops().values():
@@ -211,8 +229,10 @@ class Smoke:
 
     @staticmethod
     def check_idle(counts: dict, runs, label: str):
-        """Every kernel but `runs` launched no time."""
-        others = {k: n for k, n in counts.items() if k != runs and n}
+        """Every kernel but `runs` (a name, a tuple of names, or None)
+        launched no time."""
+        runs = (runs,) if runs is None or isinstance(runs, str) else runs
+        others = {k: n for k, n in counts.items() if k not in runs and n}
         check(not others, f"{label} launched {others}")
 
     # ----------------------------------------------------------- phases
@@ -223,6 +243,13 @@ class Smoke:
             capture_output=True, text=True, check=True).stdout.strip()
         log(out)
         self.report["nvidia_smi"] = out
+        mhz = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True).stdout.split()[0]
+        sms = self.torch.cuda.get_device_properties(0).multi_processor_count
+        self.int32 = sms * INT32_LANES_PER_SM * float(mhz) * 1e6
+        self.report["int32_ops_per_s"] = self.int32
         from repro_torch.kernels._build import build_all
 
         t0 = time.perf_counter()
@@ -275,7 +302,118 @@ class Smoke:
         self.report["prng_loss_mismatch"] = fields["0.9"]
         return s[1]
 
-    def pair_apply(self, lp, sched, T):
+    def sample_chunk(self, plan):
+        """The sample_chunk kernel against its plain version on the card,
+        bitwise in every output (the pairs, the update bits, and the
+        counts it adds into usage and msgs): at the finest level (B=43250,
+        T=50), at level 1 (B=12539, odd) and at the top level (B=1,
+        C=49, T=64), each for R in (1, 4), without loss and at
+        loss_p=0.9, with a random `done` freeze.  Times it at the finest
+        level.  Returns the top level's slots and its draw for one
+        trial."""
+        torch = self.torch
+        from repro_torch.core import CsrGraphs, fi_ticks, prng
+        from repro_torch.kernels.sample_chunk import (
+            sample_chunk, sample_chunk_ref)
+
+        names = ("i", "j", "upd_i", "upd_j", "usage", "msgs")
+        cases = 0
+
+        def chunk_T(lp):
+            fixed = fi_ticks(int(lp.n_nodes.max()), FI["eps"],
+                             FI["fixed_ticks_scale"],
+                             quadratic=(lp.kind == "overlay"))
+            return min(64, fixed)
+
+        def inputs(li, R, seed):
+            lp = plan.levels[li]
+            adj = CsrGraphs(lp.nbr_start, lp.nbr_flat, lp.hop_flat,
+                            lp.degrees, lp.n_nodes).to_device(self.dev)
+            B, nflat = lp.num_graphs, lp.nbr_flat.shape[0]
+            g = self.gen(seed)
+            keys = prng.fold_in(torch.stack(
+                [prng.PRNGKey(seed + r, self.dev) for r in range(R)]), li)
+            done = torch.rand((R, B), generator=g, device=self.dev) < 0.3
+            usage = torch.randint(0, 1000, (R * nflat,), generator=g,
+                                  device=self.dev, dtype=torch.int32)
+            msgs = torch.randint(0, 1000, (R, B), generator=g,
+                                 device=self.dev, dtype=torch.int32)
+            return adj, keys, done, usage, msgs
+
+        levels = (0, 1, len(plan.levels) - 1)
+        for li in levels:
+            T = chunk_T(plan.levels[li])
+            for R in (1, 4):
+                for loss_p in (None, 0.9):
+                    adj, keys, done, usage, msgs = inputs(li, R, 100 + li)
+                    t0 = 2 * T
+                    got_u, got_m = usage.clone(), msgs.clone()
+                    before = sample_chunk.launches
+                    got = sample_chunk(t0, T, keys, adj, loss_p, done, got_u,
+                                       got_m)
+                    torch.cuda.synchronize()
+                    check(sample_chunk.launches == before + 1,
+                          "sample_chunk did not launch its kernel once")
+                    want = sample_chunk_ref(t0, T, keys, adj, loss_p, done,
+                                            usage, msgs)
+                    diff = {n: int((a != b).sum()) for n, a, b in zip(
+                        names, (*got, got_u, got_m), (*want, usage, msgs))}
+                    check(not any(diff.values()),
+                          f"sample_chunk kernel != plain version at level "
+                          f"{li} (B={plan.levels[li].num_graphs}, T={T}, "
+                          f"R={R}, loss_p={loss_p}): {diff}")
+                    cases += 1
+        # the finest level's chunk, one trial, no loss: the main path's
+        # largest draw
+        lp = plan.levels[0]
+        T, B, C = chunk_T(lp), lp.num_graphs, lp.degrees.shape[1]
+        adj, keys, done, usage, msgs = inputs(0, 1, 7)
+        done.zero_()
+
+        def kernel():
+            return sample_chunk(0, T, keys, adj, None, done, usage, msgs)
+
+        def plain():
+            return sample_chunk_ref(0, T, keys, adj, None, done, usage, msgs)
+
+        ms = self.time_ms(kernel, reps=50)
+        dev_ms = self.device_ms(kernel, 50)
+        plain_ms = self.time_ms(plain, reps=3, warmup=1)
+        # each input read once (keys; start and degrees (B, C); nbr and
+        # hops; n_nodes; done), usage and msgs read and written once, and
+        # the (T, B) pairs and bits written once; the hashes: 5 for each
+        # tick's keys, 2 for each counter pair of a tick (i and j words)
+        nflat = lp.nbr_flat.shape[0]
+        nbytes = (16 + 2 * B * C * 4 + 2 * nflat * 4 + B * 4 + B
+                  + 2 * (nflat * 4 + B * 4) + T * B * (4 + 4 + 1 + 1))
+        hashes = 5 * T + 2 * T * ((B + 1) // 2)
+        bound, by = self.bound_ms(nbytes, hashes * HASH_OPS, peak=self.int32)
+        log(f"[sample_chunk] bitwise == plain version in all six outputs at "
+            f"{cases} cases (levels {levels}: B = "
+            f"{[plan.levels[i].num_graphs for i in levels]}; R 1, 4; loss "
+            f"none, 0.9; done random); at (T={T}, B={B}, C={C}): kernel "
+            f"{ms:.4f} ms a call, {dev_ms:.4f} ms on the device (CUDA "
+            f"graph), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+            f"{nbytes / 1e6:.2f} MB, {hashes} hashes, "
+            f"{hashes * HASH_OPS / 1e6:.1f} M int32 operations at "
+            f"{self.int32 / 1e12:.2f} T/s)")
+        self.kernels["sample_chunk"] = dict(
+            name="sample_chunk", route="cuda",
+            source="src/repro_torch/csrc/sample_chunk.cu",
+            replaces="src/repro/core/schedule.py:204 (sample_schedule) and "
+                     "src/repro/core/gossip.py:275-313 (chunk accounting): "
+                     "XLA, no Pallas kernel",
+            launches=None, max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+            shape=dict(T=T, R=1, B=B, C=C, nflat=nflat))
+        # the top level's draw for pair_apply's top-level shape
+        top = plan.levels[-1]
+        adj, keys, done, usage, msgs = inputs(len(plan.levels) - 1, 1, 9)
+        done.zero_()
+        return top.degrees.shape[1], sample_chunk(
+            0, chunk_T(top), keys, adj, None, done, usage, msgs)
+
+    def pair_apply(self, lp, sched, T, top):
         torch = self.torch
         from repro_torch.kernels.pair_apply import pair_apply, pair_apply_ref
 
@@ -315,23 +453,45 @@ class Smoke:
                     compare(xr, ir, jr, ui, uj,
                             f"device-memory state {(B2, C2, V2, T2)}",
                             smem_cap=0)
+        # the top level's chunk: one cell of 49 slots, 64 ticks
+        Ct, (ti, tj, tui, tuj) = top
+        Tt = ti.shape[0]
+        check(ti.shape == (Tt, 1), f"top-level draw {tuple(ti.shape)} is "
+              f"not one cell")
+        xt = torch.randn((1, Ct, V), generator=self.gen(2), device=self.dev)
+        compare(xt, ti, tj, tui, tuj, f"top level {(1, Ct, V, Tt)}")
+        compare(xt, ti, tj, tui, tuj, f"top level {(1, Ct, V, Tt)}, "
+                f"device-memory state", smem_cap=0)
         ms = self.time_ms(lambda: pair_apply(x, i, j, act, act), reps=50)
         dev_ms = self.device_ms(lambda: pair_apply(x, i, j, act, act), 50)
         plain = self.time_ms(lambda: pair_apply_ref(x, i, j, act, act),
                              reps=3, warmup=1)
         nbytes = 2 * B * C * V * 4 + T * B * (4 + 4 + 1 + 1)
         bound, by = self.bound_ms(nbytes, 2 * T * B * V)
-        log(f"[pair_apply] bitwise == plain version at n=1e5 finest level "
-            f"and C in (4, 9, 16, 49, 130); at {(B, C, V, T)}: kernel "
+        top_ms = self.time_ms(lambda: pair_apply(xt, ti, tj, tui, tuj),
+                              reps=50)
+        top_dev = self.device_ms(lambda: pair_apply(xt, ti, tj, tui, tuj), 50)
+        top_bound, top_by = self.bound_ms(
+            2 * Ct * V * 4 + Tt * (4 + 4 + 1 + 1), 2 * Tt * V)
+        log(f"[pair_apply] bitwise == plain version at n=1e5 finest and top "
+            f"levels and C in (4, 9, 16, 49, 130); at {(B, C, V, T)}: kernel "
             f"{ms:.4f} ms a call, {dev_ms:.4f} ms on the device (CUDA "
-            f"graph), plain {plain:.4f} ms, bound {bound:.4f} ms ({by})")
+            f"graph, {dev_ms / bound:.2f}x its bound), plain {plain:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}); at {(1, Ct, V, Tt)}: "
+            f"{top_ms:.4f} ms a call, {top_dev:.4f} ms on the device, bound "
+            f"{top_bound:.6f} ms ({top_by})")
+        check(dev_ms <= PAIR_APPLY_BOUND_LIMIT * bound,
+              f"pair_apply {dev_ms} ms on the device at {(B, C, V, T)}, "
+              f"beyond {PAIR_APPLY_BOUND_LIMIT}x its {bound} ms bound")
         self.kernels["pair_apply"] = dict(
             name="pair_apply", route="cuda",
             source="src/repro_torch/csrc/pair_apply.cu",
             replaces="src/repro/kernels/pair_apply/kernel.py:40",
             launches=None, max_abs_err=worst, ms=ms, device_ms=dev_ms,
             plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None,
-            shape=dict(B=B, C=C, V=V, T=T))
+            top_ms=top_ms, top_device_ms=top_dev, top_bound_ms=top_bound,
+            shape=dict(B=B, C=C, V=V, T=T),
+            top_shape=dict(B=1, C=Ct, V=V, T=Tt))
 
     def cell_mixing(self, plan20k):
         torch = self.torch
@@ -462,13 +622,18 @@ class Smoke:
         launches = counts["pair_apply"]
         err = res.error(x0)
         log(f"[main n={n}] cuda backend: messages {res.messages}, error "
-            f"{err:.9f}, pair_apply launches {launches}; graph {graph_s:.2f} "
-            f"s, plan {plan_s:.2f} s, execute {exec_s:.3f} s")
+            f"{err:.9f}, pair_apply launches {launches}, sample_chunk "
+            f"launches {counts['sample_chunk']}; graph {graph_s:.2f} s, plan "
+            f"{plan_s:.2f} s, execute {exec_s:.3f} s")
         want_launches = self.fi_chunks(plan)
         check(launches == want_launches == MAIN_PATH_LAUNCHES[n],
               f"n={n}: pair_apply launched {launches} times; the plan gives "
               f"{want_launches}, recorded {MAIN_PATH_LAUNCHES[n]}")
-        self.check_idle(counts, "pair_apply", f"n={n} cuda backend")
+        check(counts["sample_chunk"] == launches,
+              f"n={n}: sample_chunk launched {counts['sample_chunk']} times, "
+              f"the value pass {launches}")
+        self.check_idle(counts, ("pair_apply", "sample_chunk"),
+                        f"n={n} cuda backend")
         check(res.messages == want_msgs,
               f"n={n}: messages {res.messages} != recorded {want_msgs}")
         check(abs(err - want_err) <= 1e-6,
@@ -477,6 +642,7 @@ class Smoke:
               "x_final is not n finite values")
         row = dict(n=n, levels=len(plan.levels), messages=res.messages,
                    error=err, pair_apply_launches=launches,
+                   sample_chunk_launches=counts["sample_chunk"],
                    graph_s=graph_s, plan_s=plan_s, execute_s=exec_s)
         ref, ref_s = self.run(g, plan, x0, "ref")
         check(np.array_equal(ref.x_final.view(np.int32),
@@ -491,6 +657,11 @@ class Smoke:
         _, row["execute_warm_s"] = self.run(g, plan, x0, "cuda")
         row.update(self.profile(n, g, plan, x0, row["execute_warm_s"]))
         self.report[f"large_n_{n}"] = row
+        if n == 100_000:
+            traced = row.get("device_launches")
+            check(traced is not None and traced <= MAIN_TRACE_LAUNCHES,
+                  f"n={n}: the traced trial made {traced} device launches, "
+                  f"beyond {MAIN_TRACE_LAUNCHES}")
         return launches
 
     def trace(self, fn):
@@ -543,9 +714,16 @@ class Smoke:
         return out
 
     def profile(self, n, g, plan, x0, warm_s):
-        """Device time by kernel over one traced execute."""
+        """Device time by kernel over one traced execute, and that of the
+        sample_chunk kernel beside pair_apply's."""
         rows, traced_s = self.trace(lambda: self.run(g, plan, x0, "cuda"))
-        return self.busy(f"n={n}", rows, traced_s, warm_s, "pair_apply")
+        out = self.busy(f"n={n}", rows, traced_s, warm_s, "pair_apply")
+        if "device_busy_ms" in out:
+            out["sample_chunk_device_ms"] = sum(
+                r[0] for r in rows if "sample_chunk" in r[2]) / 1e3
+            log(f"[profile n={n}] sample_chunk "
+                f"{out['sample_chunk_device_ms']:.3f} ms")
+        return out
 
     def matmul(self, g, plan, x0):
         """FI multiscale gossip at n=20000 through compose_schedule and the
@@ -561,7 +739,11 @@ class Smoke:
         check(launches == want_launches,
               f"n=20000 matmul: cell_mixing launched {launches} times, the "
               f"plan gives {want_launches}")
-        self.check_idle(counts, "cell_mixing", "the matmul backend")
+        check(counts["sample_chunk"] == launches,
+              f"n=20000 matmul: sample_chunk launched "
+              f"{counts['sample_chunk']} times, the value pass {launches}")
+        self.check_idle(counts, ("cell_mixing", "sample_chunk"),
+                        "the matmul backend")
         cu, _ = self.run(g, plan, x0, "cuda")
         check(mm.messages == LARGE_N[20_000][0] == cu.messages,
               f"n=20000 matmul messages {mm.messages} != "
@@ -573,7 +755,8 @@ class Smoke:
             f"{mm_s:.3f} s, cell_mixing launches {launches}")
         self.report["matmul_20000"] = dict(
             messages=mm.messages, execute_s=mm_s,
-            cell_mixing_launches=launches)
+            cell_mixing_launches=launches,
+            sample_chunk_launches=counts["sample_chunk"])
         return launches
 
     def synchronous(self):
@@ -1076,7 +1259,9 @@ def main() -> int:
     lp0 = plan5.levels[0]
     T0 = 50  # the finest level's FI chunk at n=1e5
     sched = smoke.prng(lp0, T0)
-    smoke.pair_apply(lp0, sched, T0)
+    top = smoke.sample_chunk(plan5)
+    smoke.pair_apply(lp0, sched, T0, top)
+    del top
     g2, plan2, x02, _, _ = smoke.setup(20_000)
     smoke.cell_mixing(plan2)
 
@@ -1087,12 +1272,17 @@ def main() -> int:
     g6, plan6, x06, graph6, pl6 = smoke.setup(1_000_000)
     main6 = smoke.large_n(1_000_000, g6, plan6, x06, graph6, pl6)
     del g6, plan6
+    main_paths = {"multiscale_gossip FI n=100000, backend cuda": main5,
+                  "multiscale_gossip FI n=1000000, backend cuda": main6}
     smoke.kernels["pair_apply"].update(
         launches=main5, path="multiscale_gossip FI n=100000, backend cuda",
-        launches_by_path={
-            "multiscale_gossip FI n=100000, backend cuda": main5,
-            "multiscale_gossip FI n=1000000, backend cuda": main6})
+        launches_by_path=main_paths)
     mm = smoke.matmul(g2, plan2, x02)
+    smoke.kernels["sample_chunk"].update(
+        launches=main5, path="multiscale_gossip FI n=100000, backend cuda",
+        launches_by_path={
+            **main_paths,
+            "multiscale_gossip FI n=20000, backend matmul": mm})
     sy = smoke.synchronous()
     smoke.kernels["cell_mixing"].update(
         launches=mm, path="multiscale_gossip FI n=20000, backend matmul",

@@ -15,9 +15,11 @@ a lost reply leaves only the contacted node updated.
 
 Schedule / value split: every exchange decision depends only on
 ``(key, t)``, so each ``check_every`` chunk first presamples its
-``(T, B)`` schedule (`core.schedule.sample_schedule`), counts usage with
-one scatter-add and messages with one reduction, then applies the pair
-list with the chosen value backend (`core.options`):
+``(T, B)`` schedule and counts its usage and messages
+(`kernels.sample_chunk`: on the card one CUDA kernel, bitwise equal to
+its plain version around `core.schedule.sample_schedule`, which backend
+``"ref"`` runs), then applies the pair list with the chosen value
+backend (`core.options`):
 
 * ``"ref"`` — `kernels.pair_apply.pair_apply_ref`, the plain tick loop;
 * ``"cuda"`` — the `pair_apply` CUDA kernel, bitwise equal to ``"ref"``;
@@ -56,7 +58,6 @@ from .schedule import (
     compose_schedule,
     dense_to_csr,
     flat_usage_to_dense,
-    sample_schedule,
 )
 
 __all__ = ["GossipResult", "gossip_core", "gossip_until", "batched_graphs",
@@ -122,6 +123,10 @@ def gossip_core(
     """
     if backend not in GOSSIP_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
+    if backend == "ref":
+        from ..kernels.sample_chunk import sample_chunk_ref as draw
+    else:
+        from ..kernels.sample_chunk import sample_chunk as draw
     R, B, C, V = x0.shape
     dev = x0.device
     live = node_mask.to(x0.dtype)[None, :, :, None]      # (1, B, C, 1)
@@ -138,7 +143,6 @@ def gossip_core(
 
     nflat = adj.nbr.shape[0]
     usage = torch.zeros(R * nflat, dtype=torch.int32, device=dev)
-    offs = (torch.arange(R, device=dev, dtype=torch.int32) * nflat)[:, None]
     msgs = torch.zeros((R, B), dtype=torch.int32, device=dev)
     ticks = torch.zeros((R, B), dtype=torch.int32, device=dev)
     done = (converged(x0) if not fixed
@@ -148,20 +152,9 @@ def gossip_core(
     while t0 < max_ticks:
         if not fixed and bool(done.all()):
             break
-        ts = torch.arange(t0, t0 + check_every, device=dev)
-        s = sample_schedule(ts, keys, adj, loss_p)  # (T, R, B)
-        active = s.valid & ~done                            # done frozen
-        upd_j = active & s.fwd_ok
-        upd_i = upd_j & s.rep_ok
-        usage.index_add_(0, (s.pos + offs).reshape(-1),
-                         active.to(torch.int32).reshape(-1))
-        msgs += torch.where(active, s.cost, 0).sum(0, dtype=torch.int32)
-        T = check_every
-        x = _value_pass(
-            backend, x,
-            s.i.reshape(T, R * B), s.j.reshape(T, R * B),
-            upd_i.reshape(T, R * B), upd_j.reshape(T, R * B),
-        )
+        # (T, R*B) pairs and update bits; usage and msgs counted in place
+        x = _value_pass(backend, x, *draw(t0, check_every, keys, adj, loss_p,
+                                          done, usage, msgs))
         ticks += torch.where(done, 0, check_every).to(torch.int32)
         if not fixed:
             done = done | converged(x.reshape(R, B, C, V))

@@ -21,8 +21,8 @@ from pathlib import Path
 __all__ = ["SOURCES", "build_all", "load"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("pair_apply", "cell_mixing", "rwkv6", "flash_attention",
-           "flash_attention_sm90")
+SOURCES = ("pair_apply", "sample_chunk", "cell_mixing", "rwkv6",
+           "flash_attention", "flash_attention_sm90")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIBS: dict = {}

@@ -20,6 +20,11 @@ from repro_torch.kernels.flash_attention import attention_ref, flash_attention  
 from repro_torch.kernels.flash_attention.ops import KERNELS  # noqa: E402
 from repro_torch.kernels.pair_apply import pair_apply, pair_apply_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import rwkv6_ref, rwkv6_wkv  # noqa: E402
+from repro_torch.kernels.sample_chunk import (  # noqa: E402
+    sample_chunk,
+    sample_chunk_ref,
+)
+from repro_torch.core import dense_to_csr, prng  # noqa: E402
 
 
 def _schedule(rng, B, C, T, same=0.1):
@@ -63,6 +68,110 @@ def test_pair_apply_kernel_bitwise_on_card(cuda_device, C, smem_cap):
     got = pair_apply(*args, smem_cap=smem_cap)
     want = pair_apply_ref(*args)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smem_cap", [200 * 1024, 0])
+def test_pair_apply_kernel_top_level_on_card(cuda_device, smem_cap):
+    """The top level of a hierarchy: one cell of 49 slots walked for 64
+    ticks, a single lane a channel."""
+    rng = np.random.default_rng(49)
+    B, C, V, T = 1, 49, 2, 64
+    x = rng.normal(size=(B, C, V)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (x, *_schedule(rng, B, C, T))]
+    before = pair_apply.launches
+    got = pair_apply(*args, smem_cap=smem_cap)
+    torch.cuda.synchronize()
+    assert pair_apply.launches == before + 1
+    want = pair_apply_ref(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smem_cap", [200 * 1024, 0])
+@pytest.mark.parametrize("V,offset", [(1, 0), (3, 0), (2, 1)])
+def test_pair_apply_kernel_channel_layouts_on_card(cuda_device, V, offset,
+                                                   smem_cap):
+    """One channel (a float a row), three (channel by channel), and two
+    from a state that starts 4 bytes past an 8-byte boundary (which the
+    kernel then walks channel by channel, not as float2 rows)."""
+    rng = np.random.default_rng(V * 10 + offset)
+    B, C, T = 777, 9, 50
+    x = rng.normal(size=(B, C, V)).astype(np.float32)
+    flat = torch.zeros(B * C * V + offset, device=cuda_device)
+    xt = flat[offset:].view(B, C, V)
+    xt.copy_(torch.from_numpy(x))
+    sched = [torch.from_numpy(a).to(cuda_device)
+             for a in _schedule(rng, B, C, T)]
+    got = pair_apply(xt, *sched, smem_cap=smem_cap)
+    want = pair_apply_ref(xt, *sched)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _random_csr(rng, B, C=9, D=5):
+    """B padded random graphs (some of one node, some nodes of degree 0,
+    hops 1..3) packed as CSR."""
+    n_nodes = rng.integers(1, C + 1, B).astype(np.int32)
+    degrees = np.zeros((B, C), np.int32)
+    neighbors = np.full((B, C, D), -1, np.int32)
+    for b in range(B):
+        n = int(n_nodes[b])
+        degrees[b, :n] = rng.integers(0, min(D, n - 1) + 1, n) if n > 1 else 0
+        neighbors[b, :n] = rng.integers(0, n, (n, D))
+    hops = rng.integers(1, 4, (B, C, D)).astype(np.int32)
+    return dense_to_csr(neighbors, degrees, n_nodes, hops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss_p", [None, 0.9])
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("T", [1, 50, 64])
+@pytest.mark.parametrize("B", [1, 2, 7, 4099])
+def test_sample_chunk_kernel_bitwise_on_card(cuda_device, B, T, R, loss_p):
+    """Every output of the kernel (pairs, update bits, the counts added
+    into usage and msgs) equals the plain version's bitwise: odd and
+    even B, one tick to a full chunk, a `done` freeze partly set."""
+    rng = np.random.default_rng(B * 1000 + T * 10 + R)
+    adj = _random_csr(rng, B).to_device(cuda_device)
+    nflat = adj.nbr.shape[0]
+    keys = prng.fold_in(torch.stack(
+        [prng.PRNGKey(int(s), cuda_device)
+         for s in rng.integers(0, 2**32, R)]), 3)
+    done = torch.from_numpy(rng.uniform(size=(R, B)) < 0.3).to(cuda_device)
+    usage = torch.from_numpy(
+        rng.integers(0, 100, R * nflat).astype(np.int32)).to(cuda_device)
+    msgs = torch.from_numpy(
+        rng.integers(0, 100, (R, B)).astype(np.int32)).to(cuda_device)
+    t0 = int(rng.integers(0, 2**20))
+    got_u, got_m = usage.clone(), msgs.clone()
+    before = sample_chunk.launches
+    got = sample_chunk(t0, T, keys, adj, loss_p, done, got_u, got_m)
+    torch.cuda.synchronize()
+    assert sample_chunk.launches == before + 1
+    want = sample_chunk_ref(t0, T, keys, adj, loss_p, done, usage, msgs)
+    for a, b in zip((*got, got_u, got_m), (*want, usage, msgs)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sample_chunk_kernel_rejects_what_it_does_not_take(cuda_device):
+    rng = np.random.default_rng(0)
+    adj = _random_csr(rng, 5).to_device(cuda_device)
+    keys = prng.PRNGKey(0, cuda_device)[None]
+    done = torch.zeros((1, 5), dtype=torch.bool, device=cuda_device)
+    usage = torch.zeros(adj.nbr.shape[0], dtype=torch.int32,
+                        device=cuda_device)
+    msgs = torch.zeros((1, 5), dtype=torch.int32, device=cuda_device)
+    before = sample_chunk.launches
+    with pytest.raises(ValueError, match="msgs"):
+        sample_chunk(0, 8, keys, adj, None, done, usage, msgs.long())
+    with pytest.raises(ValueError, match="usage"):
+        sample_chunk(0, 8, keys, adj, None, done, usage[:-1], msgs)
+    with pytest.raises(ValueError, match="keys is on cpu"):
+        sample_chunk(0, 8, keys.cpu(), adj, None, done, usage, msgs)
+    assert sample_chunk.launches == before
 
 
 # cell_mixing: a warp a cell for m <= 32 (8, 16 or 32 rows a warp, 16-byte

@@ -116,13 +116,17 @@ def test_mixing_matrix_and_padding_match_reference():
     np.testing.assert_array_equal(np.asarray(xj), xt.numpy())
 
 
-@pytest.mark.parametrize("C,V,threads,in_smem", [
-    (9, 2, 64, True), (49, 2, 64, True), (130, 2, 64, True),
-    (1000, 2, 12, True), (20000, 2, 64, False)])
-def test_pair_apply_launch_config(C, V, threads, in_smem):
-    assert pair_config(C, V) == (threads, in_smem)
-    if in_smem:
-        assert threads * C * V * 4 <= 96 * 1024
+@pytest.mark.parametrize("C,V,T,want", [
+    (9, 2, 50, (8, True)), (49, 2, 64, (8, True)), (130, 2, 1, (1, True)),
+    (1000, 1, 200, (8, True)), (20000, 2, 64, (8, False))])
+def test_pair_apply_launch_config(C, V, T, want):
+    """32 cells a block; the schedule staged in tiles of up to 8 ticks,
+    two in flight (a spare row beside them); the state in shared memory
+    while it fits beside them in the H100's 227 KB a block."""
+    assert pair_config(C, V, T) == want
+    tile, in_smem = want
+    ring = 128 + (2 * tile + 1) * (2 * 144 + 2 * 48)
+    assert ((32 * C * V * 4 if in_smem else 0) + ring) <= 227 * 1024
 
 
 @pytest.mark.parametrize("m,d,want", [
