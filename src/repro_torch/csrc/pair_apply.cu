@@ -42,9 +42,9 @@
 // 16-byte-aligned chunks that hold it (an aligned 16 bytes never cross a
 // page, so reading a chunk's other bytes is safe), each producer lane
 // always the same chunk of the same array, and read at the slice's
-// offset within its first chunk.  Shared state is row-major by cell,
-// st[e * 32 + cell], so the warp's lanes hit distinct banks whatever
-// rows they touch.  A cell too wide for shared memory walks its rows in
+// offset within its first chunk.  Shared state holds value e of cell k
+// (a row, or one channel of a row) at st[e * 32 + k], so the warp's
+// lanes hit distinct banks whatever rows they touch.  A cell too wide for shared memory walks its rows in
 // device memory (the output doubles as the state).
 //
 // Bitwise equality with the plain version: __fadd_rn / __fmul_rn pin
