@@ -9,9 +9,13 @@ timed on the device alone, from a CUDA graph), then drives the main
 path — `repro_torch.core.multiscale_gossip`, the paper's Algorithm 1 in
 its fixed-iterations large-n configuration, each chunk drawn by the
 `sample_chunk` kernel and walked by `pair_apply` — at n=10^5 and n=10^6
-nodes, the matmul backend at n=20000 and `synchronous_multiscale` at
-n=2000, and checks the results against the repository's recorded
-message counts and errors.  Then the rwkv6-3b serving path at full
+nodes, fig5's priced failure-scenario matrix (`run_scenario_matrix`) at
+n=10^5 with `sample_chunk` in its scenario and cost mode, the matmul
+backend at n=20000 (also under churn and Byzantine scenarios),
+`synchronous_multiscale` at n=2000, and the baselines (`standard_gossip`
+at n=500 on the card, fig5's path averaging on the host), and checks the
+results against the repository's recorded message counts and errors
+and against the plain backend on the card.  Then the rwkv6-3b serving path at full
 width and depth, with parameters drawn on the card from a seed:
 `forward` on 4 prompts of 4096 tokens (one rwkv6 kernel launch per
 layer, finite logits, a traced run), `Generator` answering 8 requests
@@ -62,8 +66,21 @@ FI = dict(eps=1e-3, seed=0, weighted=True, fixed_ticks_scale=0.2)
 # launches once a chunk as well
 MAIN_PATH_LAUNCHES = {100_000: 33, 1_000_000: 120}
 # device launches in the traced n=10^5 FI trial, all kinds together: at
-# most this many (26112 while each chunk's draw ran as eager torch ops)
+# most this many (26112 while each chunk's draw ran as eager torch ops);
+# the traced churn + cost scenario run is held to the same
 MAIN_TRACE_LAUNCHES = 3000
+# the failure-scenario configuration: benchmarks/fig5_failures.py:121-128
+# prices the scenario matrix with CostModel(retransmit_p=0.9,
+# congestion_alpha=0.01) over scenario_matrix()'s defaults; here on the
+# n=10^5 large-n plan at the FI settings above, 2 trials
+SCENARIO_COST = dict(retransmit_p=0.9, congestion_alpha=0.01)
+SCENARIO_TRIALS = 2
+# fig5 (benchmarks/fig5_failures.py: n=2000, graph seed 21, x0 =
+# default_rng(3).normal(0, 1, n), eps 1e-4, seeds 0-2): the reliable
+# path-averaging and multiscale messages recorded in
+# benchmarks/artifacts/fig5_failures.json
+FIG5_PATH_AVERAGING = [180806, 170008, 182362]
+FIG5_MULTISCALE = [126892, 127012, 127188]
 # pair_apply's device time at the n=10^5 finest level, at most this
 # multiple of its bound
 PAIR_APPLY_BOUND_LIMIT = 2.0
@@ -146,6 +163,7 @@ class Smoke:
         self.report: dict = {"device": self.name}
         self.kernels: dict = {}
         self.int32 = None  # int32 operations/s, set by build
+        self.main_x: dict = {}  # x_final of each large-n main path run
 
     # ---------------------------------------------------------- helpers
     def time_ms(self, fn, reps: int, warmup: int = 2) -> float:
@@ -413,6 +431,152 @@ class Smoke:
         return top.degrees.shape[1], sample_chunk(
             0, chunk_T(top), keys, adj, None, done, usage, msgs)
 
+    @staticmethod
+    def fi_levels(plan, check_every: int = 64):
+        """Each level's FI (tick budget, chunk) as `execute_plan` sets
+        them."""
+        from repro_torch.core import fi_ticks
+
+        out = []
+        for lp in plan.levels:
+            fixed = fi_ticks(int(lp.n_nodes.max()), FI["eps"],
+                             FI["fixed_ticks_scale"],
+                             quadratic=(lp.kind == "overlay"))
+            chk = min(check_every, fixed)
+            out.append((-(-fixed // chk) * chk, chk))
+        return out
+
+    def sample_chunk_scenario(self, plan):
+        """The sample_chunk kernel in its scenario and cost mode against
+        its plain version on the card, bitwise in every output (pairs,
+        update bits, and the counts it adds into usage, msgs, retx and
+        the congestion pairs): at the finest level (B=43250, T=50), level
+        1 (B=12539, odd) and the top level (the largest hop_cap), for R in
+        (1, 2), each scenario of scenario_matrix() with its level flags
+        as `execute_plan` builds them, without loss and at loss_p=0.9,
+        under SCENARIO_COST, a random `done` freeze.  Times the op at the
+        finest level with the stragglers scenario and the cost on."""
+        torch = self.torch
+        from repro_torch.core import (CostModel, CsrGraphs, prng,
+                                      scenario_matrix)
+        from repro_torch.core.engine import _failure_consts
+        from repro_torch.kernels.sample_chunk import (
+            sample_chunk, sample_chunk_ref)
+
+        cost = CostModel(**SCENARIO_COST)
+        fi = self.fi_levels(plan)
+        n = plan.graph.n
+        ctxs = {sc.name: (None if sc.failures is None else _failure_consts(
+            plan, sc.failures, [m for m, _ in fi], n, self.dev)[0])
+            for sc in scenario_matrix()}
+        names = ("i", "j", "upd_i", "upd_j", "usage", "msgs", "retx",
+                 "congp")
+
+        def inputs(li, R, seed, frozen=0.1):
+            lp = plan.levels[li]
+            adj = CsrGraphs(lp.nbr_start, lp.nbr_flat, lp.hop_flat,
+                            lp.degrees, lp.n_nodes).to_device(self.dev)
+            B, nflat = lp.num_graphs, lp.nbr_flat.shape[0]
+            g = self.gen(seed)
+            keys = prng.fold_in(torch.stack(
+                [prng.PRNGKey(seed + r, self.dev) for r in range(R)]), li)
+            done = torch.rand((R, B), generator=g, device=self.dev) < frozen
+            counts = [torch.randint(0, 1000, shape, generator=g,
+                                    device=self.dev, dtype=torch.int32)
+                      for shape in ((R * nflat,), (R, B), (R, B))]
+            counts.append(counts[-1].to(torch.float32))  # congp
+            return adj, keys, done, counts
+
+        levels = (0, 1, len(plan.levels) - 1)
+        cases = 0
+        for li in levels:
+            lp = plan.levels[li]
+            T, hop_cap = fi[li][1], max(1, int(lp.max_hops))
+            t0 = 0 if li == 0 else T  # the finest level is one chunk
+            for R in (1, 2):
+                for name, ctx in ctxs.items():
+                    ctx = None if ctx is None else ctx[li]
+                    for loss_p in (None, 0.9):
+                        adj, keys, done, counts = inputs(li, R, 300 + li)
+                        got_c = [c.clone() for c in counts]
+                        kw = dict(failure_ctx=ctx, cost=cost,
+                                  hop_cap=hop_cap)
+                        before = sample_chunk.launches
+                        got = sample_chunk(t0, T, keys, adj, loss_p, done,
+                                           got_c[0], got_c[1], retx=got_c[2],
+                                           congp=got_c[3], **kw)
+                        torch.cuda.synchronize()
+                        check(sample_chunk.launches == before + 1,
+                              "sample_chunk did not launch its kernel once")
+                        want = sample_chunk_ref(
+                            t0, T, keys, adj, loss_p, done, counts[0],
+                            counts[1], retx=counts[2], congp=counts[3], **kw)
+                        diff = {k: int((a != b).sum()) for k, a, b in zip(
+                            names, (*got, *got_c), (*want, *counts))}
+                        check(not any(diff.values()),
+                              f"sample_chunk kernel != plain version under "
+                              f"scenario {name} at level {li} (B="
+                              f"{lp.num_graphs}, T={T}, hop_cap={hop_cap}, "
+                              f"R={R}, loss_p={loss_p}): {diff}")
+                        cases += 1
+        # the finest level's chunk, one trial, no loss, the stragglers
+        # scenario and the cost on
+        lp = plan.levels[0]
+        T, B, C = fi[0][1], lp.num_graphs, lp.degrees.shape[1]
+        ctx = ctxs["stragglers"][0]
+        adj, keys, done, counts = inputs(0, 1, 11, frozen=0.0)
+        kw = dict(failure_ctx=ctx, cost=cost, hop_cap=1, retx=counts[2],
+                  congp=counts[3])
+        before = counts[1].sum()
+        i, j, _, _ = sample_chunk(0, T, keys, adj, None, done, counts[0],
+                                  counts[1], **kw)
+        # the draws this chunk needs: a retransmission word a hop sent, a
+        # straggler word an exchange touching a straggler
+        retx_words = int(counts[1].sum() - before)
+        bidx = torch.arange(B, device=self.dev)
+        bits = ctx.bits[bidx, i.long()] | ctx.bits[bidx, j.long()]
+        valid = adj.degrees[bidx, i.long()] > 0
+        strag_words = int((valid & ((bits & 2) != 0)).sum())
+
+        def kernel():
+            return sample_chunk(0, T, keys, adj, None, done, counts[0],
+                                counts[1], **kw)
+
+        def plain():
+            return sample_chunk_ref(0, T, keys, adj, None, done, counts[0],
+                                    counts[1], **kw)
+
+        ms = self.time_ms(kernel, reps=50)
+        dev_ms = self.device_ms(kernel, 50)
+        plain_ms = self.time_ms(plain, reps=3, warmup=1)
+        # bytes: the plain mode's, the (B, C) flags, retx and congp read
+        # and written; operations: the hashes of all three streams, each
+        # of the tagged ones at two words a hash
+        nflat = lp.nbr_flat.shape[0]
+        nbytes = (16 + 2 * B * C * 4 + 2 * nflat * 4 + B * 4 + B + B * C
+                  + 2 * (nflat * 4 + B * 4) + 4 * B * 4
+                  + T * B * (4 + 4 + 1 + 1))
+        hashes = (5 * T + 2 * T * ((B + 1) // 2) + -(-strag_words // 2)
+                  + -(-retx_words // 2))
+        bound, by = self.bound_ms(nbytes, hashes * HASH_OPS, peak=self.int32)
+        log(f"[sample_chunk scenario] bitwise == plain version in all eight "
+            f"outputs at {cases} cases (levels {levels}, B = "
+            f"{[plan.levels[i].num_graphs for i in levels]}, hop_cap "
+            f"{[max(1, int(plan.levels[i].max_hops)) for i in levels]}; R "
+            f"1, 2; the {len(ctxs)} scenarios of scenario_matrix(); loss "
+            f"none, 0.9; {SCENARIO_COST}); stragglers + cost at (T={T}, "
+            f"B={B}, C={C}): op {ms:.4f} ms a call, {dev_ms:.4f} ms on the "
+            f"device (CUDA graph), plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {hashes} hashes "
+            f"of which {-(-strag_words // 2)} straggler and "
+            f"{-(-retx_words // 2)} retransmission)")
+        self.kernels["sample_chunk"].update(
+            scenario_cases=cases, scenario_ms=ms, scenario_device_ms=dev_ms,
+            scenario_plain_ms=plain_ms, scenario_bound_ms=bound,
+            scenario_bound_by=by, scenario_shape=dict(
+                T=T, R=1, B=B, C=C, scenario="stragglers", **SCENARIO_COST),
+            scenario_hashes=hashes)
+
     def pair_apply(self, lp, sched, T, top):
         torch = self.torch
         from repro_torch.kernels.pair_apply import pair_apply, pair_apply_ref
@@ -600,15 +764,8 @@ class Smoke:
     def fi_chunks(plan, check_every: int = 64) -> int:
         """Value-pass launches of one FI trial as the plan gives them: each
         level runs its fixed tick budget in whole chunks."""
-        from repro_torch.core import fi_ticks
-
-        total = 0
-        for lp in plan.levels:
-            fixed = fi_ticks(int(lp.n_nodes.max()), FI["eps"],
-                             FI["fixed_ticks_scale"],
-                             quadratic=(lp.kind == "overlay"))
-            total += -(-fixed // min(check_every, fixed))
-        return total
+        return sum(maxt // chk for maxt, chk in
+                   Smoke.fi_levels(plan, check_every))
 
     def large_n(self, n, g, plan, x0, graph_s, plan_s):
         """The main path: FI multiscale gossip through the pair_apply
@@ -621,6 +778,7 @@ class Smoke:
         counts = self.read_counts()
         launches = counts["pair_apply"]
         err = res.error(x0)
+        self.main_x[n] = res.x_final
         log(f"[main n={n}] cuda backend: messages {res.messages}, error "
             f"{err:.9f}, pair_apply launches {launches}, sample_chunk "
             f"launches {counts['sample_chunk']}; graph {graph_s:.2f} s, plan "
@@ -662,6 +820,131 @@ class Smoke:
             check(traced is not None and traced <= MAIN_TRACE_LAUNCHES,
                   f"n={n}: the traced trial made {traced} device launches, "
                   f"beyond {MAIN_TRACE_LAUNCHES}")
+        return launches
+
+    def scenarios(self, g, plan, x0):
+        """The failure-scenario path at full size: `run_scenario_matrix`
+        on the n=10^5 plan, each scenario of scenario_matrix() priced
+        with SCENARIO_COST, SCENARIO_TRIALS trials, through the
+        sample_chunk and pair_apply kernels.  Each scenario again through
+        `execute_plan` on backend "cuda" and "ref", bitwise equal; the
+        baseline keeps the recorded count and the unpriced run's x_final;
+        the churn + cost run traced.  Returns the launches of one matrix
+        pass."""
+        import numpy as np
+        import repro_torch.core as P
+
+        cost = P.CostModel(**SCENARIO_COST)
+        matrix = P.scenario_matrix()
+        kw = dict(eps=FI["eps"], weighted=FI["weighted"],
+                  fixed_ticks_scale=FI["fixed_ticks_scale"])
+        seeds = tuple(FI["seed"] + t for t in range(SCENARIO_TRIALS))
+        chunks = self.fi_chunks(plan)
+        rows, results = {}, {}
+        for rep in ("execute_s", "execute_warm_s"):
+            self.zero_counts()
+            for sc in matrix:
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (res,) = P.run_scenario_matrix(
+                    g, x0, [sc], trials=SCENARIO_TRIALS, seed=FI["seed"],
+                    plan=plan, cost=cost, **kw)
+                self.torch.cuda.synchronize()
+                rows.setdefault(sc.name, {})[rep] = time.perf_counter() - t0
+                results[sc.name] = res
+            counts = self.read_counts()
+            for name in ("sample_chunk", "pair_apply"):
+                check(counts[name] == len(matrix) * chunks,
+                      f"scenario matrix: {name} launched {counts[name]} "
+                      f"times, {len(matrix)} scenarios of {chunks} chunks "
+                      f"give {len(matrix) * chunks}")
+            self.check_idle(counts, ("sample_chunk", "pair_apply"),
+                            "the scenario matrix")
+        launches = counts["pair_apply"]
+        for sc in matrix:
+            runs = {backend: P.execute_plan(
+                plan, x0, seeds=seeds, failures=sc.failures, cost=cost,
+                options=P.ExecOptions(backend=backend), **kw)
+                for backend in ("cuda", "ref")}
+            cu, ref = runs["cuda"], runs["ref"]
+            check(np.array_equal(cu.x_final.view(np.int32),
+                                 ref.x_final.view(np.int32)),
+                  f"scenario {sc.name}: cuda x_final != ref backend x_final")
+            for f in ("messages", "node_sends", "level_messages"):
+                check(np.array_equal(getattr(cu, f), getattr(ref, f)),
+                      f"scenario {sc.name}: {f} differs between backends")
+            for f in ("retransmissions", "congestion"):
+                check(np.array_equal(getattr(cu.cost, f),
+                                     getattr(ref.cost, f)),
+                      f"scenario {sc.name}: cost {f} differs between "
+                      f"backends")
+            res = results[sc.name]
+            check(np.array_equal(res.messages, cu.messages)
+                  and np.array_equal(res.errors,
+                                     P.trials_error(cu.x_final, x0)),
+                  f"scenario {sc.name}: run_scenario_matrix differs from "
+                  f"execute_plan")
+            check(np.isfinite(cu.x_final).all()
+                  and cu.x_final.shape == (SCENARIO_TRIALS, plan.graph.n),
+                  f"scenario {sc.name}: x_final is not finite of shape "
+                  f"(trials, n)")
+            rows[sc.name].update(
+                error=res.err_mean, survivor_error=float(
+                    res.survivor_errors.mean()),
+                messages=float(res.messages.mean()),
+                energy=res.energy_mean,
+                retransmissions=float(res.cost.retransmissions.mean()),
+                congestion=float(res.cost.congestion.mean()))
+            if sc.name == "baseline":
+                check(int(cu.messages[0]) == LARGE_N[plan.graph.n][0],
+                      f"priced baseline: trial-0 messages {cu.messages[0]} "
+                      f"!= recorded {LARGE_N[plan.graph.n][0]}")
+                check(np.array_equal(
+                    cu.x_final[0].view(np.int32),
+                    self.main_x[plan.graph.n].view(np.int32)),
+                    "priced baseline: trial-0 x_final != the unpriced run's")
+        for name, row in rows.items():
+            log(f"[scenarios n={plan.graph.n}] {name}: error "
+                f"{row['error']:.6f}, survivor error "
+                f"{row['survivor_error']:.6f}, messages {row['messages']:.1f}, "
+                f"energy {row['energy']:.1f} (retransmissions "
+                f"{row['retransmissions']:.1f}, congestion "
+                f"{row['congestion']:.2f}); execute {row['execute_s']:.3f} s, "
+                f"warm {row['execute_warm_s']:.3f} s")
+        log(f"[scenarios n={plan.graph.n}] cuda == ref backend bitwise in "
+            f"x_final, messages, node_sends, level_messages, retransmissions "
+            f"and congestion for all {len(matrix)} scenarios; baseline "
+            f"messages {LARGE_N[plan.graph.n][0]} and x_final as unpriced; "
+            f"{chunks} launches of sample_chunk and pair_apply a scenario "
+            f"({SCENARIO_TRIALS} trials a launch)")
+        # the churn + cost run traced, its launches counted
+        churn = {sc.name: sc for sc in matrix}["churn"].failures
+
+        def run_churn():
+            return P.execute_plan(plan, x0, seeds=seeds, failures=churn,
+                                  cost=cost, **kw)
+
+        self.zero_counts()
+        rows_t, traced_s = self.trace(run_churn)
+        counts = self.read_counts()
+        check(counts["sample_chunk"] == counts["pair_apply"] == chunks,
+              f"traced churn + cost run: launches {counts}, want {chunks} "
+              f"of sample_chunk and pair_apply")
+        self.check_idle(counts, ("sample_chunk", "pair_apply"),
+                        "the traced churn + cost run")
+        prof = self.busy(f"scenario churn + cost n={plan.graph.n}", rows_t,
+                         traced_s, rows["churn"]["execute_warm_s"],
+                         "pair_apply")
+        traced = prof.get("device_launches")
+        check(traced is not None and traced <= MAIN_TRACE_LAUNCHES,
+              f"the traced churn + cost run made {traced} device launches, "
+              f"beyond {MAIN_TRACE_LAUNCHES}")
+        if "device_busy_ms" in prof:
+            prof["sample_chunk_device_ms"] = sum(
+                r[0] for r in rows_t if "sample_chunk" in r[2]) / 1e3
+        self.report[f"scenarios_{plan.graph.n}"] = dict(
+            trials=SCENARIO_TRIALS, cost=SCENARIO_COST, scenarios=rows,
+            launches_per_scenario=chunks, churn_profile=prof)
         return launches
 
     def trace(self, fn):
@@ -759,6 +1042,51 @@ class Smoke:
             sample_chunk_launches=counts["sample_chunk"])
         return launches
 
+    def matmul_scenario(self, g, plan, x0):
+        """FI at n=20000 on the matmul backend under the churn and
+        Byzantine scenarios, priced: integer accounting bitwise equal to
+        backend "cuda"'s, values within the matmul phase's tolerance."""
+        import numpy as np
+        import repro_torch.core as P
+
+        cost = P.CostModel(**SCENARIO_COST)
+        matrix = {sc.name: sc for sc in P.scenario_matrix()}
+        kw = dict(eps=FI["eps"], weighted=FI["weighted"], seeds=(FI["seed"],),
+                  fixed_ticks_scale=FI["fixed_ticks_scale"], cost=cost)
+        chunks = self.fi_chunks(plan)
+        out = {}
+        for name in ("churn", "byzantine"):
+            fm = matrix[name].failures
+            self.zero_counts()
+            mm = P.execute_plan(plan, x0, failures=fm,
+                                options=P.ExecOptions(backend="matmul"), **kw)
+            counts = self.read_counts()
+            check(counts["cell_mixing"] == counts["sample_chunk"] == chunks,
+                  f"matmul {name}: launches {counts}, want {chunks} of "
+                  f"cell_mixing and sample_chunk")
+            self.check_idle(counts, ("cell_mixing", "sample_chunk"),
+                            f"the matmul backend under {name}")
+            cu = P.execute_plan(plan, x0, failures=fm,
+                                options=P.ExecOptions(backend="cuda"), **kw)
+            for f in ("messages", "node_sends", "level_messages"):
+                check(np.array_equal(getattr(mm, f), getattr(cu, f)),
+                      f"matmul {name}: {f} differs from backend cuda")
+            for f in ("retransmissions", "congestion"):
+                check(np.array_equal(getattr(mm.cost, f),
+                                     getattr(cu.cost, f)),
+                      f"matmul {name}: cost {f} differs from backend cuda")
+            gap = float(np.abs(mm.x_final - cu.x_final).max())
+            check(np.allclose(mm.x_final, cu.x_final, rtol=1e-4, atol=2e-4),
+                  f"matmul {name}: x_final not allclose to backend cuda "
+                  f"({gap})")
+            out[name] = dict(messages=int(mm.messages[0]), max_gap=gap)
+            log(f"[matmul n=20000 {name}] messages {mm.messages[0]}, "
+                f"retransmissions {mm.cost.retransmissions[0]:.0f}, integer "
+                f"accounting == backend cuda, max |matmul - cuda| "
+                f"{gap:.3e}, cell_mixing launches {counts['cell_mixing']}")
+        self.report["matmul_20000_scenarios"] = out
+        return chunks
+
     def synchronous(self):
         """synchronous_multiscale at n=2000 through the cell_mixing kernel,
         against its plain version on the CPU."""
@@ -794,6 +1122,74 @@ class Smoke:
         self.report["synchronous_2000"] = dict(
             messages=sy.messages, seconds=sy_s, cell_mixing_launches=launches)
         return launches
+
+    def baselines(self):
+        """standard_gossip at n=500 on the card against its plain backend
+        on the card, bitwise; fig5's reliable path averaging (host numpy)
+        against its recorded counts, beside the card's multiscale run on
+        the same graph."""
+        import numpy as np
+        import repro_torch.core as P
+
+        g = P.random_geometric_graph(500, seed=1500)
+        x0 = np.random.default_rng(500).normal(0, 1, 500)
+        self.zero_counts()
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sg = P.standard_gossip(g, x0, eps=1e-2, seed=0)
+        sg_s = time.perf_counter() - t0
+        counts = self.read_counts()
+        ref = P.standard_gossip(g, x0, eps=1e-2, seed=0, backend="ref")
+        check(np.array_equal(sg.x.view(np.int32), ref.x.view(np.int32))
+              and sg.messages == ref.messages
+              and sg.iterations == ref.iterations
+              and np.array_equal(sg.node_sends, ref.node_sends),
+              "standard_gossip: backend cuda differs from ref")
+        check(sg.converged, "standard_gossip did not converge")
+        chunks = sg.iterations // 64
+        check(counts["pair_apply"] == counts["sample_chunk"] == chunks,
+              f"standard_gossip: launches {counts}, want {chunks} chunks of "
+              f"sample_chunk and pair_apply")
+        self.check_idle(counts, ("sample_chunk", "pair_apply"),
+                        "standard_gossip")
+        log(f"[baselines] standard_gossip n=500 eps 1e-2: messages "
+            f"{sg.messages}, ticks {sg.iterations}, error "
+            f"{sg.error(x0):.3e}, {sg_s:.3f} s, cuda == ref bitwise, "
+            f"{chunks} launches of pair_apply and sample_chunk")
+        n = 2000
+        g2 = P.random_geometric_graph(n, seed=21)
+        x2 = np.random.default_rng(3).normal(0, 1, n)
+        t0 = time.perf_counter()
+        pa = [P.path_averaging(g2, x2, eps=1e-4, seed=s) for s in range(3)]
+        pa_s = time.perf_counter() - t0
+        pa_msgs = [r.messages for r in pa]
+        check(pa_msgs == FIG5_PATH_AVERAGING,
+              f"fig5 path averaging messages {pa_msgs} != recorded "
+              f"{FIG5_PATH_AVERAGING}")
+        self.zero_counts()
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = P.multiscale_gossip(g2, x2, eps=1e-4, seed=0, weighted=True,
+                                 trials=3)
+        self.torch.cuda.synchronize()
+        ms_s = time.perf_counter() - t0
+        ms_counts = self.read_counts()
+        self.check_idle(ms_counts, ("sample_chunk", "pair_apply"),
+                        "fig5 multiscale")
+        ms_msgs = [int(m) for m in ms.messages]
+        log(f"[baselines] fig5 n=2000 eps 1e-4, 3 trials: path averaging "
+            f"(host numpy) messages {pa_msgs} == recorded, {pa_s:.3f} s; "
+            f"multiscale on the card (eps oracle) messages {ms_msgs} "
+            f"(recorded {FIG5_MULTISCALE}), {ms_s:.3f} s, "
+            f"{ms_counts['pair_apply']} pair_apply launches")
+        self.report["baselines"] = dict(
+            standard_gossip=dict(messages=sg.messages, ticks=sg.iterations,
+                                 seconds=sg_s, launches=chunks),
+            fig5_path_averaging=dict(messages=pa_msgs, seconds=pa_s),
+            fig5_multiscale=dict(messages=ms_msgs, seconds=ms_s,
+                                 recorded=FIG5_MULTISCALE,
+                                 launches=ms_counts["pair_apply"]))
+        return chunks, ms_counts["pair_apply"]
 
     # ------------------------------------------------------ rwkv6-3b
     def rwkv6(self):
@@ -1260,6 +1656,7 @@ def main() -> int:
     T0 = 50  # the finest level's FI chunk at n=1e5
     sched = smoke.prng(lp0, T0)
     top = smoke.sample_chunk(plan5)
+    smoke.sample_chunk_scenario(plan5)
     smoke.pair_apply(lp0, sched, T0, top)
     del top
     g2, plan2, x02, _, _ = smoke.setup(20_000)
@@ -1268,26 +1665,39 @@ def main() -> int:
     # each path runs with the counts set to 0 just before it and read just
     # after; `launches` is the count of the kernel's own first path
     main5 = smoke.large_n(100_000, g5, plan5, x05, graph5, pl5)
+    scen = smoke.scenarios(g5, plan5, x05)
     del g5, plan5
     g6, plan6, x06, graph6, pl6 = smoke.setup(1_000_000)
     main6 = smoke.large_n(1_000_000, g6, plan6, x06, graph6, pl6)
     del g6, plan6
+    scen_path = (f"run_scenario_matrix FI n=100000, 5 scenarios x "
+                 f"{SCENARIO_TRIALS} trials, priced, backend cuda")
     main_paths = {"multiscale_gossip FI n=100000, backend cuda": main5,
-                  "multiscale_gossip FI n=1000000, backend cuda": main6}
+                  "multiscale_gossip FI n=1000000, backend cuda": main6,
+                  scen_path: scen}
+    mm = smoke.matmul(g2, plan2, x02)
+    mm_scen = smoke.matmul_scenario(g2, plan2, x02)
+    sy = smoke.synchronous()
+    sg, fig5 = smoke.baselines()
+    baseline_paths = {"standard_gossip n=500 eps=1e-2, backend cuda": sg,
+                      "multiscale_gossip fig5 n=2000 eps=1e-4, 3 trials, "
+                      "backend cuda": fig5}
     smoke.kernels["pair_apply"].update(
         launches=main5, path="multiscale_gossip FI n=100000, backend cuda",
-        launches_by_path=main_paths)
-    mm = smoke.matmul(g2, plan2, x02)
+        launches_by_path={**main_paths, **baseline_paths})
     smoke.kernels["sample_chunk"].update(
         launches=main5, path="multiscale_gossip FI n=100000, backend cuda",
         launches_by_path={
             **main_paths,
-            "multiscale_gossip FI n=20000, backend matmul": mm})
-    sy = smoke.synchronous()
+            "multiscale_gossip FI n=20000, backend matmul": mm,
+            "execute_plan FI n=20000 churn / byzantine, priced, backend "
+            "matmul (each)": mm_scen, **baseline_paths})
     smoke.kernels["cell_mixing"].update(
         launches=mm, path="multiscale_gossip FI n=20000, backend matmul",
         launches_by_path={
             "multiscale_gossip FI n=20000, backend matmul": mm,
+            "execute_plan FI n=20000 churn / byzantine, priced, backend "
+            "matmul (each)": mm_scen,
             "synchronous_multiscale n=2000": sy})
 
     # the rwkv6-3b serving path; the gossip phases' plans are freed first

@@ -19,9 +19,12 @@ Backends (`ExecOptions.backend`): ``"ref"`` runs the plain tick loop,
 ``"matmul"`` composes each chunk's mixing matrix and applies it with the
 `cell_mixing` kernel (values agree up to f32 rounding).
 
-Not ported yet: failure scenarios (churn, stragglers, regional outage,
-Byzantine drops) and `CostModel` pricing raise `NotImplementedError`;
-plain ``FailureModel(loss_p=...)`` message loss is supported.
+`failures` (`FailureModel`) carries the paper's message loss and the
+scenarios (churn, stragglers, regional outage, Byzantine drops): each
+level gets a `FailureCtx` of its slots' flags, drawn on the host from
+`failure_sets`, and the chunk draw perturbs the schedule with it.
+`cost` (`CostModel`) prices the run into `EngineResult.cost` without
+perturbing the trajectory.
 """
 from __future__ import annotations
 
@@ -34,7 +37,14 @@ import torch
 
 from . import prng
 from .gossip import GOSSIP_BACKENDS, gossip_core
-from .medium import CostModel, FailureModel
+from .medium import (
+    CostModel,
+    FailureCtx,
+    FailureModel,
+    MediumCost,
+    expected_retransmissions,
+    failure_sets,
+)
 from .options import ExecOptions, resolve_device
 from .plan import HierarchyPlan
 from .schedule import CsrGraphs
@@ -78,6 +88,7 @@ class EngineResult:
     edge_usage: list             # L flat (T, nnz+1) exchange counters
     #                              (collect_usage=True only)
     backend: str
+    cost: Optional[MediumCost] = None  # priced medium cost (CostModel runs)
 
     @property
     def trials(self) -> int:
@@ -114,18 +125,131 @@ def _level_consts(lp, device):
     return c
 
 
-def _check_unported(failures: Optional[FailureModel],
-                    cost: Optional[CostModel]):
+def _estimate(x):
+    """(T, B, C) per-slot estimates of (T, B, C, V) state: the value, or
+    the ratio of the two channels of the mass-weighted variant."""
+    if x.shape[-1] == 1:
+        return x[..., 0]
+    return x[..., 0] / torch.clamp_min(x[..., 1], 1e-30)
+
+
+def _check_models(failures: Optional[FailureModel],
+                  cost: Optional[CostModel], fixed_ticks_scale: float):
     if failures is not None and failures.heterogeneous:
         raise ValueError(
             "per-edge loss_p is closed-form pricing only — the trajectory "
-            "engine needs a scalar")
-    if failures is not None and failures.has_scenario:
-        raise NotImplementedError(
-            "failure scenarios (churn, stragglers, regional outage, "
-            "Byzantine drops) are not ported yet; only loss_p is")
-    if cost is not None:
-        raise NotImplementedError("CostModel pricing is not ported yet")
+            "engine needs a scalar; price heterogeneous links with "
+            "level_edge_messages + price_edge_messages")
+    if cost is not None and cost.heterogeneous:
+        raise ValueError(
+            "per-edge hop_energy is closed-form pricing only — price "
+            "heterogeneous links with level_edge_messages + "
+            "price_edge_messages")
+    if (failures is not None and failures.has_scenario
+            and fixed_ticks_scale <= 0):
+        raise ValueError(
+            "failure scenarios require fixed_ticks_scale > 0: scenario "
+            "event times are fractions of the finest level's tick budget, "
+            "which the eps-oracle mode leaves unbounded")
+
+
+def _failure_consts(plan, failures, maxt_levels, n, device):
+    """Per-level `FailureCtx`s plus the dissemination freeze-out, from
+    the host-drawn failure node sets mapped through each level's slot
+    layout and static event windows.
+
+    Event times are fractions of the FINEST level's tick budget (the
+    finest level is where events fire); churned nodes stay down through
+    every coarser level (churn_tick=0 there), and a regional outage
+    persists into coarser levels only when its window extends past 1.0.
+
+    Returns (ctxs, freeze): `freeze` is None or a dict with the (n,)
+    mask of nodes that must NOT receive the dissemination down-pass —
+    Byzantine nodes discard it, churned / permanently-out regional
+    nodes never hear it — plus their (graph, slot) coordinates in the
+    finest level, whose post-gossip value is exactly their frozen one.
+    """
+    sets = failure_sets(failures, n, coords=plan.graph.coords)
+    maxt0 = int(maxt_levels[0])
+    t0f, t1f = failures.regional_window
+    reg_perm = t1f > 1.0
+    ctxs = []
+    for li, lp in enumerate(plan.levels):
+        sn = np.asarray(lp.slot_node)
+        valid = sn >= 0
+        idx = np.clip(sn, 0, n - 1)
+        if li == 0:
+            churn_tick = int(round(failures.churn_time * maxt0))
+            reg_t0 = int(round(t0f * maxt0))
+            reg_t1 = maxt0 + 1 if reg_perm else int(round(t1f * maxt0))
+        else:
+            churn_tick = 0  # already-churned nodes stay down
+            maxt = int(maxt_levels[li])
+            reg_t0, reg_t1 = (0, maxt + 1) if reg_perm else (0, 0)
+        ctxs.append(FailureCtx.from_masks(
+            valid & sets["churned"][idx],
+            valid & sets["straggler"][idx],
+            valid & sets["byz"][idx],
+            valid & sets["regional"][idx],
+            churn_tick, reg_t0, reg_t1,
+            (float(failures.straggler_success)
+             if failures.straggler_fraction > 0 else 1.0),
+            device=device,
+        ))
+    frozen = sets["byz"] | sets["churned"]
+    if reg_perm:
+        frozen = frozen | sets["regional"]
+    freeze = None
+    if plan.disseminate and frozen.any():
+        sn0 = np.asarray(plan.levels[0].slot_node)
+        b, c = np.nonzero(sn0 >= 0)
+        ids = sn0[b, c].astype(np.int64)
+        graph0 = np.zeros(n, np.int64)
+        slot0 = np.zeros(n, np.int64)
+        graph0[ids] = b
+        slot0[ids] = c
+        freeze = {name: torch.as_tensor(a, device=device) for name, a in (
+            ("frozen", frozen), ("graph0", graph0), ("slot0", slot0))}
+    return ctxs, freeze
+
+
+def _price_levels(cost, plan, n, level_messages, messages, lretx, lcong):
+    """Reduce the executor's per-graph cost counters into a `MediumCost`.
+
+    `level_messages` is (T, L) int64; `lretx`/`lcong` are the L per-level
+    (T, B) host counters (empty when `cost` is None).  When the model is
+    closed-form (``sample=False`` or ``retransmit_p == 1``) the sampled
+    counters are ignored and the Geometric mean ``T*(1-p)/p`` is applied
+    to the logical counts instead.  The dissemination down-pass (n extra
+    logical transmissions, already in `messages`) is priced in
+    expectation — there is no schedule to sample against.
+    """
+    if cost is None:
+        return None
+    p = cost.retransmit_p
+    if cost.sample and p < 1.0:
+        level_retx = np.stack(
+            [np.asarray(r, np.int64).sum(axis=1) for r in lretx],
+            axis=1,
+        ).astype(np.float64)
+    else:
+        level_retx = expected_retransmissions(level_messages, p)
+    level_cong = np.stack(
+        [np.asarray(cg, np.float64).sum(axis=1) for cg in lcong], axis=1)
+    retx = level_retx.sum(axis=1)
+    if plan.disseminate and p < 1.0:
+        retx = retx + n * (1.0 - p) / p
+    cong_e = cost.hop_energy * cost.congestion_alpha * level_cong
+    congestion = cong_e.sum(axis=1)
+    return MediumCost(
+        transmissions=np.asarray(messages, np.float64),
+        retransmissions=retx,
+        congestion=congestion,
+        energy=cost.hop_energy * (messages + retx) + congestion,
+        level_energy=(
+            cost.hop_energy * (level_messages + level_retx) + cong_e),
+        model=cost,
+    )
 
 
 def execute_plan(
@@ -147,16 +271,22 @@ def execute_plan(
     election, routes) is shared, so trials differ only in gossip noise.
     `options` (`ExecOptions`) selects backend / device / check cadence /
     tick budget; `failures` carries the paper's `loss_p` message-loss
-    model.  `options.collect_usage` also returns the per-level flat
-    exchange counters.
+    model plus the scenario fields (churn, stragglers, regional outage,
+    Byzantine drops) that perturb the presampled schedule — their event
+    times are fractions of the finest level's tick budget, so scenarios
+    run in fixed-iterations mode.  `cost` prices the schedule (energy,
+    retransmissions, congestion) into `EngineResult.cost` without
+    perturbing the trajectory.  `options.collect_usage` also returns the
+    per-level flat exchange counters.
     """
     options = options if options is not None else ExecOptions()
     dev = resolve_device(options.device)
-    _check_unported(failures, cost)
+    _check_models(failures, cost, fixed_ticks_scale)
     backend = options.backend
     if backend not in GOSSIP_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     loss_p = failures.loss_p if failures is not None else None
+    scenario = failures is not None and failures.has_scenario
     n = plan.graph.n
     x0 = np.asarray(x0, np.float32)
     T = len(seeds)
@@ -179,11 +309,16 @@ def execute_plan(
             level_cfg.append((float(eps), int(options.max_ticks_per_level),
                               int(options.check_every)))
 
+    ctxs, freeze = [None] * len(plan.levels), None
+    if scenario:
+        ctxs, freeze = _failure_consts(
+            plan, failures, [cfg[1] for cfg in level_cfg], n, dev)
     keys = torch.stack([prng.PRNGKey(s, dev) for s in seeds])  # (T, 2)
     x0_rows = torch.as_tensor(x0, device=dev).expand(T, n)
     node_sends = torch.zeros((T, n + 1), dtype=torch.int32, device=dev)
     lvl_msgs, lvl_ticks, lvl_conv, usages = [], [], [], []
-    xb = None
+    lvl_retx, lvl_cong = [], []
+    xb = frozen_vals = None
     for li, (lp, (eps_l, maxt, chk)) in enumerate(zip(plan.levels, level_cfg)):
         c = _level_consts(lp, dev)
         B = lp.num_graphs
@@ -196,15 +331,24 @@ def execute_plan(
                 xb = torch.stack([vals * w, w], dim=-1)
             else:
                 xb = vals[..., None]
-        x, usage, msgs, done, ticks = gossip_core(
+        x, usage, msgs, done, ticks, *priced = gossip_core(
             xb.contiguous(), c["adj"], mask, eps_l, prng.fold_in(keys, li),
             max_ticks=maxt, check_every=chk, loss_p=loss_p, backend=backend,
+            failure_ctx=ctxs[li], cost_model=cost,
+            hop_cap=max(1, int(lp.max_hops)),
         )
+        if priced:
+            lvl_retx.append(priced[0])
+            lvl_cong.append(priced[1])
         lvl_msgs.append(msgs)
         lvl_ticks.append(ticks.max(dim=1).values)
         lvl_conv.append(done.to(torch.float32).mean(dim=1))
         if options.collect_usage:
             usages.append(usage)
+        # a frozen node's own post-gossip value at the finest level is its
+        # value for the rest of the run: snapshot it before promotion
+        if li == 0 and freeze is not None:
+            frozen_vals = _estimate(x)[:, freeze["graph0"], freeze["slot0"]]
         # attribution: gathers through the plan CSR + scatter-adds
         if lp.kind == "cells":
             node_sends.index_add_(1, c["row_node"], usage)
@@ -224,11 +368,13 @@ def execute_plan(
             xb = torch.zeros((T, B2, C2, V), dtype=torch.float32, device=dev)
             xb[:, c["next_graph"], c["next_slot"]] = v
     # final estimate + dissemination down-pass
-    est = (x[..., 0] if V == 1
-           else x[..., 0] / torch.clamp_min(x[..., 1], 1e-30))
     fg = torch.as_tensor(plan.final_graph, device=dev).long()
     fs = torch.as_tensor(plan.final_slot, device=dev).long()
-    x_final = est[:, fg, fs]
+    x_final = _estimate(x)[:, fg, fs]
+    # Byzantine nodes discard the down-pass; churned / permanently
+    # regional-out nodes never hear it — they keep their frozen value
+    if frozen_vals is not None:
+        x_final = torch.where(freeze["frozen"], frozen_vals, x_final)
     node_sends = node_sends[:, :n]
     if plan.disseminate:
         node_sends = node_sends + 1  # the n-message down-pass
@@ -250,4 +396,8 @@ def execute_plan(
             np.float64),
         edge_usage=[u.cpu().numpy() for u in usages],
         backend=backend,
+        cost=_price_levels(
+            cost, plan, n, level_messages, messages,
+            [r.cpu().numpy() for r in lvl_retx],
+            [cg.cpu().numpy() for cg in lvl_cong]),
     )

@@ -31,6 +31,14 @@ fixed-iterations mode (``eps < 0``: the oracle never fires) its trip
 count is known on the host, so the loop never waits for the device; in
 eps mode the ``done`` check syncs once per chunk.
 
+Failure scenarios and pricing (`core.medium`): a `FailureCtx` perturbs
+each drawn chunk before the value pass — down initiators never wake,
+down partners waste the forward leg, straggler exchanges fail on a
+tagged uniform stream, Byzantine slots drop their updates — and a
+`CostModel` adds the chunk's sampled retransmissions (a second tagged
+stream) and its concurrency pairs.  Both live in the chunk draw, so a
+scenario or priced chunk is still one `sample_chunk` launch.
+
 Monte-Carlo trials are a batch axis written out: ``x0`` is
 ``(R, B, C, V)`` and ``keys`` ``(R, 2)``, one key per trial over the same
 graphs.  The trials fold into the graph batch of the value pass, so one
@@ -52,6 +60,7 @@ import numpy as np
 import torch
 
 from . import prng
+from .medium import CostModel, FailureCtx
 from .options import resolve_device
 from .schedule import (
     CsrGraphs,
@@ -112,6 +121,9 @@ def gossip_core(
     check_every: int,
     loss_p: Optional[float],
     backend: str = "cuda",
+    failure_ctx: Optional[FailureCtx] = None,
+    cost_model: Optional[CostModel] = None,
+    hop_cap: int = 1,
 ):
     """Batched gossip loop over R trials of the same B graphs.
 
@@ -119,7 +131,11 @@ def gossip_core(
     flat ``(R, nnz+1)`` int32 per-directed-edge counters aligned with
     `adj`, msgs / ticks ``(R, B)`` int32 and done ``(R, B)`` bool.  The
     exchange sequence, usage and message counts do not depend on the
-    backend.
+    backend.  With `cost_model` two ``(R, B)`` counters follow:
+    retransmissions (int32, sampled extra attempts) and congestion pairs
+    (f32); they never change the others.  `failure_ctx` perturbs the
+    schedule (module docstring); `hop_cap` is the level's longest route
+    in hops, the width of the retransmission draw.
     """
     if backend not in GOSSIP_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
@@ -147,20 +163,27 @@ def gossip_core(
     ticks = torch.zeros((R, B), dtype=torch.int32, device=dev)
     done = (converged(x0) if not fixed
             else torch.zeros((R, B), dtype=torch.bool, device=dev))
+    extra = {}
+    if cost_model is not None:
+        extra = dict(
+            retx=torch.zeros((R, B), dtype=torch.int32, device=dev),
+            congp=torch.zeros((R, B), dtype=torch.float32, device=dev))
     x = x0.reshape(R * B, C, V)
     t0 = 0
     while t0 < max_ticks:
         if not fixed and bool(done.all()):
             break
-        # (T, R*B) pairs and update bits; usage and msgs counted in place
-        x = _value_pass(backend, x, *draw(t0, check_every, keys, adj, loss_p,
-                                          done, usage, msgs))
+        # (T, R*B) pairs and update bits; the counters grow in place
+        x = _value_pass(backend, x, *draw(
+            t0, check_every, keys, adj, loss_p, done, usage, msgs,
+            failure_ctx=failure_ctx, cost=cost_model, hop_cap=hop_cap,
+            **extra))
         ticks += torch.where(done, 0, check_every).to(torch.int32)
         if not fixed:
             done = done | converged(x.reshape(R, B, C, V))
         t0 += check_every
     return (x.reshape(R, B, C, V), usage.reshape(R, nflat), msgs, done,
-            ticks)
+            ticks, *extra.values())
 
 
 def gossip_until(

@@ -34,7 +34,7 @@ from typing import Optional, Union
 import numpy as np
 
 from .engine import EngineResult, execute_plan, trials_error
-from .medium import CostModel, FailureModel
+from .medium import CostModel, FailureModel, MediumCost
 from .options import ExecOptions, resolve_device
 from .partition import Partition
 from .plan import HierarchyPlan, build_plan
@@ -68,6 +68,7 @@ class MultiscaleResult:
     rep_counts: np.ndarray    # (n,) #times each node served as representative
     disconnected_cells: int   # finest-level cells whose subgraph was disconnected
     partition: Partition
+    cost: Optional[MediumCost] = None  # priced medium cost (CostModel runs)
 
     def error(self, x0: np.ndarray) -> float:
         """Paper's final relative error ||x_final - avg|| / ||x0||."""
@@ -89,6 +90,7 @@ class MultiscaleTrials:
     disconnected_cells: int
     partition: Partition
     backend: str
+    cost: Optional[MediumCost] = None  # per-trial priced cost (CostModel runs)
 
     @property
     def trials(self) -> int:
@@ -147,7 +149,9 @@ def multiscale_gossip(
     `rep_mode` come from the plan and `seed` only drives the gossip
     randomness).  `options` (`ExecOptions`) selects backend / device /
     check cadence / tick budget; `failures` carries the paper's loss
-    model.
+    model plus churn / straggler / regional / Byzantine scenarios;
+    `cost` (`CostModel`) prices the run onto the wireless medium into
+    `.cost` without perturbing the exchange trajectory.
     """
     if options is None:
         options = ExecOptions()
@@ -173,6 +177,7 @@ def multiscale_gossip(
             rep_counts=plan.rep_counts.copy(),
             disconnected_cells=plan.disconnected_cells,
             partition=plan.partition,
+            cost=res.cost,
         )
     return MultiscaleTrials(
         x_final=res.x_final,
@@ -184,4 +189,5 @@ def multiscale_gossip(
         disconnected_cells=plan.disconnected_cells,
         partition=plan.partition,
         backend=options.backend,
+        cost=res.cost,
     )

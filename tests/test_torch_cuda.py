@@ -174,6 +174,97 @@ def test_sample_chunk_kernel_rejects_what_it_does_not_take(cuda_device):
     assert sample_chunk.launches == before
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["scenario", "cost", "both"])
+@pytest.mark.parametrize("loss_p", [None, 0.9])
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("T", [1, 50, 63])
+@pytest.mark.parametrize("B", [1, 2, 7, 4099])
+def test_sample_chunk_kernel_scenario_bitwise_on_card(cuda_device, B, T, R,
+                                                      loss_p, mode):
+    """Under a scenario (a quarter of the slots churned, straggling,
+    Byzantine and regional, the event ticks inside the chunk), a cost
+    model (retransmissions over hops 1..3, congestion), or both, every
+    output of the kernel equals the plain version's bitwise: pairs, bits,
+    usage, msgs, retx and congestion pairs.  T=63 with odd B makes the
+    straggler stream's size odd."""
+    from repro_torch.core import CostModel, FailureCtx
+
+    rng = np.random.default_rng(B * 1000 + T * 10 + R + 7)
+    adj = _random_csr(rng, B).to_device(cuda_device)
+    C = adj.degrees.shape[1]
+    nflat = adj.nbr.shape[0]
+    keys = prng.fold_in(torch.stack(
+        [prng.PRNGKey(int(s), cuda_device)
+         for s in rng.integers(0, 2**32, R)]), 2)
+    done = torch.from_numpy(rng.uniform(size=(R, B)) < 0.2).to(cuda_device)
+    t0 = int(rng.integers(0, 2**20))
+    ctx = cost = None
+    if mode != "cost":
+        ctx = FailureCtx.from_masks(
+            *[rng.uniform(size=(B, C)) < 0.25 for _ in range(4)],
+            t0 + T // 2, t0 + T // 4, t0 + 3 * T // 4 + 1, 0.25,
+            device=cuda_device)
+    if mode != "scenario":
+        cost = CostModel(retransmit_p=0.9, congestion_alpha=0.01)
+    counts = {name: torch.from_numpy(rng.integers(0, 100, shape).astype(
+        dtype)).to(cuda_device) for name, shape, dtype in (
+            ("usage", R * nflat, np.int32), ("msgs", (R, B), np.int32),
+            ("retx", (R, B), np.int32), ("congp", (R, B), np.float32))}
+    got_c = {k: v.clone() for k, v in counts.items()}
+    before = sample_chunk.launches
+    got = sample_chunk(t0, T, keys, adj, loss_p, done, got_c["usage"],
+                       got_c["msgs"], failure_ctx=ctx, cost=cost, hop_cap=3,
+                       retx=got_c["retx"], congp=got_c["congp"])
+    torch.cuda.synchronize()
+    assert sample_chunk.launches == before + 1
+    want = sample_chunk_ref(t0, T, keys, adj, loss_p, done, counts["usage"],
+                            counts["msgs"], failure_ctx=ctx, cost=cost,
+                            hop_cap=3, retx=counts["retx"],
+                            congp=counts["congp"])
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    for name in counts:
+        assert torch.equal(got_c[name], counts[name]), name
+
+
+@pytest.mark.cuda
+def test_sample_chunk_kernel_scenario_refusals(cuda_device):
+    from repro_torch.core import CostModel, FailureCtx
+
+    rng = np.random.default_rng(1)
+    adj = _random_csr(rng, 5).to_device(cuda_device)
+    keys = prng.PRNGKey(0, cuda_device)[None]
+    done = torch.zeros((1, 5), dtype=torch.bool, device=cuda_device)
+    usage = torch.zeros(adj.nbr.shape[0], dtype=torch.int32,
+                        device=cuda_device)
+    msgs = torch.zeros((1, 5), dtype=torch.int32, device=cuda_device)
+    retx = torch.zeros((1, 5), dtype=torch.int32, device=cuda_device)
+    cost = CostModel(retransmit_p=0.9)
+    ctx = FailureCtx.from_masks(*[np.zeros((5, 9), bool)] * 4, 0, 0, 0, 0.25,
+                                device=cuda_device)
+    before = sample_chunk.launches
+    with pytest.raises(ValueError, match="retx is needed"):
+        sample_chunk(0, 8, keys, adj, None, done, usage, msgs, cost=cost)
+    with pytest.raises(ValueError, match="congp is needed"):
+        sample_chunk(0, 8, keys, adj, None, done, usage, msgs,
+                     cost=CostModel(congestion_alpha=0.1))
+    with pytest.raises(ValueError, match="failure_ctx.bits"):
+        sample_chunk(0, 8, keys, adj, None, done, usage, msgs,
+                     failure_ctx=ctx._replace(bits=ctx.bits.bool()))
+    with pytest.raises(ValueError, match="2\\*\\*32 - 1"):
+        sample_chunk(0, 8, keys, adj, None, done, usage, msgs, cost=cost,
+                     hop_cap=2**26, retx=retx)
+    with pytest.raises(ValueError, match="rounds q"):
+        sample_chunk(0, 8, keys, adj, None, done, usage, msgs,
+                     cost=CostModel(retransmit_p=1e-9), retx=retx)
+    with pytest.raises(ValueError, match="hop_cap"):
+        sample_chunk(0, 8, keys, adj, None, done, usage, msgs, cost=cost,
+                     hop_cap=0, retx=retx)
+    assert sample_chunk.launches == before
+
+
 # cell_mixing: a warp a cell for m <= 32 (8, 16 or 32 rows a warp, 16-byte
 # W loads where m is 8, 16 or 32), a block a cell above (W in shared
 # memory up to m=130 at these widths, from device memory at m=300); B=13

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -78,13 +79,17 @@ def test_cuda_backend_on_cpu_raises():
     (P.FailureModel(straggler_fraction=0.1), None),
     (P.FailureModel(regional_radius=0.2), None),
     (P.FailureModel(drop_fraction=0.1), None),
-    (None, P.CostModel(retransmit_p=0.9)),
+    (None, P.CostModel(hop_energy=(1.0, 2.0))),
 ])
 def test_unported_scenarios_raise(rgg500, x0_500, failures, cost):
-    with pytest.raises(NotImplementedError):
+    """What the engine does not run raises, as the reference's does: a
+    scenario in eps-oracle mode (its event times are fractions of a
+    fixed tick budget) and a per-edge hop_energy (closed-form pricing
+    only)."""
+    with pytest.raises(ValueError, match="fixed_ticks_scale > 0|per-edge"):
         P.multiscale_gossip(
-            rgg500, x0_500, fixed_ticks_scale=0.2, failures=failures,
-            cost=cost, options=P.ExecOptions(backend="ref", device="cpu"))
+            rgg500, x0_500, failures=failures, cost=cost,
+            options=P.ExecOptions(backend="ref", device="cpu"))
 
 
 def test_model_entry_points_raise_without_cuda(no_cuda):
@@ -165,3 +170,56 @@ def test_flash_attention_rejects_other_devices():
     with pytest.raises(ValueError, match="one device"):
         flash_attention(torch.zeros((1, 2, 8, 64)), q, q)
     assert flash_attention.launches == before
+
+
+def test_baseline_and_scenario_modules_import_neither_jax_nor_reference():
+    code = ("import sys; import repro_torch.core.baselines, "
+            "repro_torch.core.scenarios, repro_torch.core.medium, "
+            "repro_torch.core.failures, repro_torch.kernels.sample_chunk; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("entry", ["standard_gossip", "run_scenario_matrix",
+                                   "scenario", "priced"])
+def test_scenario_and_baseline_entry_points_raise_without_cuda(
+        no_cuda, rgg500, x0_500, entry):
+    plan = P.build_plan(rgg500)
+    calls = {
+        "standard_gossip": lambda: P.standard_gossip(rgg500, x0_500),
+        "run_scenario_matrix": lambda: P.run_scenario_matrix(
+            rgg500, x0_500, plan=plan, fixed_ticks_scale=0.2),
+        "scenario": lambda: P.multiscale_gossip(
+            rgg500, x0_500, plan=plan, fixed_ticks_scale=0.2,
+            failures=P.FailureModel(churn_fraction=0.1)),
+        "priced": lambda: P.execute_plan(
+            plan, x0_500, fixed_ticks_scale=0.2,
+            cost=P.CostModel(retransmit_p=0.9)),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
+def test_sample_chunk_scenario_rejects_other_devices():
+    from repro_torch.core import CostModel, FailureCtx
+    from repro_torch.kernels.sample_chunk import sample_chunk
+
+    before = sample_chunk.launches
+    adj = P.dense_to_csr(np.zeros((1, 2, 1), np.int32),
+                         np.ones((1, 2), np.int32),
+                         np.array([2], np.int32)).to_device("meta")
+    done = torch.zeros((1, 1), dtype=torch.bool, device="meta")
+    ctx = FailureCtx.from_masks(*[np.zeros((1, 2), bool)] * 4, 0, 0, 0, 0.25,
+                                device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        sample_chunk(0, 8, P.prng.PRNGKey(0, "meta")[None], adj, None, done,
+                     torch.zeros(3, dtype=torch.int32, device="meta"),
+                     torch.zeros((1, 1), dtype=torch.int32, device="meta"),
+                     failure_ctx=ctx, cost=CostModel(retransmit_p=0.9),
+                     retx=torch.zeros((1, 1), dtype=torch.int32,
+                                      device="meta"))
+    assert sample_chunk.launches == before

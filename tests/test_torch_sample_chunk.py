@@ -106,3 +106,152 @@ def test_sample_chunk_rejects_other_devices(plan500):
                      usage, torch.zeros((1, lp.num_graphs), dtype=torch.int32,
                                         device="meta"))
     assert sample_chunk.launches == 0
+
+
+def _random_ctx(rng, lp, T, t0):
+    """Random failure flags on the level's slots (a fifth of each), with
+    the churn tick and the regional window inside the chunk."""
+    B, C = lp.node_mask.shape
+    masks = [rng.uniform(size=(B, C)) < 0.2 for _ in range(4)]
+    windows = (t0 + T // 2, t0 + T // 4, t0 + 3 * T // 4)
+    return masks, windows
+
+
+def _reference_scenario_chunk(lp, keys, t0, T, loss_p, done, masks, windows,
+                              success, cost, hop_cap):
+    """The reference's chunk body with a scenario and a cost model
+    (src/repro/core/gossip.py:281-330), one trial at a time in jax:
+    (T, R, B) update bits, (R, nflat) usage, (R, B) msgs, retx and
+    congestion pairs."""
+    from repro.core.medium import _TAG_RETX, _TAG_STRAGGLER
+
+    arrays = (lp.nbr_start, lp.nbr_flat, lp.hop_flat, lp.degrees, lp.n_nodes)
+    adj = R.CsrGraphs(*(jnp.asarray(a, jnp.int32) for a in arrays))
+    churned, straggler, byz, regional = (jnp.asarray(m) for m in masks)
+    churn_tick, reg_t0, reg_t1 = windows
+    out = {k: [] for k in ("i", "j", "upd_i", "upd_j", "usage", "msgs",
+                           "retx", "congp")}
+    for r, key in enumerate(keys):
+        ts = jnp.arange(T) + t0
+        s = R.sample_schedule(ts, key, adj, loss_p)
+        active = s.valid & ~jnp.asarray(done[r])[None, :]
+        bcols = jnp.arange(active.shape[1])[None, :]
+        when = ts[:, None]
+        churn_now = when >= churn_tick
+        reg_now = (when >= reg_t0) & (when < reg_t1)
+        down_i = (churned[bcols, s.i] & churn_now) | (
+            regional[bcols, s.i] & reg_now)
+        down_j = (churned[bcols, s.j] & churn_now) | (
+            regional[bcols, s.j] & reg_now)
+        attempt = active & ~down_i
+        delivered = attempt & ~down_j
+        slow = straggler[bcols, s.i] | straggler[bcols, s.j]
+        if success < 1.0:
+            ku = jax.random.fold_in(jax.random.fold_in(key, _TAG_STRAGGLER),
+                                    t0)
+            u = jax.random.uniform(ku, active.shape)
+            delivered = delivered & (~slow | (u < success))
+        upd_j = delivered & s.fwd_ok & ~byz[bcols, s.j]
+        upd_i = delivered & s.fwd_ok & s.rep_ok & ~byz[bcols, s.i]
+        cost_t = jnp.where(attempt & ~down_j, s.cost, adj.hops[s.pos])
+        usage = jnp.zeros(lp.nbr_flat.shape, jnp.int32).at[s.pos].add(
+            attempt.astype(jnp.int32))
+        hops_t = jnp.where(attempt, cost_t, 0)
+        kr = jax.random.fold_in(jax.random.fold_in(key, _TAG_RETX), t0)
+        q = 1.0 - cost.retransmit_p
+        u = jnp.maximum(
+            jax.random.uniform(kr, (*hops_t.shape, 2 * hop_cap)), 1e-12)
+        g = jnp.floor(jnp.log(u) / jnp.log(q)).astype(jnp.int32)
+        m = jnp.arange(2 * hop_cap)[None, None, :] < hops_t[..., None]
+        conc = attempt.sum(1)
+        pairs = (attempt * jnp.maximum(conc - 1, 0)[:, None]).sum(0)
+        for name, a in (("i", s.i), ("j", s.j), ("upd_i", upd_i),
+                        ("upd_j", upd_j), ("usage", usage),
+                        ("msgs", hops_t.sum(0)),
+                        ("retx", jnp.where(m, g, 0).sum((0, 2))),
+                        ("congp", pairs.astype(jnp.float32))):
+            out[name].append(np.asarray(a))
+    return {k: np.stack(v, 1 if k in ("i", "j", "upd_i", "upd_j") else 0)
+            for k, v in out.items()}
+
+
+@pytest.mark.parametrize("success", [0.25, 1.0])
+@pytest.mark.parametrize("loss_p", [None, 0.9])
+@pytest.mark.parametrize("T", [63, 64])
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_sample_chunk_ref_scenario_bitwise_vs_reference(plan500, level, T,
+                                                        loss_p, success):
+    """With a scenario (a fifth of the slots churned, straggling,
+    Byzantine and regional, the churn tick and the regional window inside
+    the chunk) and a sampling cost model with congestion, at every
+    plan500 level (T=63 makes T*B odd at the odd-B levels, so the
+    straggler stream's last counter pair hashes (c, 0)), two trials: the
+    plain version gives the reference's chunk bit for bit, its counters
+    growing from nonzero values.  The op on CPU tensors gives the same."""
+    from repro_torch.core import CostModel, FailureCtx
+
+    lp = plan500.levels[level]
+    B = lp.num_graphs
+    hop_cap = max(1, int(lp.max_hops))
+    rng = np.random.default_rng(100 + level * 10 + T)
+    trials = 2
+    seeds = [int(s) for s in rng.integers(0, 2**31, trials)]
+    done = rng.uniform(size=(trials, B)) < 0.2
+    t0 = 64 * (level + 1)
+    masks, windows = _random_ctx(rng, lp, T, t0)
+    cost = CostModel(retransmit_p=0.9, congestion_alpha=0.01)
+    want = _reference_scenario_chunk(
+        lp, [jax.random.fold_in(jax.random.PRNGKey(s), level) for s in seeds],
+        t0, T, loss_p, done, masks, windows, success, cost, hop_cap)
+
+    adj = CsrGraphs(lp.nbr_start, lp.nbr_flat, lp.hop_flat, lp.degrees,
+                    lp.n_nodes).to_device("cpu")
+    keys = prng.fold_in(torch.stack([prng.PRNGKey(s) for s in seeds]), level)
+    ctx = FailureCtx.from_masks(*masks, *windows, success)
+    nflat = lp.nbr_flat.shape[0]
+    start = {name: rng.integers(0, 100, shape).astype(dtype) for name, shape,
+             dtype in (("usage", trials * nflat, np.int32),
+                       ("msgs", (trials, B), np.int32),
+                       ("retx", (trials, B), np.int32),
+                       ("congp", (trials, B), np.float32))}
+    for fn in (sample_chunk_ref, sample_chunk):
+        counts = {k: torch.from_numpy(v.copy()) for k, v in start.items()}
+        got = fn(t0, T, keys, adj, loss_p, torch.from_numpy(done),
+                 counts["usage"], counts["msgs"], failure_ctx=ctx, cost=cost,
+                 hop_cap=hop_cap, retx=counts["retx"], congp=counts["congp"])
+        for name, a in zip(("i", "j", "upd_i", "upd_j"), got):
+            np.testing.assert_array_equal(
+                a.numpy().reshape(T, trials, B), want[name], err_msg=name)
+        np.testing.assert_array_equal(
+            counts["usage"].numpy(), start["usage"] + want["usage"].ravel())
+        for name in ("msgs", "retx"):
+            np.testing.assert_array_equal(
+                counts[name].numpy(), start[name] + want[name], err_msg=name)
+        np.testing.assert_array_equal(
+            counts["congp"].numpy().view(np.int32),
+            (start["congp"] + want["congp"]).view(np.int32))
+
+
+def test_sample_chunk_ref_without_scenario_or_cost_is_unchanged(plan500):
+    """A cost model that neither samples nor prices congestion, and a
+    scenario with no flag set, leave the draw exactly as without them."""
+    from repro_torch.core import CostModel, FailureCtx
+
+    lp = plan500.levels[0]
+    B, C = lp.node_mask.shape
+    adj = CsrGraphs(lp.nbr_start, lp.nbr_flat, lp.hop_flat, lp.degrees,
+                    lp.n_nodes).to_device("cpu")
+    keys = prng.fold_in(prng.PRNGKey(5)[None], 0)
+    done = torch.zeros((1, B), dtype=torch.bool)
+    none = np.zeros((B, C), bool)
+    outs = []
+    for kw in ({}, dict(failure_ctx=FailureCtx.from_masks(
+            none, none, none, none, 0, 0, 99, 0.25),
+            cost=CostModel(retransmit_p=0.9, sample=False),
+            retx=torch.zeros((1, B), dtype=torch.int32))):
+        usage = torch.zeros(lp.nbr_flat.shape[0], dtype=torch.int32)
+        msgs = torch.zeros((1, B), dtype=torch.int32)
+        got = sample_chunk_ref(0, 64, keys, adj, 0.9, done, usage, msgs, **kw)
+        outs.append((*got, usage, msgs))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
