@@ -44,9 +44,12 @@ the repository beside it, the script fails and prints no result.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -128,6 +131,32 @@ FLASH_BUDGET = 2.5
 # the bf16 kernel at the prefill shape takes at most 3x SDPA's time in
 # the same run
 FLASH_SDPA_LIMIT = 3.0
+# training (src/repro/configs/llama3_2_3b.py; the port has no JAX
+# backward kernel to hold, so no kernel runs here).  T1 at full size
+# (28 layers, d 3072, vocab 128256, bf16, remat on): AdamW (weight decay
+# 0.01) on a cosine schedule, SyntheticLM sequences of 1024 tokens, global
+# batch 2, the Trainer run for 3 steps with a checkpoint every 2 and killed
+# at the start of step 4, then a second Trainer that resumes at step 2 and
+# takes step 3 again, killed there too.  Each kill comes before the final
+# save: the chip machine lets a call write 45 GiB to its disk, and one
+# checkpoint of this state is 38.5 GB (35.9 GiB)
+TRAIN = dict(seq=1024, batch=2, steps=3, save_every=2)
+TRAIN_LR = (3e-5, 1, 10)  # cosine_schedule(base_lr, warmup, total)
+# the resumed step 3's loss against the uninterrupted run's, relative: not
+# bitwise in general, since the gradient sums on the card (the embedding
+# gather's backward, the GEMMs' split reductions) may take another order
+# from run to run, though the resumed state is bitwise the saved one
+TRAIN_RESUME_RTOL = 1e-3
+# T1b: llama3.2-3b width at 2 layers, f32, TF32 off, batch 1 x 64 tokens:
+# one sgdm step on the card and on the CPU from the same weights
+TRAIN_CPU = dict(layers=2, seq=64, batch=1)
+TRAIN_CPU_TOL = {"loss": 1e-5, "grad_norm": 1e-4}
+# T2 / T3: R=8 replicas at llama3.2-3b width, the depth cut to 1 layer
+# (8 x 494.7 M parameters; a 28-layer replica set would not fit), per-
+# replica batch 1 x 256 tokens, AdamW, 3 steps a sync mode or scenario;
+# multiscale on suggest_levels(8) = (2, 4), rotation period 4, top-k 1%
+DEC = dict(R=8, layers=1, seq=256, steps=3, topk=0.01, rotation=4)
+DEC_BF16_RTOL = 2.0**-8  # a bf16 rounding, relative
 # published H100 peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores; the
 # PCIe part is slower.  The int32 rate is the card's SMs x 64 int32
@@ -1631,6 +1660,430 @@ class Smoke:
             "bfloat16": main_err, "float32": err32,
             "bfloat16_mean": mean_err, "bfloat16_rounding_mean": mean_round}
 
+    # ---------------------------------------------------------- training
+    def fingerprint(self, tree) -> dict:
+        """Each tensor leaf of a state as (dtype, shape, two int64 sums: of
+        its bit patterns as integers and of their squares), every other
+        leaf as it is.  Two states with equal fingerprints hold the same
+        bits unless a change cancels in both sums, and no second copy of
+        a 38 GB state is needed to tell."""
+        torch = self.torch
+        ints = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+        out = {}
+
+        def walk(t, prefix):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, f"{prefix}{k}/")
+                return
+            if not torch.is_tensor(t):
+                out[prefix] = t
+                return
+            words = t.detach().contiguous().view(-1).view(
+                ints[t.element_size()])
+            s1 = s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+            for piece in words.split(1 << 26):
+                w = piece.long()
+                s1 = s1 + w.sum()
+                s2 = s2 + (w * w).sum()
+            out[prefix] = (str(t.dtype), tuple(t.shape), int(s1), int(s2))
+        walk(tree, "")
+        return out
+
+    def train(self):
+        """T1: llama3.2-3b at full size through the port's Trainer: 3
+        AdamW steps with a checkpoint at step 2, killed at the start of
+        step 4 (before its final save); a second Trainer resumes at step
+        2 (the state bitwise the saved one), takes step 3 again (traced)
+        and is killed as the first, and its loss is held to the first
+        run's."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.data import SyntheticLM
+        from repro_torch.models import Transformer
+        from repro_torch.optim import adamw, cosine_schedule
+        from repro_torch.train import (
+            Trainer, init_train_state, latest_step, make_train_step,
+        )
+
+        cfg = get_config("llama3.2-3b")
+        check(cfg.remat and cfg.dtype == "bfloat16",
+              f"{cfg.name}: remat {cfg.remat}, dtype {cfg.dtype}")
+        B, S = TRAIN["batch"], TRAIN["seq"]
+        opt = adamw(weight_decay=0.01)
+        step = make_train_step(cfg, opt, cosine_schedule(*TRAIN_LR),
+                               device=self.dev)
+        data = SyntheticLM(cfg.vocab_size, S, B, seed=MODEL_SEED)
+        events = []     # (trainer, step taken, start, end)
+        saved_fp = {}
+        traced = {}
+        killed = f"injected failure at step {TRAIN['steps']}"
+
+        def run_until_killed(trainer):
+            failure = None
+            try:
+                trainer.run(TRAIN["steps"] + 1)
+            except RuntimeError as e:  # the injected kill, checked here
+                failure = str(e)
+            check(failure == killed, f"the Trainer ended with {failure!r}")
+            return trainer.metrics_history
+
+        def timed(label, fingerprint_at=None, trace=False):
+            def fn(state, batch):
+                s = state["step"]
+                if s == fingerprint_at:   # the state checkpoint 2 holds
+                    saved_fp.update(self.fingerprint(state))
+                if trace:
+                    box = []
+                    rows, traced_s = self.trace(
+                        lambda: box.append(step(state, batch)))
+                    traced.update(rows=rows, traced_s=traced_s)
+                    return box[0]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(state, batch)
+                end.record()
+                events.append((label, s + 1, start, end))
+                return out
+            return fn
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+            model = Transformer(cfg).init(seed=MODEL_SEED, device=self.dev)
+            state = init_train_state(model, opt)
+            del model
+            first = Trainer(timed("first", TRAIN["save_every"]), state, data,
+                            ckpt_dir=ckpt, save_every=TRAIN["save_every"],
+                            fail_at_step=TRAIN["steps"], device=self.dev)
+            del state
+            hist = run_until_killed(first)
+            check(latest_step(ckpt) == TRAIN["save_every"],
+                  f"checkpoints {latest_step(ckpt)}")
+            peak_first = torch.cuda.max_memory_allocated() / 2**30
+            del first
+            torch.cuda.empty_cache()
+            ckpt_gb = sum(p.stat().st_size for p in Path(ckpt).rglob("*")
+                          if p.is_file()) / 1e9
+            # the second Trainer's state is allocated, not drawn: the
+            # restore writes every tensor
+            shell = Transformer(cfg).to_empty(device=self.dev)
+            torch.cuda.synchronize()
+            r0 = time.perf_counter()
+            second = Trainer(timed("second", trace=True),
+                             init_train_state(shell, opt), data,
+                             ckpt_dir=ckpt, save_every=TRAIN["save_every"],
+                             fail_at_step=TRAIN["steps"], device=self.dev)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - r0
+            del shell
+            check(second.step == TRAIN["save_every"],
+                  f"the second Trainer resumed at {second.step}")
+            restored_bitwise = self.fingerprint(second.state) == saved_fp
+            check(restored_bitwise, "the restored state differs from the "
+                  "saved one")
+            resumed = run_until_killed(second)
+            check(latest_step(ckpt) == TRAIN["save_every"],
+                  f"checkpoints {latest_step(ckpt)}")
+            del second
+            torch.cuda.empty_cache()
+        total_s = time.perf_counter() - t0
+        losses = [h["loss"] for h in hist]
+        check(all(math.isfinite(x) for x in losses) and len(losses) == 3,
+              f"T1 losses {losses}")
+        again = resumed[-1]["loss"]
+        gap = abs(again - losses[-1]) / abs(losses[-1])
+        check(gap <= TRAIN_RESUME_RTOL,
+              f"resumed step 3 loss {again} vs {losses[-1]} ({gap:.2e})")
+        ms = [a.elapsed_time(b) for _, _, a, b in events]
+        warm_ms = min(ms[1:])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        save_s = hist[TRAIN["save_every"] - 1]["sec_per_step"] - \
+            ms[TRAIN["save_every"] - 1] / 1e3
+        log(f"[train T1 llama3.2-3b {B}x{S}] losses {losses}, resumed step "
+            f"3 {again} (relative gap {gap:.3e}, bitwise "
+            f"{again == losses[-1]}); step ms {[round(x, 2) for x in ms]}, "
+            f"{B * S / warm_ms * 1e3:.0f} tokens/s; peak "
+            f"{peak_first:.2f} GiB; checkpoint {ckpt_gb:.2f} GB saved in "
+            f"about {save_s:.1f} s, restored bitwise in {restore_s:.1f} s; "
+            f"phase {total_s:.1f} s")
+        row = dict(batch=B, seq=S, losses=losses, resumed_loss=again,
+                   resume_gap=gap, restored_bitwise=restored_bitwise,
+                   step_ms=ms, tokens_per_s=B * S / warm_ms * 1e3,
+                   peak_gib=peak, peak_first_gib=peak_first,
+                   checkpoint_gb=ckpt_gb, save_s=save_s,
+                   restore_s=restore_s, phase_s=total_s)
+        row.update(self.busy("train step llama3.2-3b", traced["rows"],
+                             traced["traced_s"], warm_ms / 1e3, "gemm"))
+        self.report["train_llama3.2-3b"] = row
+
+    def train_cpu(self):
+        """T1b: one sgdm step of llama3.2-3b width at 2 layers in f32 (no
+        TF32) on the card and on the CPU from the same weights."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.data import SyntheticLM
+        from repro_torch.models import Transformer, param_dict
+        from repro_torch.optim import sgdm
+        from repro_torch.train import init_train_state, make_train_step
+
+        cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                                  num_layers=TRAIN_CPU["layers"],
+                                  dtype="float32")
+        model = Transformer(cfg).init(seed=MODEL_SEED, device=self.dev)
+        card = param_dict(model)
+        host = {k: v.to("cpu", copy=True) for k, v in card.items()}
+        del model
+        batch = SyntheticLM(cfg.vocab_size, TRAIN_CPU["seq"],
+                            TRAIN_CPU["batch"], seed=MODEL_SEED).batch_at(0)
+        out = {}
+        for where, params in (("cuda", card), ("cpu", host)):
+            state = init_train_state(params, sgdm())
+            step = make_train_step(cfg, sgdm(), lambda s: 1e-2,
+                                   device=self.dev if where == "cuda"
+                                   else "cpu")
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            if where == "cuda":
+                torch.cuda.synchronize()
+            out[where] = (state["params"], float(m["loss"]),
+                          float(m["grad_norm"]), time.perf_counter() - t0)
+        (pc, lc, gc, tc), (ph, lh, gh, th) = out["cuda"], out["cpu"]
+        loss_gap, norm_gap = abs(lc - lh) / abs(lh), abs(gc - gh) / abs(gh)
+        worst = max(float((pc[k].cpu() - ph[k]).abs().max()) for k in ph)
+        log(f"[train T1b card vs CPU] loss {lc} vs {lh} (relative "
+            f"{loss_gap:.2e}), grad norm {gc} vs {gh} ({norm_gap:.2e}), "
+            f"largest parameter difference after the step {worst:.3e}; "
+            f"{tc:.2f} s on the card (first step), {th:.2f} s on the CPU")
+        check(loss_gap <= TRAIN_CPU_TOL["loss"],
+              f"T1b loss card {lc} vs CPU {lh}")
+        check(norm_gap <= TRAIN_CPU_TOL["grad_norm"],
+              f"T1b grad norm card {gc} vs CPU {gh}")
+        self.report["train_card_vs_cpu"] = dict(
+            loss=(lc, lh), grad_norm=(gc, gh), loss_gap=loss_gap,
+            grad_norm_gap=norm_gap, max_param_diff=worst,
+            card_s=tc, cpu_s=th)
+
+    def dec_setup(self):
+        """T2's model (llama3.2-3b width, 1 layer, bf16) drawn on the
+        card, its data stream and its optimizer."""
+        from repro_torch.configs import get_config
+        from repro_torch.data import SyntheticLM
+        from repro_torch.models import Transformer, param_dict
+        from repro_torch.optim import adamw, cosine_schedule
+
+        cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                                  num_layers=DEC["layers"])
+        base = param_dict(Transformer(cfg).init(seed=MODEL_SEED,
+                                                device=self.dev))
+        data = SyntheticLM(cfg.vocab_size, DEC["seq"], DEC["R"],
+                           seed=MODEL_SEED)
+        return cfg, base, data, adamw(weight_decay=0.01), \
+            cosine_schedule(*TRAIN_LR)
+
+    def decentralized(self, cfg, base, data, opt, lr):
+        """T2: make_decentralized_step at R=8 in four sync modes, 3 steps
+        each, with a gate a mode (module docstring of the constants)."""
+        torch = self.torch
+        from repro_torch.dist import (
+            CompressionConfig, SyncConfig, build_sync_plan, suggest_levels,
+        )
+        from repro_torch.train import (
+            init_decentralized_state, make_decentralized_step, replicate,
+        )
+
+        R = DEC["R"]
+        levels = suggest_levels(R)
+        check(levels == (2, 4), f"suggest_levels({R}) = {levels}")
+        wq = "blocks.0.attn.wq"
+        modes = {
+            "allreduce": SyncConfig("allreduce"),
+            "multiscale": SyncConfig("multiscale", levels=levels,
+                                     rotation_period=DEC["rotation"]),
+            "multiscale_topk": SyncConfig(
+                "multiscale", levels=levels, rotation_period=DEC["rotation"],
+                compression=CompressionConfig("topk", DEC["topk"])),
+            "multiscale_overlap": SyncConfig(
+                "multiscale", levels=levels, rotation_period=DEC["rotation"],
+                overlap="one_step"),
+        }
+        rows = {}
+        for name, sync in modes.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state = init_decentralized_state(replicate(base, R), opt,
+                                             sync=sync)
+            step = make_decentralized_step(cfg, opt, lr, sync, R,
+                                           device=self.dev)
+            ms, consensus, wire, losses, notes = [], [], [], [], {}
+            for s in range(DEC["steps"]):
+                b = data.batch_at(s)
+                batch = {k: v.reshape(R, -1, *v.shape[1:])
+                         for k, v in b.items()}
+                if name == "multiscale" and s == DEC["steps"] - 1:
+                    notes.update(self.dec_mix_check(
+                        cfg, state, batch, build_sync_plan(sync, R), wq, s))
+                if name == "multiscale_topk" and s == DEC["steps"] - 1:
+                    notes.update(self.dec_topk_check(cfg, state, batch,
+                                                     sync.compression))
+                before = (self.fingerprint({"params": state["params"],
+                                            "opt": state["opt"]})
+                          if name == "multiscale_overlap" and s == 0 else None)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, m = step(state, batch)
+                end.record()
+                m = {k: float(v) for k, v in m.items()}
+                ms.append(start.elapsed_time(end))
+                consensus.append(m["consensus_distance"])
+                wire.append(m["wire_bytes"])
+                losses.append(m["loss"])
+                check(math.isfinite(m["loss"]), f"T2 {name} loss {m['loss']}")
+                if name == "allreduce":
+                    same = all(torch.equal(p, p[:1].expand_as(p))
+                               for p in state["params"].values())
+                    check(same, f"allreduce step {s}: replicas differ")
+                if before is not None:
+                    after = self.fingerprint({"params": state["params"],
+                                              "opt": state["opt"]})
+                    check(after == before, "overlap step 0 changed the "
+                          "parameters or the optimizer state")
+                    check(m["sync_overlap_fraction"] == 0.0,
+                          "overlap step 0 reports an overlapped sync")
+                    notes["warmup_bitwise_unchanged"] = True
+            if "residuals" in state:
+                res = float(sum(r.float().norm() ** 2 for r in
+                                state["residuals"].values()) ** 0.5)
+                check(math.isfinite(res) and res > 0,
+                      f"T2 {name} residual norm {res}")
+                notes["residual_norm"] = res
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            del state, step
+            torch.cuda.empty_cache()
+            log(f"[train T2 {name} R={R}] step ms "
+                f"{[round(x, 1) for x in ms]}, losses "
+                f"{[round(x, 4) for x in losses]}, consensus distance "
+                f"{consensus}, plan_wire_bytes {wire[-1]:.4g}, peak "
+                f"{peak:.2f} GiB, {notes}")
+            rows[name] = dict(step_ms=ms, losses=losses,
+                              consensus_distance=consensus,
+                              wire_bytes=wire[-1], peak_gib=peak, **notes)
+        self.report["train_decentralized"] = rows
+
+    def dec_grads(self, cfg, state, batch):
+        """The clipped per-replica gradients a decentralized step at this
+        state and batch mixes."""
+        torch = self.torch
+        from repro_torch.train import clip_replicas_, replica_grads
+
+        _, grads = replica_grads(cfg, state["params"], {
+            k: torch.as_tensor(v, device=self.dev) for k, v in batch.items()})
+        with torch.no_grad():
+            clip_replicas_(grads, 1.0)
+        return grads
+
+    def dec_mix_check(self, cfg, state, batch, plan, leaf, s):
+        """The step's mix of one leaf on the card against the port's own
+        execute_sync of the same gradient on the CPU."""
+        torch = self.torch
+        from repro_torch.dist import execute_sync
+
+        grads = self.dec_grads(cfg, state, batch)
+        with torch.no_grad():
+            g = grads[leaf].clone()
+            del grads
+            card = execute_sync(plan, {leaf: g}, None, s)[0][leaf]
+            host = execute_sync(plan, {leaf: g.cpu()}, None, s)[0][leaf]
+        diff = (card.cpu().float() - host.float()).abs()
+        bound = DEC_BF16_RTOL * host.float().abs()
+        bitwise = torch.equal(card.cpu(), host)
+        check(bool((diff <= bound).all()),
+              f"multiscale mix of {leaf} on the card vs the CPU: largest "
+              f"difference {float(diff.max())}")
+        return {"mix_vs_cpu_max_diff": float(diff.max()),
+                "mix_vs_cpu_bitwise": bitwise}
+
+    def dec_topk_check(self, cfg, state, batch, comp):
+        """Error feedback on the card: every replica's top-k payload plus
+        its new residual gives its gradient plus its old residual, in
+        every leaf."""
+        torch = self.torch
+        from repro_torch.dist import compress
+
+        worst, exact = 0.0, True
+        grads = self.dec_grads(cfg, state, batch)
+        with torch.no_grad():
+            for k, g in grads.items():
+                old = state["residuals"][k]
+                for r in range(g.shape[0]):
+                    gr, orr = g[r:r + 1], old[r:r + 1]
+                    p, nr = compress({k: gr}, {k: orr}, comp)
+                    got = p[k] + nr[k]
+                    exact &= torch.equal(got, gr + orr)
+                    want = gr.float() + orr.float()
+                    worst = max(worst, float(((got.float() - want).abs()
+                                              / want.abs().clamp_min(1e-30))
+                                             .max()))
+                    del p, nr, got, want
+            del grads
+        check(worst <= DEC_BF16_RTOL, f"top-k payload + residual vs "
+              f"gradient + residual: relative {worst}")
+        return {"ef_conservation_rel": worst,
+                "ef_conservation_bitwise_bf16": exact}
+
+    def train_scenarios(self, cfg, base, data, opt, lr):
+        """T3: run_train_scenarios at T2's shape over the default matrix,
+        3 steps a scenario; the fault masks drawn on the card equal the
+        plain permutation's on the CPU."""
+        torch = self.torch
+        from repro_torch.dist import SyncConfig, replica_fault_masks
+        from repro_torch.train import (
+            run_train_scenarios, train_scenario_matrix,
+        )
+
+        R = DEC["R"]
+        rows = {}
+        for sc in train_scenario_matrix():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (res,) = run_train_scenarios(
+                cfg, opt, lr, SyncConfig("multiscale"), R, base, data,
+                scenarios=[sc], num_steps=DEC["steps"], device=self.dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            check(all(math.isfinite(x) for x in res.losses),
+                  f"T3 {sc.name} losses {res.losses}")
+            if sc.failures is not None:
+                for s in range(DEC["steps"]):
+                    a = replica_fault_masks(sc.failures, R, s, self.dev)
+                    b = replica_fault_masks(sc.failures, R, s, "cpu")
+                    check(all(torch.equal(x.cpu(), y) for x, y in zip(a, b)),
+                          f"T3 {sc.name} step {s}: fault masks differ")
+            log(f"[train T3 {sc.name} ({sc.aggregation}) R={R}] losses "
+                f"{[round(float(x), 4) for x in res.losses]}, final "
+                f"{res.final_loss:.4f}, survivor consensus distance "
+                f"{res.survivor_error_final:.4g}, live fraction "
+                f"{res.effective_replica_fraction_mean}, rejected "
+                f"{res.rejected_gradients_total}; {wall / DEC['steps'] * 1e3:.0f}"
+                f" ms a step (wall, state set-up included), peak "
+                f"{peak:.2f} GiB")
+            rows[sc.name] = dict(
+                aggregation=sc.aggregation,
+                losses=[float(x) for x in res.losses],
+                final_loss=res.final_loss,
+                survivor_consensus_error=res.survivor_error_final,
+                effective_replica_fraction=(
+                    res.effective_replica_fraction_mean),
+                rejected_gradients=res.rejected_gradients_total,
+                ms_per_step_wall=wall / DEC["steps"] * 1e3, peak_gib=peak)
+        self.report["train_scenarios"] = rows
+
 
 def main() -> int:
     try:
@@ -1703,7 +2156,6 @@ def main() -> int:
     # the rwkv6-3b serving path; the gossip phases' plans are freed first
     del g2, plan2, x02, lp0, sched
     torch.cuda.empty_cache()
-    import dataclasses
     from repro_torch.configs import get_config
 
     smoke.rwkv6()
@@ -1747,6 +2199,27 @@ def main() -> int:
     smoke.agreement(model32, cfg32, checked=True)
     del model32
     torch.cuda.empty_cache()
+
+    # training, after the serving models are freed: T1 (llama3.2-3b at
+    # full size through the Trainer, checkpoint and resume), T1b (card vs
+    # CPU), T2 (R=8 replicas, four sync modes) and T3 (the failure
+    # matrix).  The training route launches none of the kernels: each
+    # kernel's count over the four phases together must stay 0.
+    smoke.zero_counts()
+    smoke.train()
+    smoke.train_cpu()
+    dec = smoke.dec_setup()
+    smoke.decentralized(*dec)
+    smoke.train_scenarios(*dec)
+    del dec
+    torch.cuda.empty_cache()
+    counts = smoke.read_counts()
+    smoke.check_idle(counts, None, "training (T1-T3)")
+    check(not any(smoke.flash_kernels().values()),
+          f"training launched {smoke.flash_kernels()}")
+    for name, row in smoke.kernels.items():
+        row["train_launches"] = counts[name]
+    log(f"[train] kernel launches over T1-T3: {counts}")
 
     total = time.perf_counter() - t_start
     smoke.report["total_s"] = total

@@ -11,7 +11,9 @@ are here:
 * `fold_in(key, data)` — ``threefry2x32(key, (0, data))``;
 * `split(key, num)` — `num` subkeys;
 * `random_bits(key, shape)` — 32-bit words;
-* `uniform(key, shape)` — f32 in ``[0, 1)`` from the top 23 bits.
+* `uniform(key, shape)` — f32 in ``[0, 1)`` from the top 23 bits;
+* `permutation(key, n)` — a shuffle of ``0 .. n-1`` (the decentralized
+  sync's replica fault sets).
 
 jax lays out the counters of `split` and `random_bits` in one of two
 ways, chosen by its ``jax_threefry_partitionable`` flag.  The port has
@@ -43,6 +45,7 @@ __all__ = [
     "split",
     "random_bits",
     "uniform",
+    "permutation",
 ]
 
 _MASK = 0xFFFFFFFF
@@ -125,3 +128,19 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp_min(floats, 0.0)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """A shuffle of ``0 .. n-1`` (int64) under one ``(2,)`` key, as
+    ``jax.random.permutation(key, n)`` draws it: ``ceil(3 ln n /
+    ln(2**32 - 1))`` rounds (one for 2 <= n <= 1625, none for n = 1), each
+    splitting the key, drawing n 32-bit sort keys from the subkey and
+    sorting the values by them, stably (ties keep their order)."""
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_MASK))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x

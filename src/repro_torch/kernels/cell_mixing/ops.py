@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .._build import load
+from .._guard import refuse_autograd
 from .ref import cell_mixing_ref
 
 __all__ = ["mixing_matrix", "pad_mixing", "cell_mixing", "launch_config"]
@@ -103,7 +104,10 @@ def cell_mixing(w, x, *, rounds: int = 1):
     if not x.is_cuda:
         if x.device.type == "cpu":
             return cell_mixing_ref(w, x, rounds=rounds)
+        refuse_autograd("cell_mixing", w, x)
         raise ValueError(f"cell_mixing runs on cpu or cuda, not {x.device}")
+    if w.requires_grad or x.requires_grad:  # kept off the short path
+        refuse_autograd("cell_mixing", w, x)
     if x.dim() != 3 or x.dtype != torch.float32 or w.dtype != torch.float32:
         raise ValueError("w and x must be float32 (B, m, m) and (B, m, d)")
     B, m, d = x.shape

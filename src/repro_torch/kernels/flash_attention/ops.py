@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from .._build import load
+from .._guard import refuse_autograd
 from .ref import attention_ref
 
 __all__ = ["flash_attention"]
@@ -93,6 +94,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``h // (Hq / Hkv)``.  f32 sums (bf16 products for bf16 inputs);
     returns (B, Hq, Sq, D) in q's dtype.
     """
+    if q.device.type != "cpu":
+        refuse_autograd("flash_attention", q, k, v)
     name = kernel_for(q.device.type, q.dtype)
     if name is None:
         if k.device.type != "cpu" or v.device.type != "cpu":

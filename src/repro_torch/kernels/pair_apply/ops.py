@@ -13,6 +13,7 @@ import ctypes
 import torch
 
 from .._build import load
+from .._guard import refuse_autograd
 from .ref import pair_apply_ref
 
 __all__ = ["pair_apply", "launch_config"]
@@ -73,6 +74,7 @@ def pair_apply(x, i, j, upd_i, upd_j, *, smem_cap: int = _SMEM_CAP):
     """
     if x.device.type == "cpu":
         return pair_apply_ref(x, i, j, upd_i, upd_j)
+    refuse_autograd("pair_apply", x)
     if x.device.type != "cuda":
         raise ValueError(f"pair_apply runs on cpu or cuda, not {x.device}")
     _check(x, i, j, upd_i, upd_j)

@@ -11,6 +11,7 @@ import ctypes
 import torch
 
 from .._build import load
+from .._guard import refuse_autograd
 from .ref import rwkv6_ref
 
 __all__ = ["rwkv6_wkv"]
@@ -64,6 +65,7 @@ def rwkv6_wkv(r, k, v, w, u):
         if any(a.device.type != "cpu" for a in (k, v, w, u)):
             raise ValueError("r, k, v, w and u must lie on one device")
         return rwkv6_ref(r, k, v, w, u)
+    refuse_autograd("rwkv6", r, k, v, w, u)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_wkv runs on cpu or cuda, not {r.device}")
     _check_cuda(r, k, v, w, u)

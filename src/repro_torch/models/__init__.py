@@ -1,9 +1,14 @@
-"""The model zoo's decoder stack for the port's serving path (rwkv and
-dense attention blocks), with the reference's configuration class and a
-converter for its parameters and caches."""
+"""The model zoo's decoder stack for the port's serving and training
+paths (rwkv and dense attention blocks), with the reference's
+configuration class and converters for its parameters, caches and
+train states."""
 from .config import ModelConfig
-from .convert import cache_from_reference, params_from_reference
-from .model import Transformer, decode_step, forward, init_cache
+from .convert import (
+    cache_from_reference, params_from_reference, state_from_reference,
+)
+from .model import (
+    Transformer, decode_step, forward, init_cache, loss_fn, param_dict,
+)
 
 __all__ = [
     "ModelConfig",
@@ -12,5 +17,8 @@ __all__ = [
     "decode_step",
     "forward",
     "init_cache",
+    "loss_fn",
+    "param_dict",
     "params_from_reference",
+    "state_from_reference",
 ]

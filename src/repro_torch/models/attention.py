@@ -110,10 +110,15 @@ def attention(
     memory=None,                        # cross-attention source (B,Sm,D)
     memory_positions=None,
     chunk_threshold: int = 2047,
+    train: bool = False,
 ):
     """Self- (or cross-) attention over a full sequence (prefill).
     `positions` is (B, S), or (B, S, 3) for M-RoPE; None means index
-    positions 0..S-1, the only ones the flash route takes."""
+    positions 0..S-1, the only ones the flash route takes.  `train`
+    selects the differentiable route: `full_attention` up to
+    `chunk_threshold` keys, and beyond it a refusal, since the flash
+    kernel is forward only and the reference's `chunked_attention` is
+    not ported yet."""
     H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
     index = positions is None
     if index:
@@ -143,6 +148,12 @@ def attention(
         raise NotImplementedError(
             "the banded sliding-window route of 'local' layers is not "
             "ported yet (ROADMAP Queue A 11)")
+    if Sk > chunk_threshold and train:
+        raise NotImplementedError(
+            f"training attention over {Sk} keys: beyond chunk_threshold "
+            f"({chunk_threshold}) the reference trains through "
+            f"chunked_attention, which is not ported yet (ROADMAP Queue A), "
+            f"and the flash kernel is forward only")
     if Sk > chunk_threshold:
         # the reference's chunked_attention route: the flash kernel,
         # which masks by index, so only self-attention at 0..S-1

@@ -1,12 +1,12 @@
-"""Carry the reference package's parameters and decode caches into the
-port, so both compute on the same weights and state.
+"""Carry the reference package's parameters, decode caches and train
+states into the port, so both compute on the same weights and state.
 
 The reference stacks each scan group's layers on a leading `repeats`
 axis (``tree["groups"][g]["b{i}"]``); the port keeps one block per
-layer.  Both converters split that axis layer by layer, in
-`ModelConfig.scan_groups` order.  They take nested dicts and lists of
-numpy arrays (bfloat16 arrays included) and import nothing of the
-reference.
+layer.  The converters split that axis layer by layer, in
+`ModelConfig.scan_groups` order (behind the replica axis R of a
+decentralized state).  They take nested dicts and lists of numpy arrays
+(bfloat16 arrays included) and import nothing of the reference.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ from ..core.options import resolve_device
 from .config import ModelConfig
 from .model import Transformer, flat_tree
 
-__all__ = ["params_from_reference", "cache_from_reference"]
+__all__ = ["params_from_reference", "cache_from_reference",
+           "state_from_reference"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -27,19 +28,20 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _layer(tree, index: int):
+def _layer(tree, index: int, axis: int = 0):
     if isinstance(tree, dict):
-        return {k: _layer(v, index) for k, v in tree.items()}
-    return np.asarray(tree)[index]
+        return {k: _layer(v, index, axis) for k, v in tree.items()}
+    return np.take(np.asarray(tree), index, axis=axis)
 
 
-def _unstack(groups, cfg: ModelConfig) -> list:
-    """The per-layer trees of the reference's stacked scan groups."""
+def _unstack(groups, cfg: ModelConfig, axis: int = 0) -> list:
+    """The per-layer trees of the reference's stacked scan groups, whose
+    layer axis is `axis`."""
     layers = []
     for g_idx, (unit, repeats) in enumerate(cfg.scan_groups()):
         for r in range(repeats):
             for i in range(len(unit)):
-                layers.append(_layer(groups[g_idx][f"b{i}"], r))
+                layers.append(_layer(groups[g_idx][f"b{i}"], r, axis))
     return layers
 
 
@@ -76,3 +78,47 @@ def cache_from_reference(cache: dict, cfg: ModelConfig, device="cuda") -> dict:
     layers = [{k: _tensor(v).to(dev) for k, v in layer.items()}
               for layer in _unstack(cache["groups"], cfg)]
     return {"layers": layers, "step": int(np.asarray(cache["step"]))}
+
+
+def _params_like(tree: dict, cfg: ModelConfig, names, axis: int,
+                 dev) -> dict:
+    """A reference tree shaped like the parameters (the parameters, an
+    optimizer moment, residuals) as the port's flat dict of tensors."""
+    tree = {k: v for k, v in tree.items() if k != "groups"} | {
+        "blocks": _unstack(tree["groups"], cfg, axis)}
+    values = dict(flat_tree(tree))
+    if set(values) != set(names):
+        raise ValueError(
+            f"parameter trees differ: missing "
+            f"{sorted(set(names) - set(values))}, unknown "
+            f"{sorted(set(values) - set(names))}")
+    return {name: _tensor(values[name]).to(dev) for name in names}
+
+
+def state_from_reference(tree: dict, cfg: ModelConfig,
+                         device="cuda") -> dict:
+    """The port's train state (`train.init_train_state` or
+    `init_decentralized_state` layout) holding a reference train state
+    `tree` (as numpy), on `device` (the card unless "cpu" is asked for):
+    params, the optimizer's moments and count, step, and the residuals
+    and prev_grads a decentralized state may carry.  A decentralized
+    state's leaves carry the replica axis R first and the scan groups'
+    layer axis second.
+
+    The moments must be elementwise (adamw, sgdm).  The reference's
+    adafactor factors its second moment over the trailing two axes of
+    each stacked group leaf, layer axis included, which no per-layer
+    state reproduces: its leaves name no parameter, and it raises."""
+    dev = resolve_device(device)
+    names = [n for n, _ in Transformer(cfg).named_parameters()]
+    stacked = np.ndim(tree["params"]["embed"]) == 3
+    axis = 1 if stacked else 0
+    conv = lambda t: _params_like(t, cfg, names, axis, dev)
+    state = {"params": conv(tree["params"]), "opt": {},
+             "step": int(np.asarray(tree["step"]))}
+    for k, v in tree["opt"].items():
+        state["opt"][k] = _tensor(v).to(dev) if k == "count" else conv(v)
+    for k in ("residuals", "prev_grads"):
+        if k in tree:
+            state[k] = conv(tree[k])
+    return state

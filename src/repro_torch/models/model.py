@@ -9,16 +9,29 @@ constraints have no role when serving.  The other block kinds
 (sliding-window "local" attention, RG-LRU), MoE and the encoder are not
 ported yet and raise.
 
+Training (`loss_fn`) runs the same blocks with gradients on, each
+block recomputed in backward when `cfg.remat`, through differentiable
+routes only: `full_attention` (and a refusal beyond `chunk_threshold`,
+where the reference's `chunked_attention` is not ported yet) and the
+chunked plain wkv recurrence.  The forward-only kernels raise under
+autograd.
+
+`params` is a `Transformer`, or the same parameters as a flat dict of
+tensors under their `named_parameters` names (`param_dict`), as the
+train state holds them, or that dict nested.
+
 Entry points:
   Transformer(cfg)                    — parameters on the meta device,
                                         `num_params`, `.init(seed, device)`
   forward(params, cfg, batch)         — logits (prefill)
+  loss_fn(params, cfg, batch)         — mean next-token CE (training)
   init_cache / decode_step            — single-token serving
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._tf32 import no_tf32
 from ..core.options import resolve_device
@@ -32,8 +45,8 @@ from .rwkv import (
     rwkv_time_mix, rwkv_time_mix_decode,
 )
 
-__all__ = ["Transformer", "forward", "init_cache", "decode_step",
-           "model_params"]
+__all__ = ["Transformer", "forward", "loss_fn", "init_cache", "decode_step",
+           "model_params", "param_dict"]
 
 _PORTED_KINDS = ("rwkv", "attn")
 
@@ -120,19 +133,51 @@ def flat_tree(tree, prefix=""):
         yield from flat_tree(v, f"{prefix}{k}.")
 
 
+def param_dict(params) -> dict:
+    """The parameters of a `Transformer` as a flat dict of tensors (no
+    autograd), named as `named_parameters` names them."""
+    return {name: p.detach() for name, p in params.named_parameters()}
+
+
+def _nest(flat: dict) -> dict:
+    """A flat dict of dotted names as the nested tree the model reads:
+    dicts, with a list under "blocks"."""
+    tree: dict = {}
+    for name, value in flat.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    if "blocks" in tree:
+        blocks = tree["blocks"]
+        tree["blocks"] = [blocks[str(i)] for i in range(len(blocks))]
+    return tree
+
+
+def _tree(params):
+    """The model's view of `params`: a `Transformer` or nested dict as
+    is, a flat dict nested."""
+    if isinstance(params, dict) and "blocks" not in params:
+        return _nest(params)
+    return params
+
+
 # ------------------------------ forward -------------------------------
 
 
 def _block_forward(p, cfg: ModelConfig, kind: str, x, positions, *,
-                   chunk_threshold: int = 2047):
+                   chunk_threshold: int = 2047, train: bool = False):
     """One block over a full sequence.  `chunk_threshold` is the
-    attention's (keys beyond it take the flash route)."""
+    attention's (keys beyond it take the flash route, or raise when
+    `train`)."""
     if kind == "rwkv":
-        x = x + rwkv_time_mix(p["time"], cfg, _apply_norm(p["ln1"], cfg, x))
+        x = x + rwkv_time_mix(p["time"], cfg, _apply_norm(p["ln1"], cfg, x),
+                              train=train)
         return x + rwkv_channel_mix(p["channel"], cfg,
                                     _apply_norm(p["ln2"], cfg, x))
     h = attention(p["attn"], cfg, _apply_norm(p["ln1"], cfg, x), positions,
-                  kind=kind, chunk_threshold=chunk_threshold)
+                  kind=kind, chunk_threshold=chunk_threshold, train=train)
     return _attn_block_rest(p, cfg, x, h)
 
 
@@ -149,7 +194,7 @@ def _attn_block_rest(p, cfg: ModelConfig, x, h):
 
 
 def _embed(params, cfg: ModelConfig, tokens):
-    e = params.embed[tokens]
+    e = params["embed"][tokens]
     if cfg.scale_embeddings:
         e = e * torch.tensor(cfg.d_model**0.5, dtype=e.dtype)
     return e.to(DTYPES[cfg.dtype])
@@ -158,11 +203,11 @@ def _embed(params, cfg: ModelConfig, tokens):
 def _unembed(params, cfg: ModelConfig, x):
     if cfg.tie_embeddings:
         # bf16 products are exact in f32: this is an f32-accumulated dot
-        logits = x.float() @ params.embed.float().T
+        logits = x.float() @ params["embed"].float().T
         # the reference's tied-head scaling for its unit-variance embed
         logits = logits * cfg.d_model**-0.5
     else:
-        logits = dense(x, params.unembed).float()
+        logits = dense(x, params["unembed"]).float()
     if cfg.final_logit_softcap is not None:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -170,7 +215,7 @@ def _unembed(params, cfg: ModelConfig, x):
 
 
 def _tokens(params, tokens):
-    return torch.as_tensor(tokens, device=params.embed.device).long()
+    return torch.as_tensor(tokens, device=params["embed"].device).long()
 
 
 def _positions(cfg: ModelConfig, batch: dict, tokens):
@@ -181,21 +226,72 @@ def _positions(cfg: ModelConfig, batch: dict, tokens):
     return None
 
 
-def _hidden(params, cfg: ModelConfig, batch: dict):
-    """Backbone through the final norm (pre-unembed)."""
+def _hidden(params, cfg: ModelConfig, batch: dict, *, train: bool = False):
+    """Backbone through the final norm (pre-unembed).  With `train`,
+    the blocks take the differentiable routes, each recomputed in
+    backward when `cfg.remat`."""
     tokens = _tokens(params, batch["tokens"])
     positions = _positions(cfg, batch, tokens)
     x = _embed(params, cfg, tokens)
-    for p, kind in zip(params.blocks, cfg.layer_kinds()):
-        x = _block_forward(p, cfg, kind, x, positions)
-    return _apply_norm(params.final_norm, cfg, x)
+    for p, kind in zip(params["blocks"], cfg.layer_kinds()):
+        if train and cfg.remat:
+            x = checkpoint(_train_block, p, cfg, kind, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _block_forward(p, cfg, kind, x, positions, train=train)
+    return _apply_norm(params["final_norm"], cfg, x)
+
+
+def _train_block(p, cfg, kind, x, positions):
+    return _block_forward(p, cfg, kind, x, positions, train=True)
 
 
 def forward(params, cfg: ModelConfig, batch: dict):
     """batch: tokens (B,S) [+ positions (B,S,3) for M-RoPE].  Returns
     fp32 logits (B,S,V)."""
+    params = _tree(params)
     with no_tf32(), torch.no_grad():
         return _unembed(params, cfg, _hidden(params, cfg, batch))
+
+
+def _chunk_nll(params, cfg, xc, lc):
+    """(summed NLL, count) of one chunk of positions; labels < 0 are
+    masked."""
+    logits = _unembed(params, cfg, xc)                      # (B, c, V) f32
+    mask = (lc >= 0).float()
+    gold = logits.gather(-1, lc.clamp_min(0)[..., None])[..., 0]
+    nll = (torch.logsumexp(logits, dim=-1) - gold) * mask
+    return nll.sum(), mask.sum()
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_chunk: int = 512):
+    """Mean next-token cross-entropy; labels < 0 are masked.  Gradients
+    flow to whichever parameter tensors require them.
+
+    The f32 logits never materialize for the whole sequence: unembed and
+    CE run over chunks of `loss_chunk` positions, each recomputed in
+    backward, as the reference's scan under `jax.checkpoint` does (at
+    vocab 128256 one chunk of 512 is 0.26 GB of logits a row).  f32
+    products run in full f32 (no TF32).
+    """
+    params = _tree(params)
+    with no_tf32():
+        x = _hidden(params, cfg, batch, train=True)
+        labels = torch.as_tensor(batch["labels"], device=x.device).long()
+        B, S, D = x.shape
+        c = min(loss_chunk, S)
+        pad = (-S) % c
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+            labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+        nll = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for t in range(0, S + pad, c):
+            s, m = checkpoint(_chunk_nll, params, cfg, x[:, t:t + c],
+                              labels[:, t:t + c], use_reentrant=False)
+            nll = nll + s
+            cnt = cnt + m
+        return nll / cnt.clamp_min(1.0)
 
 
 # ------------------------------ serving -------------------------------
@@ -204,7 +300,7 @@ def forward(params, cfg: ModelConfig, batch: dict):
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """Per-layer decode state on the parameters' device.  `max_len` is
     the attention cache length; recurrent layers keep O(1) state."""
-    device = params.embed.device
+    device = params["embed"].device
     return {
         "layers": [layer_state(cfg, kind, batch, max_len, device)
                    for kind in cfg.layer_kinds()],
@@ -238,14 +334,15 @@ def decode_step(params, cfg: ModelConfig, cache: dict, tokens):
     """One serving step: tokens (B,) -> logits (B, V), updated cache.
     Attention layers write their KV cache in place."""
     step = cache["step"]
+    params = _tree(params)
     with no_tf32(), torch.no_grad():
         x = _embed(params, cfg, _tokens(params, tokens)[:, None])
         layers = []
-        for p, kind, state in zip(params.blocks, cfg.layer_kinds(),
+        for p, kind, state in zip(params["blocks"], cfg.layer_kinds(),
                                   cache["layers"]):
             x, new = _block_decode(p, cfg, kind, x, state, step)
             layers.append(new)
-        x = _apply_norm(params.final_norm, cfg, x)
+        x = _apply_norm(params["final_norm"], cfg, x)
         logits = _unembed(params, cfg, x)[:, 0]
     return logits, {"layers": layers, "step": step + 1}
 
@@ -267,6 +364,11 @@ class Transformer(nn.Module):
         dtype = DTYPES[cfg.dtype]
         for name, sub in self.descr.items():
             setattr(self, name, _meta(sub, dtype))
+
+    def __getitem__(self, name: str):
+        """The top-level parameters and modules by name, as the model's
+        functions read a nested dict of parameters."""
+        return getattr(self, name)
 
     @property
     def num_params(self) -> int:

@@ -8,7 +8,10 @@ with w_t = exp(-exp(w0 + tanh(x_w A) B)) — the defining Finch feature
 token-shift lerps; the decay path carries the low-rank data-dependent
 delta.  The prefill's wkv recurrence runs through `kernels.rwkv6`
 (the CUDA kernel on the card); decode runs the O(1) state update in
-plain tensor ops.
+plain tensor ops.  Training (`train=True`) takes the reference's
+`use_pallas=False` route: the plain recurrence `rwkv6_ref`, split into
+time chunks of 256 each recomputed in backward, since the kernel is
+forward only.
 
 The functions take `p` as any mapping of name to tensor: a dict, or the
 `ParameterDict` of a `models.model.Transformer` block.
@@ -17,8 +20,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..kernels.rwkv6 import rwkv6_wkv
+from ..kernels.rwkv6 import rwkv6_ref, rwkv6_wkv
 from .config import ModelConfig
 from .layers import DTYPES, P_, dense
 
@@ -28,6 +32,7 @@ __all__ = [
 ]
 
 _DECAY_LORA = 64
+_TRAIN_BLOCK_T = 256  # the reference op's time chunk (block_t)
 
 
 def rwkv_params(cfg: ModelConfig) -> dict:
@@ -84,7 +89,30 @@ def _group_norm(y, scale, H, N, eps=1e-5):
     return (yn.reshape(*y.shape[:2], H * N) * scale).to(y.dtype)
 
 
-def rwkv_time_mix(p, cfg: ModelConfig, x):
+def wkv_train(r, k, v, w, u, block_t: int = _TRAIN_BLOCK_T):
+    """The differentiable wkv of training: `rwkv6_ref` over time chunks
+    of `block_t`, each recomputed in backward, the state carried between
+    them (so only a chunk's per-step states are ever saved).  As the
+    reference's `use_pallas=False` op, one unchunked pass when T <=
+    block_t or T is no multiple of it."""
+    BH, T, N = r.shape
+    bt = min(block_t, T)
+    if T <= bt or T % bt:
+        return rwkv6_ref(r, k, v, w, u)
+
+    def chunk(rc, kc, vc, wc, s):
+        return rwkv6_ref(rc, kc, vc, wc, u, s0=s, return_state=True)
+
+    s = torch.zeros((BH, N, N), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(0, T, bt):
+        y, s = checkpoint(chunk, *(a[:, t:t + bt] for a in (r, k, v, w)), s,
+                          use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1)
+
+
+def rwkv_time_mix(p, cfg: ModelConfig, x, *, train: bool = False):
     B, S, D = x.shape
     H, N = cfg.rwkv_heads, cfg.rwkv_head_dim
     sx = _shift(x) - x
@@ -105,8 +133,9 @@ def rwkv_time_mix(p, cfg: ModelConfig, x):
     u = p["u"][None].expand(B, H, N).reshape(B * H, N)
     # the decay stays f32: bf16-rounding w compounds through the state;
     # u is rounded to the working type, as the reference passes it
-    y = rwkv6_wkv(to_bh(r), to_bh(k), to_bh(v), to_bh(w),
-                  u.to(r.dtype).contiguous())               # (B*H, S, N)
+    wkv = wkv_train if train else rwkv6_wkv
+    y = wkv(to_bh(r), to_bh(k), to_bh(v), to_bh(w),
+            u.to(r.dtype).contiguous())                     # (B*H, S, N)
     y = y.reshape(B, H, S, N).transpose(1, 2)               # (B,S,H,N)
     y = _group_norm(y, p["ln_scale"], H, N)
     return dense(y * g, p["wo"])

@@ -476,3 +476,121 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="window"):
         flash_attention(kv, kv, kv, window=0)
     assert flash_attention.launches == before
+
+
+# ------------------------------ training ------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["rwkv6", "flash_attention", "cell_mixing",
+                                "pair_apply"])
+def test_kernel_ops_refuse_autograd_on_card(cuda_device, op):
+    """Each forward-only kernel raises before its launch when a floating
+    input asks for a gradient."""
+    def grad(*shape):
+        return torch.zeros(shape, device=cuda_device, requires_grad=True)
+    i = torch.zeros((4, 2), dtype=torch.int32, device=cuda_device)
+    u = torch.zeros((4, 2), dtype=torch.bool, device=cuda_device)
+    calls = {
+        "rwkv6": (rwkv6_wkv, lambda: rwkv6_wkv(
+            *[grad(2, 8, 16) for _ in range(4)], grad(2, 16))),
+        "flash_attention": (flash_attention, lambda: flash_attention(
+            *[grad(1, 2, 8, 64) for _ in range(3)])),
+        "cell_mixing": (cell_mixing, lambda: cell_mixing(grad(2, 3, 3),
+                                                         grad(2, 3, 1))),
+        "pair_apply": (pair_apply, lambda: pair_apply(grad(2, 3, 1), i, i,
+                                                      u, u)),
+    }
+    fn, call = calls[op]
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="forward only"):
+        call()
+    assert fn.launches == before
+
+
+def _small_llama(dtype="float32"):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_config
+
+    return dataclasses.replace(reduce_config(get_config("llama3.2-3b")),
+                               dtype=dtype, vocab_size=256)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """Three sgdm steps of a small llama in f32 on the card and on the
+    CPU from the same weights: losses at 1e-5, parameters at 1e-5; no
+    kernel launches."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Transformer, param_dict
+    from repro_torch.optim import sgdm
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = _small_llama()
+    card = param_dict(Transformer(cfg).init(seed=0, device=cuda_device))
+    host = {k: v.to("cpu", copy=True) for k, v in card.items()}
+    data = SyntheticLM(cfg.vocab_size, 32, 2, seed=1)
+    before = (rwkv6_wkv.launches, flash_attention.launches)
+    runs = {}
+    for where, params in (("cuda", card), ("cpu", host)):
+        state = init_train_state(params, sgdm())
+        step = make_train_step(cfg, sgdm(), lambda s: 1e-2, device=where)
+        losses = []
+        for s in range(3):
+            state, m = step(state, data.batch_at(s))
+            losses.append(float(m["loss"]))
+        runs[where] = (state, losses)
+    np.testing.assert_allclose(runs["cuda"][1], runs["cpu"][1], rtol=1e-5)
+    for k in host:
+        np.testing.assert_allclose(runs["cuda"][0]["params"][k].cpu().numpy(),
+                                   runs["cpu"][0]["params"][k].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    assert (rwkv6_wkv.launches, flash_attention.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(strategy="allreduce"), dict(strategy="hierarchical"),
+    dict(strategy="multiscale", rotation_period=3),
+    dict(strategy="ring", rounds=(5,), compression="int8"),
+    dict(strategy="multiscale", compression="topk",
+         failures=dict(churn_fraction=0.25, seed=1),
+         aggregation="survivor_weighted"),
+    dict(strategy="multiscale", aggregation="trimmed_mean",
+         failures=dict(byzantine_fraction=0.125, seed=2)),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_execute_sync_on_card_matches_cpu(cuda_device, kw, dtype):
+    """The sync on the card against the same code on the CPU: the fault
+    masks bitwise; the mix within a rounding of the leaf's dtype (each
+    replica mean sums in one fixed order on both)."""
+    from repro_torch.dist import (
+        SyncConfig, SyncFailureModel, build_sync_plan, execute_sync,
+        replica_fault_masks,
+    )
+
+    kw = dict(kw)
+    fm = kw.pop("failures", None)
+    sync = SyncConfig(failures=fm and SyncFailureModel(**fm), **kw)
+    plan = build_sync_plan(sync, 8)
+    rng = np.random.default_rng(3)
+    g = {"a": torch.tensor(rng.normal(size=(8, 300, 7)), dtype=dtype),
+         "b": torch.tensor(rng.normal(size=(8, 33)), dtype=dtype)}
+    res = {k: 0.1 * v for k, v in g.items()}
+    for step in (0, 5):
+        if plan.faulty:
+            for x, y in zip(replica_fault_masks(plan.failures, 8, step,
+                                                cuda_device),
+                            replica_fault_masks(plan.failures, 8, step)):
+                assert torch.equal(x.cpu(), y)
+        cm, cr = execute_sync(plan, {k: v.to(cuda_device) for k, v in
+                                     g.items()},
+                              {k: v.to(cuda_device) for k, v in res.items()},
+                              step)
+        hm, hr = execute_sync(plan, g, res, step)
+        rtol = 2.0**-8 if dtype == torch.bfloat16 else 1e-6
+        for k in g:
+            np.testing.assert_allclose(cm[k].cpu().float().numpy(),
+                                       hm[k].float().numpy(), rtol=rtol,
+                                       atol=rtol)

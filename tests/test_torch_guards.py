@@ -223,3 +223,92 @@ def test_sample_chunk_scenario_rejects_other_devices():
                      retx=torch.zeros((1, 1), dtype=torch.int32,
                                       device="meta"))
     assert sample_chunk.launches == before
+
+
+def test_training_modules_import_neither_jax_nor_reference():
+    code = ("import sys; import repro_torch.optim, repro_torch.data, "
+            "repro_torch.train, repro_torch.dist, repro_torch.dist.topology, "
+            "repro_torch.models.convert; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for pkg in ("optim", "data", "train", "dist"):
+        assert list((SRC / "repro_torch" / pkg).glob("*.py")), pkg
+
+
+def _meta_grad(*shape):
+    return torch.zeros(shape, device="meta", requires_grad=True)
+
+
+@pytest.mark.parametrize("op", ["rwkv6", "flash_attention", "cell_mixing",
+                                "pair_apply"])
+def test_kernel_ops_refuse_autograd_before_launch(op):
+    """Off the CPU an op raises under autograd, before any launch, when
+    a floating input asks for a gradient (its kernel's result would
+    carry none); under no_grad the device check runs as before."""
+    from repro_torch.kernels.cell_mixing import cell_mixing
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.pair_apply import pair_apply
+    from repro_torch.kernels.rwkv6 import rwkv6_wkv
+
+    i = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    u = torch.zeros((4, 2), dtype=torch.bool, device="meta")
+    calls = {
+        "rwkv6": (rwkv6_wkv, lambda: rwkv6_wkv(
+            *[_meta_grad(2, 8, 16) for _ in range(4)], _meta_grad(2, 16))),
+        "flash_attention": (flash_attention, lambda: flash_attention(
+            *[_meta_grad(1, 2, 8, 64) for _ in range(3)])),
+        "cell_mixing": (cell_mixing, lambda: cell_mixing(
+            _meta_grad(2, 3, 3), _meta_grad(2, 3, 1))),
+        "pair_apply": (pair_apply, lambda: pair_apply(
+            _meta_grad(2, 3, 1), i, i, u, u)),
+    }
+    fn, call = calls[op]
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="forward only"):
+        call()
+    with torch.no_grad(), pytest.raises(ValueError):
+        call()
+    assert fn.launches == before
+
+
+def test_kernel_ops_keep_autograd_on_cpu():
+    """On the CPU the ops run their differentiable plain versions."""
+    from repro_torch.kernels.rwkv6 import rwkv6_wkv
+
+    r = torch.randn(2, 5, 16, requires_grad=True)
+    y = rwkv6_wkv(r, r.detach(), r.detach(), torch.full((2, 5, 16), 0.9),
+                  torch.zeros(2, 16))
+    (g,) = torch.autograd.grad(y.sum(), [r])
+    assert g.shape == r.shape and torch.isfinite(g).all()
+
+
+def test_training_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import SyncConfig
+    from repro_torch.models import Transformer, state_from_reference
+    from repro_torch.optim import sgdm
+    from repro_torch.train import (
+        Trainer, make_decentralized_step, make_train_step,
+        run_train_scenarios,
+    )
+
+    cfg = reduce_config(get_config("llama3.2-3b"))
+    lr = lambda s: 1e-2  # noqa: E731
+    data = SyntheticLM(cfg.vocab_size, 8, 2)
+    calls = [
+        lambda: make_train_step(cfg, sgdm(), lr),
+        lambda: make_decentralized_step(cfg, sgdm(), lr, SyncConfig(), 2),
+        lambda: Trainer(lambda s, b: (s, {}), {"step": 0}, data),
+        lambda: run_train_scenarios(cfg, sgdm(), lr, SyncConfig(), 2, {},
+                                    data),
+        lambda: state_from_reference({"params": {}}, cfg),
+        lambda: Transformer(cfg).init(seed=0),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
