@@ -29,8 +29,16 @@ width and depth: `forward` on 4 prompts of 4096 tokens (one launch of
 the bf16 flash kernel per layer, finite logits, a traced run),
 `Generator` on 8 requests (no flash launch), and each block's attention
 on the kernel route against `decode_attention` fed token by token, in
-bf16 (reported) and in a float32 copy (checked).  Any failed check
-raises, and the script exits non-zero.
+bf16 (reported) and in a float32 copy (checked).  The serving fleet:
+the legacy per-tick schedule at n=10^5 (one cell_mixing launch a chunk
+on backend "cuda"), `ControlPlane` rounds at R=16 and 1024 (sample_chunk
+and pair_apply once a chunk, bitwise to the plain backend, R=1024 held
+to the reference's counts), `run_fleet` at R=16 against the recorded
+`BENCH_serve.json` entry for each router and at R=256, and for
+llama3.2-3b and rwkv6-3b at full size the paged decode step (bitwise to
+the dense one for llama3.2-3b) and the continuous-batching engine on a
+stream that retires and refills slots (replays bitwise, no kernel
+launch).  Any failed check raises, and the script exits non-zero.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` (per kernel: its launches on each path that runs
@@ -157,6 +165,47 @@ TRAIN_CPU_TOL = {"loss": 1e-5, "grad_norm": 1e-4}
 # multiscale on suggest_levels(8) = (2, 4), rotation period 4, top-k 1%
 DEC = dict(R=8, layers=1, seq=256, steps=3, topk=0.01, rotation=4)
 DEC_BF16_RTOL = 2.0**-8  # a bf16 rounding, relative
+# the serving fleet.  P1: the legacy per-tick schedule on the n=10^5 FI
+# plan, backend "ref" (the plain tick scan) and "cuda" (each chunk's
+# mixing matrix built tick by tick from the identity's rows, one
+# cell_mixing launch a chunk); "cuda" values held to the matmul phase's
+# tolerance.  P2: ControlPlane(R, full_view=True, seed=0, eps=1e-4) at R
+# = 16 and 1024 (src/repro/serve/control_plane.py), its second round
+# (round_idx 1) against the reference's counts for that round.  P3:
+# run_fleet at FleetConfig(replicas=16, ticks=120, seed=0) and each
+# router against BENCH_serve.json's recorded entry (throughput,
+# completed, control messages, control bytes, admission latency mean),
+# then R=256 reported.  P4 / P5: llama3.2-3b and rwkv6-3b at full width
+# and depth through the paged engine.
+PER_TICK_TOL = dict(rtol=1e-4, atol=2e-4)
+CONTROL_R = (16, 1024)
+CONTROL_1024 = dict(messages=249826,
+                    level_messages=[195840, 36096, 10310, 4182, 2374],
+                    level_ticks=[320, 128, 128, 128, 384])
+FLEET = dict(replicas=16, ticks=120, seed=0)
+FLEET_RECORDED = {
+    "p2c_gossip": (63.88333333333333, 255, 64440, 5155200,
+                   3.2901960784313724),
+    "oracle": (67.16666666666667, 267, 0, 0, 1.599250936329588),
+    "random": (57.34166666666667, 222, 0, 0, 5.572072072072072),
+}
+FLEET_P2C_OVER_ORACLE = 0.9
+FLEET_LARGE_R = 256
+# P4(a): paged_decode_step with an identity page map against the dense
+# decode_step, 8 slots of 6 pages of 16 (96 = 64 + 32 positions), every
+# step's logits bitwise.  P4(b) / P5: BatchingEngine over ModelBackend,
+# 8 slots, pages of 16, 6 pages a slot, a pool of 48; prompts of 8-64
+# tokens and budgets of 8-32 new tokens from default_rng(0), greedy,
+# eos_id -1, so slots retire and refill mid-stream; REPLAYS of the
+# refilled requests (the shortest first) again alone in a fresh engine.
+# Each engine step is one paged_decode_step of the whole model (~55 ms,
+# bound by the host's launches) and a prefill runs one a prompt
+# position, so rwkv6-3b takes fewer requests: 12, the fewest that give 4
+# refills with 8 slots.
+PAGED = dict(slots=8, page_size=16, pages_per_slot=6, pool=48,
+             prompt=(8, 65), budget=(8, 33))
+PAGED_REQUESTS = {"llama3.2-3b": 32, "rwkv6-3b": 12}
+REPLAYS = 4
 # published H100 peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores; the
 # PCIe part is slower.  The int32 rate is the card's SMs x 64 int32
@@ -779,10 +828,10 @@ class Smoke:
         x0 = np.random.default_rng(n).normal(0, 1, n)
         return g, plan, x0, t1 - t0, t2 - t1
 
-    def run(self, g, plan, x0, backend):
+    def run(self, g, plan, x0, backend, schedule="presampled"):
         import repro_torch.core as P
 
-        opts = P.ExecOptions(backend=backend)
+        opts = P.ExecOptions(backend=backend, schedule=schedule)
         self.torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = P.multiscale_gossip(g, x0, plan=plan, options=opts, **FI)
@@ -1661,6 +1710,364 @@ class Smoke:
             "bfloat16_mean": mean_err, "bfloat16_rounding_mean": mean_round}
 
     # ---------------------------------------------------------- training
+    # ---------------------------------------------------- serving fleet
+    def per_tick(self, g, plan, x0):
+        """P1: the legacy per-tick schedule on the n=10^5 FI plan.
+        Backend "ref" (the plain tick scan, no kernel) is bitwise the
+        presampled "cuda" run of the main path; backend "cuda" makes one
+        cell_mixing launch a chunk and no other, its integer accounting
+        bitwise and its values within PER_TICK_TOL.  Returns the
+        cell_mixing launches of the "cuda" run."""
+        import numpy as np
+
+        n = plan.graph.n
+        want_msgs = LARGE_N[n][0]
+        chunks = self.fi_chunks(plan)
+        runs, row = {}, {}
+        for backend in ("ref", "cuda"):
+            self.zero_counts()
+            res, secs = self.run(g, plan, x0, backend, schedule="per_tick")
+            counts = self.read_counts()
+            runs[backend] = res
+            row[f"execute_{backend}_s"] = secs
+            row[f"{backend}_launches"] = counts
+            check(res.messages == want_msgs,
+                  f"per-tick {backend}: messages {res.messages} != recorded "
+                  f"{want_msgs}")
+            check(np.isfinite(res.x_final).all()
+                  and res.x_final.shape == (n,),
+                  f"per-tick {backend}: x_final is not n finite values")
+            if backend == "ref":
+                self.check_idle(counts, None, "per-tick backend ref")
+            else:
+                check(counts["cell_mixing"] == chunks,
+                      f"per-tick cuda: cell_mixing launched "
+                      f"{counts['cell_mixing']} times, the plan gives "
+                      f"{chunks} chunks")
+                self.check_idle(counts, "cell_mixing", "per-tick cuda")
+        ref, cu = runs["ref"], runs["cuda"]
+        check(np.array_equal(ref.x_final.view(np.int32),
+                             self.main_x[n].view(np.int32)),
+              "per-tick ref x_final != the presampled cuda run's")
+        check(np.array_equal(ref.node_sends, cu.node_sends)
+              and ref.messages == cu.messages,
+              "per-tick: accounting differs between backends")
+        gap = float(np.abs(cu.x_final - ref.x_final).max())
+        check(np.allclose(cu.x_final, ref.x_final, **PER_TICK_TOL),
+              f"per-tick cuda x_final not within {PER_TICK_TOL} of ref "
+              f"({gap})")
+        row.update(n=n, messages=ref.messages, chunks=chunks,
+                   max_abs_gap=gap, error=cu.error(x0))
+        log(f"[per-tick n={n}] messages {ref.messages} (both backends), ref "
+            f"bitwise to presampled cuda, max |cuda - ref| {gap:.3e}; "
+            f"cell_mixing launches {chunks}; execute ref "
+            f"{row['execute_ref_s']:.2f} s, cuda {row['execute_cuda_s']:.2f} s")
+        self.report[f"per_tick_{n}"] = row
+        return chunks
+
+    @staticmethod
+    def round_chunks(rr) -> int:
+        """A control round's chunks, from its levels' tick budgets (each
+        level runs whole chunks of 64 ticks, or one shorter chunk)."""
+        return int(sum(t // 64 if t >= 64 else 1 for t in rr.level_ticks))
+
+    def control_plane(self):
+        """P2: ControlPlane rounds at CONTROL_R, full view, on backend
+        "cuda" against "ref" on the card, bitwise; sample_chunk and
+        pair_apply once a chunk; R=1024 held to the reference's counts.
+        Returns {R: launches a round}."""
+        import numpy as np
+        import repro_torch.core as P
+        from repro_torch.serve import LOAD_FIELDS, ControlPlane
+
+        torch = self.torch
+        out, launches = {}, {}
+        for R in CONTROL_R:
+            rng = np.random.default_rng(R)
+            loads = rng.uniform(0.0, 10.0, (R, len(LOAD_FIELDS)))
+            scores = rng.uniform(0.0, 2.0, R)
+            t0 = time.perf_counter()
+            cp = ControlPlane(R, full_view=True, seed=0, eps=1e-4)
+            setup_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cp.round(loads, scores, round_idx=0)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            self.zero_counts()
+            t0 = time.perf_counter()
+            rr = cp.round(loads, scores, round_idx=1)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            counts = self.read_counts()
+            chunks = self.round_chunks(rr)
+            check(counts["sample_chunk"] == counts["pair_apply"] == chunks,
+                  f"control plane R={R}: launches {counts}, want {chunks} "
+                  f"of sample_chunk and pair_apply")
+            self.check_idle(counts, ("sample_chunk", "pair_apply"),
+                            f"control plane R={R}")
+            ref = ControlPlane(R, full_view=True, seed=0, eps=1e-4,
+                               options=P.ExecOptions(backend="ref"))
+            want = ref.round(loads, scores, round_idx=1)
+            for f in ("summary", "table", "level_messages", "level_ticks"):
+                a, b = getattr(rr, f), getattr(want, f)
+                check(a.shape == b.shape and np.array_equal(
+                    a.view(np.int32) if a.dtype == np.float32 else a,
+                    b.view(np.int32) if b.dtype == np.float32 else b),
+                      f"control plane R={R}: {f} differs between cuda and "
+                      f"ref")
+            check(rr.messages == want.messages,
+                  f"control plane R={R}: messages differ between backends")
+            check(np.isfinite(rr.table).all()
+                  and float(np.abs(rr.table - scores[None]).max()) < 1e-2,
+                  f"control plane R={R}: the load table did not average")
+            if R == 1024:
+                got = dict(messages=rr.messages,
+                           level_messages=rr.level_messages.tolist(),
+                           level_ticks=rr.level_ticks.tolist())
+                check(got == CONTROL_1024,
+                      f"control plane R=1024: {got} != {CONTROL_1024}")
+            rows, traced_s = self.trace(
+                lambda: cp.round(loads, scores, round_idx=1))
+            row = dict(levels=list(cp.levels), messages=rr.messages,
+                       level_messages=rr.level_messages.tolist(),
+                       level_ticks=rr.level_ticks.tolist(),
+                       control_bytes=rr.control_bytes,
+                       payload_values=rr.payload_values, chunks=chunks,
+                       setup_s=setup_s, cold_s=cold_s, warm_s=warm_s,
+                       table_max_err=float(np.abs(rr.table
+                                                  - scores[None]).max()))
+            row.update(self.busy(f"control plane R={R}", rows, traced_s,
+                                 warm_s, "pair_apply"))
+            log(f"[control R={R}] levels {cp.levels}, messages {rr.messages} "
+                f"{rr.level_messages.tolist()}, ticks "
+                f"{rr.level_ticks.tolist()}, {rr.control_bytes} bytes a "
+                f"round; cuda == ref bitwise; {chunks} launches of "
+                f"sample_chunk and pair_apply; setup {setup_s:.2f} s, cold "
+                f"{cold_s:.3f} s, warm {warm_s:.4f} s a round")
+            out[R] = row
+            launches[R] = chunks
+        self.report["control_plane"] = out
+        return launches
+
+    def fleet(self):
+        """P3: run_fleet at FLEET for each router on the card against the
+        recorded entry, p2c at least FLEET_P2C_OVER_ORACLE of the oracle;
+        then FLEET_LARGE_R replicas, reported.  Returns the kernel
+        launches of the p2c runs at both sizes."""
+        from repro_torch.serve import ROUTERS, FleetConfig, run_fleet
+
+        torch = self.torch
+        out, launches = {}, {}
+        for R in (FLEET["replicas"], FLEET_LARGE_R):
+            rows = {}
+            for router in ROUTERS:
+                self.zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = run_fleet(FleetConfig(replicas=R, ticks=FLEET["ticks"],
+                                            router=router,
+                                            seed=FLEET["seed"]))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = self.read_counts()
+                got = (res.throughput, res.completed, res.control_messages,
+                       res.control_bytes, res.admission_latency_mean)
+                if router == "p2c_gossip":
+                    check(counts["sample_chunk"] == counts["pair_apply"] > 0,
+                          f"fleet R={R}: launches {counts}")
+                    self.check_idle(counts, ("sample_chunk", "pair_apply"),
+                                    f"fleet R={R} p2c_gossip")
+                    launches[R] = counts["pair_apply"]
+                else:
+                    self.check_idle(counts, None, f"fleet R={R} {router}")
+                if R == FLEET["replicas"]:
+                    check(got == FLEET_RECORDED[router],
+                          f"fleet R={R} {router}: {got} != recorded "
+                          f"{FLEET_RECORDED[router]}")
+                rows[router] = dict(
+                    throughput=res.throughput, completed=res.completed,
+                    submitted=res.submitted,
+                    admission_latency_mean=res.admission_latency_mean,
+                    admission_latency_p95=res.admission_latency_p95,
+                    control_rounds=res.control_rounds,
+                    control_messages=res.control_messages,
+                    control_bytes=res.control_bytes,
+                    bytes_per_round=res.bytes_per_round, seconds=secs,
+                    launches=counts["pair_apply"])
+            ratio = (rows["p2c_gossip"]["throughput"]
+                     / rows["oracle"]["throughput"])
+            if R == FLEET["replicas"]:
+                check(ratio >= FLEET_P2C_OVER_ORACLE,
+                      f"fleet R={R}: p2c / oracle {ratio} below "
+                      f"{FLEET_P2C_OVER_ORACLE}")
+            log(f"[fleet R={R} {FLEET['ticks']} ticks] throughput " + ", ".join(
+                f"{k} {v['throughput']:.3f}" for k, v in rows.items())
+                + f" (p2c / oracle {ratio:.4f}); p2c "
+                f"{rows['p2c_gossip']['control_rounds']} rounds, "
+                f"{rows['p2c_gossip']['bytes_per_round']:.0f} bytes a round, "
+                f"{rows['p2c_gossip']['seconds']:.2f} s, "
+                f"{launches[R]} launches of sample_chunk and pair_apply"
+                + (", recorded entry reproduced" if R == FLEET["replicas"]
+                   else ""))
+            out[R] = dict(routers=rows, p2c_over_oracle=ratio)
+        self.report["fleet"] = out
+        return launches
+
+    def paged_vs_dense(self, model, cfg):
+        """P4(a): paged_decode_step through an identity page map against
+        the dense decode_step, teacher-forced, every step's logits
+        bitwise."""
+        import numpy as np
+        from repro_torch.models import (
+            decode_step, init_cache, init_paged_cache, paged_decode_step)
+
+        torch = self.torch
+        B, ps, P = PAGED["slots"], PAGED["page_size"], PAGED["pages_per_slot"]
+        L = P * ps
+        toks = np.random.default_rng(16).integers(
+            0, cfg.vocab_size, (B, L)).astype(np.int32)
+        dense = init_cache(model, cfg, B, L)
+        paged = init_paged_cache(model, cfg, B, B * P, ps)
+        page_map = torch.arange(B * P, dtype=torch.int32,
+                                device=self.dev).reshape(B, P)
+        live = torch.ones(B, dtype=torch.bool, device=self.dev)
+        t0 = time.perf_counter()
+        for t in range(L):
+            want, dense = decode_step(model, cfg, dense, toks[:, t])
+            steps = torch.full((B,), t, dtype=torch.int32, device=self.dev)
+            got, paged = paged_decode_step(model, cfg, paged, toks[:, t],
+                                           page_map, steps, live)
+            check(torch.equal(got, want),
+                  f"{cfg.name} paged vs dense decode: logits differ at step "
+                  f"{t} (max {float((got - want).abs().max())})")
+        check(bool(torch.isfinite(got).all()), f"{cfg.name}: paged logits not "
+              f"finite")
+        secs = time.perf_counter() - t0
+        log(f"[paged {cfg.name} {B}x{L}] paged_decode_step bitwise to "
+            f"decode_step at all {L} steps ({secs:.2f} s for both)")
+        return dict(slots=B, positions=L, bitwise=True, seconds=secs)
+
+    def paged_requests(self, cfg):
+        """The stream's (prompt, budget) pairs, from default_rng(0)."""
+        import numpy as np
+
+        rng = np.random.default_rng(0)
+        n = PAGED_REQUESTS[cfg.name]
+        plens = rng.integers(*PAGED["prompt"], n)
+        budgets = rng.integers(*PAGED["budget"], n)
+        return [(rng.integers(0, cfg.vocab_size, int(p)).astype(np.int32),
+                 int(b)) for p, b in zip(plens, budgets)]
+
+    def paged_engine(self, model, cfg):
+        """A BatchingEngine over a fresh ModelBackend of PAGED's shape,
+        and a one-element list counting its paged steps."""
+        from repro_torch.serve import BatchingEngine, ModelBackend, PageTable
+
+        table = PageTable(num_pages=PAGED["pool"],
+                          page_size=PAGED["page_size"],
+                          num_slots=PAGED["slots"],
+                          pages_per_slot=PAGED["pages_per_slot"])
+        backend = ModelBackend(cfg, model, num_slots=PAGED["slots"],
+                               num_pages=PAGED["pool"],
+                               page_size=PAGED["page_size"],
+                               max_prompt_len=PAGED["prompt"][1] - 1,
+                               device=self.dev)
+        steps = [0]
+        step = backend._step
+
+        def counted(*args):
+            steps[0] += 1
+            return step(*args)
+
+        backend._step = counted
+        return BatchingEngine(backend, table, eos_id=-1), steps
+
+    def serve_paged(self, model, cfg):
+        """P4(b) / P5: the paged engine on a stream that retires and
+        refills slots: every request completes with its budget, the pool
+        is whole again, and REPLAYS refilled requests give the same tokens
+        alone in a fresh engine (a row never depends on its neighbours,
+        and no recurrent state leaks into a reused slot).  Reports
+        generated tokens/s, paged steps a second, launches a step and the
+        idle share of one traced decode step."""
+        import numpy as np
+
+        torch = self.torch
+        requests = self.paged_requests(cfg)
+        eng, steps = self.paged_engine(model, cfg)
+        warm = eng.backend.warmup(eng.table)
+        steps[0] = 0
+        for prompt, budget in requests:
+            eng.submit(prompt, budget)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        check(len(done) == len(requests)
+              and all(len(r.tokens) == r.max_new_tokens for r in done),
+              f"{cfg.name} paged engine: {len(done)} of {len(requests)} "
+              f"requests completed with their budgets")
+        check(eng.table.free_pages == eng.table.num_pages,
+              f"{cfg.name} paged engine: {eng.table.free_pages} of "
+              f"{eng.table.num_pages} pages free at the end")
+        check(all(0 <= t < cfg.vocab_size for r in done for t in r.tokens),
+              f"{cfg.name} paged engine: a token out of the vocabulary")
+        refills = sorted((r for r in done if r.admitted > 0),
+                         key=lambda r: (len(r.prompt) + r.max_new_tokens,
+                                        r.rid))
+        check(len(refills) >= REPLAYS,
+              f"{cfg.name} paged engine: {len(refills)} refilled requests")
+        replayed = []
+        for r in refills[:REPLAYS]:
+            # the slot this request reused held an earlier request that
+            # retired at or before its admission
+            prev = [q.rid for q in done if q.slot == r.slot
+                    and q.finished <= r.admitted and q.rid != r.rid]
+            check(bool(prev), f"{cfg.name}: request {r.rid} did not reuse a "
+                  f"slot")
+            solo, _ = self.paged_engine(model, cfg)
+            solo.submit(r.prompt, r.max_new_tokens)
+            (alone,) = solo.run()
+            check(alone.tokens == r.tokens,
+                  f"{cfg.name} paged engine: request {r.rid} (slot {r.slot}, "
+                  f"after request {prev[-1]}) alone gives other tokens")
+            replayed.append(dict(rid=r.rid, slot=r.slot, after=prev[-1],
+                                 tokens=len(r.tokens)))
+            del solo
+        generated = sum(len(r.tokens) for r in done)
+        # one decode step of a full batch, traced, against the run's mean
+        # time a paged step
+        B = PAGED["slots"]
+        tab = eng.table
+        for s in range(B):
+            tab.alloc(s, 1)
+        live = np.ones(B, bool)
+        rows, traced_s = self.trace(lambda: eng.backend.decode(
+            np.zeros(B, np.int32), np.zeros(B, np.int32), tab.page_map, live,
+            0))
+        for s in range(B):
+            tab.free(s)
+        per_step = run_s / steps[0]
+        row = dict(requests=len(requests), slots=B,
+                   prompt_tokens=int(sum(len(p) for p, _ in requests)),
+                   generated_tokens=generated, engine_steps=eng.t,
+                   paged_steps=steps[0], warmup_s=warm, run_s=run_s,
+                   generated_tokens_per_s=generated / run_s,
+                   paged_steps_per_s=steps[0] / run_s,
+                   step_rows_per_s=steps[0] * B / run_s,
+                   replays=replayed)
+        row.update(self.busy(f"paged decode step {cfg.name} {B}", rows,
+                             traced_s, per_step, "gemm"))
+        log(f"[paged engine {cfg.name}] {len(requests)} requests through "
+            f"{B} slots in {eng.t} engine steps ({steps[0]} paged steps, "
+            f"{run_s:.2f} s): {generated / run_s:.1f} generated tokens/s, "
+            f"{steps[0] * B / run_s:.1f} slot rows/s, {per_step * 1e3:.1f} "
+            f"ms a paged step; pool whole; {len(replayed)} refilled requests "
+            f"replayed alone bitwise")
+        return row
+
     def fingerprint(self, tree) -> dict:
         """Each tensor leaf of a state as (dtype, shape, two int64 sums: of
         its bit patterns as integers and of their squares), every other
@@ -2119,6 +2526,7 @@ def main() -> int:
     # after; `launches` is the count of the kernel's own first path
     main5 = smoke.large_n(100_000, g5, plan5, x05, graph5, pl5)
     scen = smoke.scenarios(g5, plan5, x05)
+    per_tick = smoke.per_tick(g5, plan5, x05)
     del g5, plan5
     g6, plan6, x06, graph6, pl6 = smoke.setup(1_000_000)
     main6 = smoke.large_n(1_000_000, g6, plan6, x06, graph6, pl6)
@@ -2135,23 +2543,32 @@ def main() -> int:
     baseline_paths = {"standard_gossip n=500 eps=1e-2, backend cuda": sg,
                       "multiscale_gossip fig5 n=2000 eps=1e-4, 3 trials, "
                       "backend cuda": fig5}
+    control = smoke.control_plane()
+    fleet = smoke.fleet()
+    fleet_paths = {
+        **{f"ControlPlane R={R} full view, one round, backend cuda": n
+           for R, n in control.items()},
+        **{f"run_fleet R={R} {FLEET['ticks']} ticks p2c_gossip, backend "
+           f"cuda": n for R, n in fleet.items()}}
     smoke.kernels["pair_apply"].update(
         launches=main5, path="multiscale_gossip FI n=100000, backend cuda",
-        launches_by_path={**main_paths, **baseline_paths})
+        launches_by_path={**main_paths, **baseline_paths, **fleet_paths})
     smoke.kernels["sample_chunk"].update(
         launches=main5, path="multiscale_gossip FI n=100000, backend cuda",
         launches_by_path={
             **main_paths,
             "multiscale_gossip FI n=20000, backend matmul": mm,
             "execute_plan FI n=20000 churn / byzantine, priced, backend "
-            "matmul (each)": mm_scen, **baseline_paths})
+            "matmul (each)": mm_scen, **baseline_paths, **fleet_paths})
     smoke.kernels["cell_mixing"].update(
         launches=mm, path="multiscale_gossip FI n=20000, backend matmul",
         launches_by_path={
             "multiscale_gossip FI n=20000, backend matmul": mm,
             "execute_plan FI n=20000 churn / byzantine, priced, backend "
             "matmul (each)": mm_scen,
-            "synchronous_multiscale n=2000": sy})
+            "synchronous_multiscale n=2000": sy,
+            "multiscale_gossip FI n=100000, schedule per_tick, backend "
+            "cuda": per_tick})
 
     # the rwkv6-3b serving path; the gossip phases' plans are freed first
     del g2, plan2, x02, lp0, sched
@@ -2166,9 +2583,17 @@ def main() -> int:
     wkv = smoke.prefill(model, cfg, "rwkv6", 32, "rwkv6")
     served = smoke.serve(model, cfg, "rwkv6")
     smoke.agreement(model, cfg, checked=False)
+    # P5: the paged engine, which launches no kernel
+    smoke.zero_counts()
+    smoke.report["paged_rwkv6-3b"] = dict(engine=smoke.serve_paged(model, cfg))
+    paged_counts = smoke.read_counts()
+    smoke.check_idle(paged_counts, None, "the rwkv6-3b paged engine")
+    paged_path = (f"BatchingEngine rwkv6-3b, {PAGED_REQUESTS[cfg.name]} "
+                  f"requests through {PAGED['slots']} paged slots")
     smoke.kernels["rwkv6"].update(
         launches=wkv, path=forward_path,
-        launches_by_path={forward_path: wkv, serve_path: served})
+        launches_by_path={forward_path: wkv, serve_path: served,
+                          paged_path: paged_counts["rwkv6"]})
     del model
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -2189,9 +2614,22 @@ def main() -> int:
                           {"flash_attention_sm90": 28, "flash_attention": 0})
     served = smoke.serve(model, cfg, "flash_kernel_sm90")
     smoke.agreement(model, cfg, checked=False)
+    # P4: paged against dense decode, then the paged engine; no kernel
+    smoke.zero_counts()
+    smoke.report["paged_llama3.2-3b"] = dict(
+        vs_dense=smoke.paged_vs_dense(model, cfg),
+        engine=smoke.serve_paged(model, cfg))
+    paged_counts = smoke.read_counts()
+    smoke.check_idle(paged_counts, None, "the llama3.2-3b paged paths")
+    check(not any(smoke.flash_kernels().values()),
+          f"the llama3.2-3b paged paths launched {smoke.flash_kernels()}")
+    paged_path = (f"paged_decode_step and BatchingEngine llama3.2-3b, "
+                  f"{PAGED_REQUESTS[cfg.name]} requests through "
+                  f"{PAGED['slots']} paged slots")
     smoke.kernels["flash_attention"].update(
         launches=flash, path=forward_path,
-        launches_by_path={forward_path: flash, serve_path: served})
+        launches_by_path={forward_path: flash, serve_path: served,
+                          paged_path: paged_counts["flash_attention"]})
     del model
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")

@@ -1,9 +1,9 @@
 """Multiscale gossip for decentralized averaging (Tsianos & Rabbat,
-2010) on PyTorch and CUDA: the host-side plan (numpy), the bit-exact
-threefry exchange schedule, and the batched executor whose value pass
-runs in the hand-written `pair_apply` / `cell_mixing` kernels, the
-wireless failure and cost models, and the baselines the paper compares
-against.
+2010) on PyTorch and CUDA: the host-side plan (numpy) and its
+content-addressed cache, the bit-exact threefry exchange schedule, and
+the batched executor whose value pass runs in the hand-written
+`pair_apply` / `cell_mixing` kernels, the wireless failure and cost
+models, and the baselines the paper compares against.
 """
 from .baselines import (
     BaselineResult,
@@ -43,6 +43,15 @@ from .multiscale import (
 from .options import ExecOptions, resolve_device
 from .partition import Partition, auto_levels, build_partition
 from .plan import HierarchyPlan, LevelPlan, build_plan
+from .plan_cache import (
+    PLAN_CACHE_VERSION,
+    graph_digest_spec,
+    graph_spec,
+    load_plan,
+    plan_key,
+    setup_plan,
+    store_plan,
+)
 from .rgg import (
     RGG_METHODS,
     Graph,
@@ -86,6 +95,7 @@ __all__ = [
     "MediumCost",
     "MultiscaleResult",
     "MultiscaleTrials",
+    "PLAN_CACHE_VERSION",
     "Partition",
     "RGG_METHODS",
     "Scenario",
@@ -106,14 +116,18 @@ __all__ = [
     "fi_ticks",
     "flat_usage_to_dense",
     "geographic_gossip",
+    "graph_digest_spec",
+    "graph_spec",
     "gossip_core",
     "gossip_until",
     "grid_graph",
     "handshake_cost",
     "level_edge_messages",
+    "load_plan",
     "multiscale_gossip",
     "path_averaging",
     "plan_from_reference",
+    "plan_key",
     "price_edge_messages",
     "price_messages",
     "random_geometric_graph",
@@ -124,7 +138,9 @@ __all__ = [
     "sample_schedule",
     "sample_tick",
     "scenario_matrix",
+    "setup_plan",
     "standard_gossip",
+    "store_plan",
     "synchronous_multiscale",
     "theorem2_bound",
     "trials_error",

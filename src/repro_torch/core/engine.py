@@ -17,7 +17,10 @@ of them, and trial t equals a single run with seed ``seeds[t]``.
 Backends (`ExecOptions.backend`): ``"ref"`` runs the plain tick loop,
 ``"cuda"`` the `pair_apply` kernel (bitwise equal to ``"ref"``),
 ``"matmul"`` composes each chunk's mixing matrix and applies it with the
-`cell_mixing` kernel (values agree up to f32 rounding).
+`cell_mixing` kernel (values agree up to f32 rounding).  Schedule
+``"per_tick"`` (`ExecOptions.schedule`) runs the legacy sequential path
+of `core.gossip` with backend ``"ref"`` or ``"cuda"``, without failure
+scenarios or pricing.
 
 `failures` (`FailureModel`) carries the paper's message loss and the
 scenarios (churn, stragglers, regional outage, Byzantine drops): each
@@ -282,11 +285,14 @@ def execute_plan(
     options = options if options is not None else ExecOptions()
     dev = resolve_device(options.device)
     _check_models(failures, cost, fixed_ticks_scale)
-    backend = options.backend
+    backend, schedule = options.backend, options.schedule
     if backend not in GOSSIP_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     loss_p = failures.loss_p if failures is not None else None
     scenario = failures is not None and failures.has_scenario
+    if (scenario or cost is not None) and schedule != "presampled":
+        raise ValueError(
+            "failure scenarios / cost pricing require schedule='presampled'")
     n = plan.graph.n
     x0 = np.asarray(x0, np.float32)
     T = len(seeds)
@@ -313,7 +319,8 @@ def execute_plan(
     if scenario:
         ctxs, freeze = _failure_consts(
             plan, failures, [cfg[1] for cfg in level_cfg], n, dev)
-    keys = torch.stack([prng.PRNGKey(s, dev) for s in seeds])  # (T, 2)
+    # (T, 2), built on the host and copied once
+    keys = torch.stack([prng.PRNGKey(s) for s in seeds]).to(dev)
     x0_rows = torch.as_tensor(x0, device=dev).expand(T, n)
     node_sends = torch.zeros((T, n + 1), dtype=torch.int32, device=dev)
     lvl_msgs, lvl_ticks, lvl_conv, usages = [], [], [], []
@@ -334,7 +341,7 @@ def execute_plan(
         x, usage, msgs, done, ticks, *priced = gossip_core(
             xb.contiguous(), c["adj"], mask, eps_l, prng.fold_in(keys, li),
             max_ticks=maxt, check_every=chk, loss_p=loss_p, backend=backend,
-            failure_ctx=ctxs[li], cost_model=cost,
+            schedule=schedule, failure_ctx=ctxs[li], cost_model=cost,
             hop_cap=max(1, int(lp.max_hops)),
         )
         if priced:

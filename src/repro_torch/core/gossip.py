@@ -26,6 +26,16 @@ backend (`core.options`):
 * ``"matmul"`` — `compose_schedule` then the `cell_mixing` kernel
   (values agree up to f32 rounding; integer accounting is exact).
 
+``schedule="per_tick"`` keeps the reference's legacy sequential path,
+the parity reference: each tick is drawn (`schedule.sample_tick`),
+counted and applied before the next is drawn.  Backend ``"ref"`` applies
+each tick to the state (the reference's ``"lax"`` scan); backend
+``"cuda"`` is the reference's ``"pallas"`` branch: the ticks are applied
+to the rows of an identity ``(N, C, C)``, built once a call, and the
+chunk's mixing matrix goes through one `cell_mixing` kernel launch
+(values agree up to f32 rounding).  Backend ``"matmul"``, failure
+scenarios and cost pricing need the presampled schedule.
+
 The reference's ``lax.while_loop`` is a host loop over chunks here.  In
 fixed-iterations mode (``eps < 0``: the oracle never fires) its trip
 count is known on the host, so the loop never waits for the device; in
@@ -67,6 +77,7 @@ from .schedule import (
     compose_schedule,
     dense_to_csr,
     flat_usage_to_dense,
+    sample_tick,
 )
 
 __all__ = ["GossipResult", "gossip_core", "gossip_until", "batched_graphs",
@@ -110,6 +121,45 @@ def _value_pass(backend, x, i, j, upd_i, upd_j):
     return cell_mixing(m, x, rounds=1)
 
 
+def _one_tick(x, t, keys, adj: CsrGraphs, loss_p, done, usage, msgs):
+    """The legacy tick: draw tick `t` for R trials of B graphs, count it
+    (usage and messages grow in place) and apply it to the ``(R*B, C,
+    V)`` state, as the reference's `_one_tick`.  The draw is the one
+    `sample_schedule` makes for the same tick, so the two schedules stay
+    draw for draw identical."""
+    from ..kernels.pair_apply import pair_apply_ref
+
+    R, B = done.shape
+    s = sample_tick(t, keys, adj, loss_p)               # (R, B) fields
+    active = s.valid & ~done                            # done frozen
+    upd_j = active & s.fwd_ok
+    upd_i = upd_j & s.rep_ok
+    offs = (torch.arange(R, device=keys.device, dtype=torch.int32)
+            * adj.nbr.shape[0])[:, None]
+    usage.index_add_(0, (s.pos + offs).reshape(-1),
+                     active.to(torch.int32).reshape(-1))
+    msgs += torch.where(active, s.cost, 0)
+    return pair_apply_ref(x, s.i.reshape(1, -1), s.j.reshape(1, -1),
+                          upd_i.reshape(1, -1), upd_j.reshape(1, -1))
+
+
+def _per_tick_chunk(x, eye, t0: int, T: int, keys, adj, loss_p, done,
+                    usage, msgs):
+    """Ticks ``t0 .. t0+T-1`` one after another.  Without `eye` each
+    tick is applied to the state; with it (backend "cuda") the ticks
+    build the chunk's mixing matrix from the identity's rows and one
+    `cell_mixing` launch applies it."""
+    ts = torch.arange(t0, t0 + T, device=keys.device)
+    m = x if eye is None else eye.clone()
+    for k in range(T):
+        m = _one_tick(m, ts[k], keys, adj, loss_p, done, usage, msgs)
+    if eye is None:
+        return m
+    from ..kernels.cell_mixing import cell_mixing
+
+    return cell_mixing(m, x, rounds=1)
+
+
 def gossip_core(
     x0: torch.Tensor,
     adj: CsrGraphs,
@@ -121,6 +171,7 @@ def gossip_core(
     check_every: int,
     loss_p: Optional[float],
     backend: str = "cuda",
+    schedule: str = "presampled",
     failure_ctx: Optional[FailureCtx] = None,
     cost_model: Optional[CostModel] = None,
     hop_cap: int = 1,
@@ -135,10 +186,20 @@ def gossip_core(
     retransmissions (int32, sampled extra attempts) and congestion pairs
     (f32); they never change the others.  `failure_ctx` perturbs the
     schedule (module docstring); `hop_cap` is the level's longest route
-    in hops, the width of the retransmission draw.
+    in hops, the width of the retransmission draw.  `schedule` is
+    "presampled" or "per_tick" (module docstring).
     """
     if backend not in GOSSIP_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
+    if schedule not in ("presampled", "per_tick"):
+        raise ValueError(f"unknown schedule mode {schedule!r}")
+    per_tick = schedule == "per_tick"
+    if per_tick and backend == "matmul":
+        raise ValueError("backend='matmul' requires schedule='presampled'")
+    if per_tick and (failure_ctx is not None or cost_model is not None):
+        raise ValueError(
+            "failure scenarios / cost pricing require "
+            "schedule='presampled'")
     if backend == "ref":
         from ..kernels.sample_chunk import sample_chunk_ref as draw
     else:
@@ -169,15 +230,22 @@ def gossip_core(
             retx=torch.zeros((R, B), dtype=torch.int32, device=dev),
             congp=torch.zeros((R, B), dtype=torch.float32, device=dev))
     x = x0.reshape(R * B, C, V)
+    # the per-tick "cuda" branch's identity seed, built once a call
+    eye = (torch.eye(C, dtype=x.dtype, device=dev).expand(R * B, C, C)
+           if per_tick and backend == "cuda" else None)
     t0 = 0
     while t0 < max_ticks:
         if not fixed and bool(done.all()):
             break
-        # (T, R*B) pairs and update bits; the counters grow in place
-        x = _value_pass(backend, x, *draw(
-            t0, check_every, keys, adj, loss_p, done, usage, msgs,
-            failure_ctx=failure_ctx, cost=cost_model, hop_cap=hop_cap,
-            **extra))
+        if per_tick:
+            x = _per_tick_chunk(x, eye, t0, check_every, keys, adj, loss_p,
+                                done, usage, msgs)
+        else:
+            # (T, R*B) pairs and update bits; the counters grow in place
+            x = _value_pass(backend, x, *draw(
+                t0, check_every, keys, adj, loss_p, done, usage, msgs,
+                failure_ctx=failure_ctx, cost=cost_model, hop_cap=hop_cap,
+                **extra))
         ticks += torch.where(done, 0, check_every).to(torch.int32)
         if not fixed:
             done = done | converged(x.reshape(R, B, C, V))
@@ -201,14 +269,17 @@ def gossip_until(
     fixed_ticks: Optional[int] = None,
     loss_p: Optional[float] = None,
     backend: str = "cuda",
+    schedule: str = "presampled",
     device: str = "cuda",
 ) -> GossipResult:
     """Run batched randomized gossip to eps-accuracy (or `fixed_ticks`).
 
     `fixed_ticks` is the paper's fixed-iterations variant
     (MultiscaleGossipFI, §VI): that many exchanges per graph, rounded up
-    to whole chunks, no convergence oracle.  The host API stays dense —
-    ``(B, C, D)`` padded neighbors in, dense `edge_usage` out.
+    to whole chunks, no convergence oracle.  `backend` and `schedule`
+    select the value pass and the execution mode (module docstring).
+    The host API stays dense — ``(B, C, D)`` padded neighbors in, dense
+    `edge_usage` out.
     """
     dev = resolve_device(device)
     if backend == "cuda" and dev.type == "cpu":
@@ -234,6 +305,7 @@ def gossip_until(
         eps_eff,
         prng.PRNGKey(seed, dev)[None],
         max_ticks=max_t, check_every=check, loss_p=loss_p, backend=backend,
+        schedule=schedule,
     )
     return GossipResult(
         x=x[0].cpu().numpy(),

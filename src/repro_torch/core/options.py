@@ -16,6 +16,12 @@ Backends:
   one mixing matrix, applied with the `cell_mixing` CUDA kernel (values
   agree with ``"ref"`` up to f32 rounding; integer accounting is exact).
 
+Schedules: ``"presampled"`` (the schedule/value split) and
+``"per_tick"`` (the legacy sequential path, the parity reference; see
+`core.gossip`): backend ``"ref"`` there is the reference's ``"lax"``
+scan, ``"cuda"`` its ``"pallas"`` branch (one `cell_mixing` launch a
+chunk), and ``"matmul"`` is refused.
+
 The entry points run on the card unless the caller asks for
 ``device="cpu"``: without CUDA they raise (`resolve_device`), they never
 carry on quietly on the CPU.
@@ -29,7 +35,7 @@ import torch
 __all__ = ["ExecOptions", "resolve_device"]
 
 _ENGINE_BACKENDS = ("ref", "cuda", "matmul")
-_SCHEDULES = ("presampled",)
+_SCHEDULES = ("presampled", "per_tick")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +44,8 @@ class ExecOptions:
 
     backend: value pass — "ref", "cuda" or "matmul" (module docstring).
     device: "cuda" (default, optionally "cuda:N") or "cpu".
-    schedule: "presampled" (the schedule/value split).
+    schedule: "presampled" (the schedule/value split) or "per_tick"
+        (legacy sequential, the parity reference).
     check_every: convergence-oracle cadence (ticks per chunk).
     max_ticks_per_level: per-level tick budget in eps-oracle mode.
     collect_usage: also return the raw per-level flat exchange counters.
@@ -57,8 +64,8 @@ class ExecOptions:
                 f"unknown backend {self.backend!r}; "
                 f"expected one of {_ENGINE_BACKENDS}")
         if self.schedule not in _SCHEDULES:
-            raise NotImplementedError(
-                f"schedule mode {self.schedule!r} is not ported; "
+            raise ValueError(
+                f"unknown schedule mode {self.schedule!r}; "
                 f"expected one of {_SCHEDULES}")
         if self.check_every < 1:
             raise ValueError("check_every must be >= 1")

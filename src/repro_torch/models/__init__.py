@@ -1,13 +1,14 @@
-"""The model zoo's decoder stack for the port's serving and training
-paths (rwkv and dense attention blocks), with the reference's
-configuration class and converters for its parameters, caches and
-train states."""
+"""The model zoo's decoder stack for the port's serving (dense and
+paged decode) and training paths (rwkv and dense attention blocks),
+with the reference's configuration class and converters for its
+parameters, caches and train states."""
 from .config import ModelConfig
 from .convert import (
     cache_from_reference, params_from_reference, state_from_reference,
 )
 from .model import (
-    Transformer, decode_step, forward, init_cache, loss_fn, param_dict,
+    Transformer, decode_step, forward, init_cache, init_paged_cache, loss_fn,
+    paged_decode_step, param_dict,
 )
 
 __all__ = [
@@ -17,7 +18,9 @@ __all__ = [
     "decode_step",
     "forward",
     "init_cache",
+    "init_paged_cache",
     "loss_fn",
+    "paged_decode_step",
     "param_dict",
     "params_from_reference",
     "state_from_reference",

@@ -13,10 +13,14 @@ the device.  Below the threshold, and in all of
 decode, attention is plain tensor code (`full_attention`), as the
 reference computes it outside any kernel.
 
-Not ported yet (ROADMAP Queue A 11): `chunked_attention`,
-`banded_local_attention` (the sliding-window route of "local" layers)
-and long-sequence cross-attention; the paged functions wait for Queue
-A 3.
+The paged decode (`init_paged_kv_cache`, `paged_decode_attention`)
+serves continuous batching: each layer's KV lives in a pool of pages
+that a `serve.PageTable` hands to decode slots, and every slot decodes
+at its own position.  It is plain tensor code too, as in the reference.
+
+Not ported yet: `chunked_attention`, `banded_local_attention` (the
+sliding-window route of "local" layers) and long-sequence
+cross-attention.
 
 The functions take `params` as any mapping of name to tensor: a dict,
 or the `ParameterDict` of a `models.model.Transformer` block.
@@ -33,7 +37,7 @@ from .config import ModelConfig
 from .layers import DTYPES, P_, dense, mrope, rope
 
 __all__ = ["attn_params", "attention", "full_attention", "decode_attention",
-           "init_kv_cache"]
+           "init_kv_cache", "init_paged_kv_cache", "paged_decode_attention"]
 
 _NEG_INF = -1e30
 
@@ -190,35 +194,109 @@ def init_kv_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     }
 
 
+def _decode_qkv(params, cfg: ModelConfig, x, pos_b):
+    """q (B, H, 1, dh), k and v (B, Hkv, 1, dh) of the token x (B, 1, D)
+    at the positions pos_b (B,) int32, rotary applied."""
+    H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
+    if cfg.mrope_sections is not None:
+        qpos = pos_b[:, None, None].expand(x.shape[0], 1, 3)
+    else:
+        qpos = pos_b[:, None]
+    q = _apply_rope(cfg, _heads(dense(x, params["wq"]), H, dh), qpos)
+    k = _apply_rope(cfg, _heads(dense(x, params["wk"]), Hkv, dh), qpos)
+    return q, k, _heads(dense(x, params["wv"]), Hkv, dh)
+
+
+def _decode_attend(params, cfg: ModelConfig, q, k, v, keep):
+    """The token's attention over keys k, v (B, Hkv, Sk, dh) where `keep`
+    (B, Sk) holds, then the output projection; masked keys take the
+    exact `_NEG_INF` bias."""
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    bias = torch.where(keep, zero, _NEG_INF)[:, None, :]   # (B,1,Sk)
+    o = full_attention(q, k, v, bias, softcap=cfg.attn_logit_softcap,
+                       scale=_scale(cfg))
+    return dense(_unheads(o), params["wo"])
+
+
 def decode_attention(params, cfg: ModelConfig, x, cache: dict, step: int, *,
                      kind: str = "attn"):
     """x: (B, 1, D) at absolute position `step`.  Writes the token's K, V
     and position into slot ``step % L`` of the cache IN PLACE (the
     reference returns new arrays; the tensors of the returned cache are
     the ones passed in) and attends over the valid slots."""
-    H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
-    B = x.shape[0]
-    q = _heads(dense(x, params["wq"]), H, dh)        # (B,H,1,dh)
-    pos_b = torch.full((B,), int(step), dtype=torch.int32, device=x.device)
-    if cfg.mrope_sections is not None:
-        qpos = pos_b[:, None, None].expand(B, 1, 3)
-    else:
-        qpos = pos_b[:, None]
-    q = _apply_rope(cfg, q, qpos)
-    k_new = _apply_rope(cfg, _heads(dense(x, params["wk"]), Hkv, dh), qpos)
-    v_new = _heads(dense(x, params["wv"]), Hkv, dh)
-
+    pos_b = torch.full((x.shape[0],), int(step), dtype=torch.int32,
+                       device=x.device)
+    q, k_new, v_new = _decode_qkv(params, cfg, x, pos_b)
     k, v, pos = cache["k"], cache["v"], cache["pos"]
     slot = int(step) % k.shape[2]
     k[:, :, slot] = k_new[:, :, 0]
     v[:, :, slot] = v_new[:, :, 0]
     pos[:, slot] = pos_b
-    window = cfg.window if kind == "local" else None
     keep = (pos >= 0) & (pos <= pos_b[:, None])
-    if window is not None:
-        keep &= pos > (pos_b[:, None] - window)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    bias = torch.where(keep, zero, _NEG_INF)[:, None, :]   # (B,1,Sk)
-    o = full_attention(q, k, v, bias, softcap=cfg.attn_logit_softcap,
-                       scale=_scale(cfg))
-    return dense(_unheads(o), params["wo"]), {"k": k, "v": v, "pos": pos}
+    if kind == "local" and cfg.window is not None:
+        keep &= pos > (pos_b[:, None] - cfg.window)
+    return (_decode_attend(params, cfg, q, k, v, keep),
+            {"k": k, "v": v, "pos": pos})
+
+
+# --------------------------- paged decode ------------------------------
+
+
+def init_paged_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                        device) -> dict:
+    """Page-pool KV cache for one attention layer on `device`:
+    ``(num_pages + 1, Hkv, page_size, dh)``.  The extra page at index
+    `num_pages` is the trash page: it takes the writes of masked slots,
+    so one step serves any pattern of live slots."""
+    dt = DTYPES[cfg.dtype]
+    shape = (num_pages + 1, cfg.kv_heads, page_size, cfg.head_width)
+    return {"k_pages": torch.zeros(shape, dtype=dt, device=device),
+            "v_pages": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def paged_decode_attention(params, cfg: ModelConfig, x, cache: dict,
+                           page_map, steps, write_mask, *,
+                           kind: str = "attn"):
+    """`decode_attention` through a page table.
+
+    x: (B, 1, D); page_map: (B, P) int physical page of each logical
+    page (the trash page where none is held); steps: (B,) int each
+    slot's absolute position; write_mask: (B,) bool, False sends the
+    slot's write to the trash page.
+
+    The token's K and V are written into its page IN PLACE (the
+    reference returns new pools; the returned cache holds the pools
+    passed in).  Position t of slot b lies at page ``page_map[b, t //
+    ps]``, offset ``t % ps``, so the gathered ``(B, Hkv, P*ps, dh)``
+    view is the dense cache's layout, and entries past each slot's
+    position carry the exact `_NEG_INF` bias: they add exact zeros to
+    the softmax, and paged decode equals dense decode bit for bit when
+    ``P*ps`` is the dense cache's length.  Several masked slots may
+    write the trash page in one step, in an undefined order on the card;
+    only the trash page, always masked, is affected.
+    """
+    B, Hkv, dh = x.shape[0], cfg.kv_heads, cfg.head_width
+    k_pages, v_pages = cache["k_pages"], cache["v_pages"]
+    num_pages, ps = k_pages.shape[0] - 1, k_pages.shape[2]
+    P = page_map.shape[1]
+    pos_b = steps.to(torch.int32)
+    q, k_new, v_new = _decode_qkv(params, cfg, x, pos_b)
+
+    # the new token's KV into its page (the trash page when masked)
+    page_map = page_map.long()
+    logical = torch.clamp(pos_b.long() // ps, 0, P - 1)
+    phys = page_map.gather(1, logical[:, None])[:, 0]
+    phys = torch.where(write_mask, phys, num_pages)
+    off = pos_b.long() % ps
+    k_pages[phys, :, off] = k_new[:, :, 0]
+    v_pages[phys, :, off] = v_new[:, :, 0]
+
+    # the slot's pages gathered back into its logical sequence
+    k = k_pages[page_map].transpose(1, 2).reshape(B, Hkv, P * ps, dh)
+    v = v_pages[page_map].transpose(1, 2).reshape(B, Hkv, P * ps, dh)
+    k_pos = torch.arange(P * ps, device=x.device, dtype=torch.int32)[None]
+    keep = k_pos <= pos_b[:, None]
+    if kind == "local" and cfg.window is not None:
+        keep &= k_pos > (pos_b[:, None] - cfg.window)
+    return (_decode_attend(params, cfg, q, k, v, keep),
+            {"k_pages": k_pages, "v_pages": v_pages})

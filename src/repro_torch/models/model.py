@@ -26,6 +26,8 @@ Entry points:
   forward(params, cfg, batch)         — logits (prefill)
   loss_fn(params, cfg, batch)         — mean next-token CE (training)
   init_cache / decode_step            — single-token serving
+  init_paged_cache / paged_decode_step — continuous batching over a
+                                        paged KV cache
 """
 from __future__ import annotations
 
@@ -35,7 +37,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .._tf32 import no_tf32
 from ..core.options import resolve_device
-from .attention import attention, attn_params, decode_attention, init_kv_cache
+from .attention import (
+    attention, attn_params, decode_attention, init_kv_cache,
+    init_paged_kv_cache, paged_decode_attention,
+)
 from .config import ModelConfig
 from .layers import (
     DTYPES, P_, count_params, dense, layer_norm, mlp, mlp_params, rms_norm,
@@ -46,7 +51,8 @@ from .rwkv import (
 )
 
 __all__ = ["Transformer", "forward", "loss_fn", "init_cache", "decode_step",
-           "model_params", "param_dict"]
+           "init_paged_cache", "paged_decode_step", "model_params",
+           "param_dict"]
 
 _PORTED_KINDS = ("rwkv", "attn")
 
@@ -345,6 +351,90 @@ def decode_step(params, cfg: ModelConfig, cache: dict, tokens):
         x = _apply_norm(params["final_norm"], cfg, x)
         logits = _unembed(params, cfg, x)[:, 0]
     return logits, {"layers": layers, "step": step + 1}
+
+
+# --------------------------- paged serving ----------------------------
+
+
+def init_paged_cache(params, cfg: ModelConfig, num_slots: int,
+                     num_pages: int, page_size: int) -> dict:
+    """Decode state of the paged (continuous-batching) path on the
+    parameters' device: one page pool per attention layer (plus its
+    trash page, `attention.init_paged_kv_cache`), per-slot recurrent
+    state for rwkv layers, which the step zeroes at a fresh admission.
+    Encoder-decoder configs are not paged: their decode state is
+    per-request memory, not a KV pool."""
+    if cfg.encoder_layers:
+        raise ValueError(
+            "paged serving supports decoder-only configs; "
+            f"{cfg.name} has encoder layers")
+    device = params["embed"].device
+    return {"layers": [
+        init_rwkv_state(cfg, num_slots, device) if kind == "rwkv"
+        else init_paged_kv_cache(cfg, num_pages, page_size, device)
+        for kind in cfg.layer_kinds()]}
+
+
+def _slot_mask(m, a):
+    """`m` (B,) broadcast against a per-slot state `a` whose leading axis
+    is B, or B*H (the wkv state (B*H, N, N): each slot's mask repeated
+    for its H heads)."""
+    if a.shape[0] != m.shape[0]:
+        m = torch.repeat_interleave(m, a.shape[0] // m.shape[0])
+    return m.reshape((-1,) + (1,) * (a.dim() - 1))
+
+
+def _block_decode_paged(p, cfg: ModelConfig, kind: str, x, state,
+                        page_map, steps, write_mask):
+    if kind != "rwkv":
+        h, new = paged_decode_attention(
+            p["attn"], cfg, _apply_norm(p["ln1"], cfg, x), state, page_map,
+            steps, write_mask, kind=kind)
+        return _attn_block_rest(p, cfg, x, h), new
+    # recurrent layers: zero a slot's state at the first token of a fresh
+    # admission (the initial state is zeros, so a reused slot cannot leak
+    # the previous request's recurrence), run the dense decode body, then
+    # hold back the updates of slots that do not write
+    fresh = write_mask & (steps == 0)
+    state = {k: torch.where(_slot_mask(fresh, a), torch.zeros_like(a), a)
+             for k, a in state.items()}
+    h, new = _block_decode(p, cfg, kind, x, state, 0)
+    return h, {k: torch.where(_slot_mask(write_mask, a), a, state[k])
+               for k, a in new.items()}
+
+
+def paged_decode_step(params, cfg: ModelConfig, cache: dict, tokens,
+                      page_map, steps, write_mask):
+    """One continuous-batching step: every slot decodes its own position.
+
+    tokens (B,) the current token of each slot; page_map (B, P) int
+    physical pages (the trash page where none is held); steps (B,) int
+    each slot's absolute position; write_mask (B,) bool, which slots
+    write their KV and update their recurrent state.  Host arrays or
+    tensors.  Returns (logits (B, V) f32, the cache): attention pools
+    are written in place, recurrent state comes back new.
+
+    Per live slot the same arithmetic as `decode_step`: with ``P *
+    page_size`` equal to the dense cache's `max_len` the logits are
+    bitwise the dense path's.  Masked slots write the trash page and
+    keep their state, so one step serves any admit / retire pattern.
+    """
+    params = _tree(params)
+    dev = params["embed"].device
+    page_map = torch.as_tensor(page_map, device=dev)
+    steps = torch.as_tensor(steps, device=dev)
+    write_mask = torch.as_tensor(write_mask, device=dev).to(torch.bool)
+    with no_tf32(), torch.no_grad():
+        x = _embed(params, cfg, _tokens(params, tokens)[:, None])
+        layers = []
+        for p, kind, state in zip(params["blocks"], cfg.layer_kinds(),
+                                  cache["layers"]):
+            x, new = _block_decode_paged(p, cfg, kind, x, state, page_map,
+                                         steps, write_mask)
+            layers.append(new)
+        x = _apply_norm(params["final_norm"], cfg, x)
+        logits = _unembed(params, cfg, x)[:, 0]
+    return logits, {"layers": layers}
 
 
 # ------------------------------ facade --------------------------------

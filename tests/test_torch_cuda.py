@@ -594,3 +594,85 @@ def test_execute_sync_on_card_matches_cpu(cuda_device, kw, dtype):
             np.testing.assert_allclose(cm[k].cpu().float().numpy(),
                                        hm[k].float().numpy(), rtol=rtol,
                                        atol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss_p", [None, 0.8])
+def test_per_tick_cuda_matches_ref_on_card(cuda_device, loss_p):
+    """Per-tick backend "cuda" (one cell_mixing launch a chunk) against
+    per-tick "ref" on the card: integer accounting bitwise, values at the
+    matmul tolerance; per-tick "ref" bitwise to presampled "cuda"."""
+    import repro_torch.core as P
+
+    g = P.random_geometric_graph(500, seed=7)
+    x0 = np.random.default_rng(3).normal(0, 1, 500)
+    plan = P.build_plan(g, seed=0)
+    kw = dict(eps=1e-3, fixed_ticks_scale=0.2, seeds=(0, 1), weighted=True,
+              failures=None if loss_p is None else P.FailureModel(
+                  loss_p=loss_p))
+    runs = {}
+    for backend, schedule in (("ref", "per_tick"), ("cuda", "per_tick"),
+                              ("cuda", "presampled")):
+        before = cell_mixing.launches
+        runs[backend, schedule] = P.execute_plan(
+            plan, x0, options=P.ExecOptions(backend=backend,
+                                            schedule=schedule), **kw)
+        runs[backend, schedule].mixing = cell_mixing.launches - before
+    ref, cu, pre = (runs["ref", "per_tick"], runs["cuda", "per_tick"],
+                    runs["cuda", "presampled"])
+    for f in ("messages", "node_sends", "level_messages", "level_ticks"):
+        np.testing.assert_array_equal(getattr(ref, f), getattr(cu, f))
+        np.testing.assert_array_equal(getattr(ref, f), getattr(pre, f))
+    np.testing.assert_array_equal(ref.x_final.view(np.int32),
+                                  pre.x_final.view(np.int32))
+    np.testing.assert_allclose(cu.x_final, ref.x_final, rtol=1e-4, atol=2e-4)
+    assert cu.mixing > 0 and ref.mixing == pre.mixing == 0
+
+
+@pytest.mark.cuda
+def test_control_plane_round_cuda_bitwise_to_ref(cuda_device):
+    import repro_torch.core as P
+    from repro_torch.serve import LOAD_FIELDS, ControlPlane
+
+    R = 64
+    rng = np.random.default_rng(0)
+    loads = rng.uniform(0.0, 10.0, (R, len(LOAD_FIELDS)))
+    scores = rng.uniform(0.0, 2.0, R)
+    out = {}
+    for backend in ("cuda", "ref"):
+        cp = ControlPlane(R, seed=0, options=P.ExecOptions(backend=backend))
+        before = (pair_apply.launches, sample_chunk.launches)
+        out[backend] = cp.round(loads, scores, round_idx=1)
+        out[backend + " launches"] = (pair_apply.launches - before[0],
+                                      sample_chunk.launches - before[1])
+    a, b = out["cuda"], out["ref"]
+    for f in ("summary", "table", "level_messages", "level_ticks"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert (a.messages, a.control_bytes) == (b.messages, b.control_bytes)
+    launches = out["cuda launches"]
+    assert launches[0] == launches[1] > 0 and out["ref launches"] == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b"])
+def test_paged_decode_bitwise_to_dense_on_card(cuda_device, arch):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import (
+        Transformer, decode_step, init_cache, init_paged_cache,
+        paged_decode_step,
+    )
+
+    cfg = reduce_config(get_config(arch))
+    model = Transformer(cfg).init(seed=3, device=cuda_device)
+    B, ps, P = 4, 4, 6
+    dense = init_cache(model, cfg, B, P * ps)
+    paged = init_paged_cache(model, cfg, B, B * P, ps)
+    page_map = torch.arange(B * P, device=cuda_device).reshape(B, P)
+    live = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    toks = np.random.default_rng(4).integers(2, cfg.vocab_size, (B, P * ps))
+    for t in range(P * ps):
+        want, dense = decode_step(model, cfg, dense, toks[:, t])
+        steps = torch.full((B,), t, dtype=torch.int32, device=cuda_device)
+        got, paged = paged_decode_step(model, cfg, paged, toks[:, t],
+                                       page_map, steps, live)
+        assert torch.equal(got, want), t

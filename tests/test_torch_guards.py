@@ -70,8 +70,12 @@ def test_cuda_backend_on_cpu_raises():
         P.ExecOptions(backend="cuda", device="cpu")
     with pytest.raises(ValueError):
         P.ExecOptions(backend="lax", device="cpu")
-    with pytest.raises(NotImplementedError):
-        P.ExecOptions(schedule="per_tick", device="cpu", backend="ref")
+    # per-tick runs on the CPU with the plain backend, and its "cuda"
+    # branch needs the card like the presampled one
+    assert P.ExecOptions(schedule="per_tick", device="cpu",
+                         backend="ref").schedule == "per_tick"
+    with pytest.raises(ValueError, match="needs device='cuda'"):
+        P.ExecOptions(schedule="per_tick", device="cpu", backend="cuda")
 
 
 @pytest.mark.parametrize("failures,cost", [
@@ -312,3 +316,53 @@ def test_training_entry_points_raise_without_cuda(no_cuda):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_serving_fleet_modules_import_neither_jax_nor_reference():
+    code = ("import sys; import repro_torch.serve.batching, "
+            "repro_torch.serve.kv_pages, repro_torch.serve.router, "
+            "repro_torch.serve.control_plane, repro_torch.serve.fleet, "
+            "repro_torch.core.plan_cache; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_serving_fleet_entry_points_raise_without_cuda(no_cuda, rgg500,
+                                                       x0_500):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import Transformer
+    from repro_torch.serve import (
+        ControlPlane, FleetConfig, ModelBackend, run_fleet,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ControlPlane(8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_fleet(FleetConfig(replicas=8, ticks=4))
+    cfg = reduce_config(get_config("llama3.2-3b"))
+    model = Transformer(cfg).init(seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelBackend(cfg, model, num_slots=2, num_pages=4, page_size=4,
+                     max_prompt_len=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P.execute_plan(P.build_plan(rgg500), x0_500,
+                       options=P.ExecOptions(schedule="per_tick"))
+    nbr, deg, n_nodes, _ = P.batched_graphs([rgg500])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P.gossip_until(x0_500[None], nbr, deg, n_nodes, eps=1e-3,
+                       schedule="per_tick")
+
+
+def test_model_backend_rejects_parameters_elsewhere():
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import Transformer
+    from repro_torch.serve import ModelBackend
+
+    cfg = reduce_config(get_config("rwkv6-3b"))
+    with pytest.raises(ValueError, match="parameters lie on meta"):
+        ModelBackend(cfg, Transformer(cfg), num_slots=2, num_pages=4,
+                     page_size=4, max_prompt_len=4, device="cpu")
