@@ -38,7 +38,20 @@ to the reference's counts), `run_fleet` at R=16 against the recorded
 llama3.2-3b and rwkv6-3b at full size the paged decode step (bitwise to
 the dense one for llama3.2-3b) and the continuous-batching engine on a
 stream that retires and refills slots (replays bitwise, no kernel
-launch).  Any failed check raises, and the script exits non-zero.
+launch).  Then the zoo's other block kinds: the flash kernels at the
+prefill shapes of recurrentgemma-9b's local layers (window 2048, head
+256, one KV head), gemma2-27b's local and global layers (softcap 50)
+and grok-1-314b's (softcap 30) against the plain version, timed beside
+their bound and SDPA where one call computes the same function;
+recurrentgemma-9b at full width and depth (`forward` 4x4096 with one
+flash launch a local layer, `Generator`, the paged step bitwise to the
+dense one, the paged engine, and every rglru and local block of an f32
+copy on its forward route against decode, one local block past its
+window), gemma2-27b at full width and 8 layers (`forward` 1x8192, so the
+window bites) and grok-1-314b at full width and 4 layers (`forward`
+2x4096 through the MoE feed-forward), each with `Generator` and the
+per-block agreement of an f32 copy.  Any failed check raises, and the
+script exits non-zero.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` (per kernel: its launches on each path that runs
@@ -204,8 +217,50 @@ FLEET_LARGE_R = 256
 # refills with 8 slots.
 PAGED = dict(slots=8, page_size=16, pages_per_slot=6, pool=48,
              prompt=(8, 65), budget=(8, 33))
-PAGED_REQUESTS = {"llama3.2-3b": 32, "rwkv6-3b": 12}
+PAGED_REQUESTS = {"llama3.2-3b": 32, "rwkv6-3b": 12, "recurrentgemma-9b": 12}
 REPLAYS = 4
+# the zoo's other block kinds.  Z0: the flash kernels at the prefill
+# shapes the three models below give them, (B, Hq, Hkv, S, D), causal,
+# with the layer's window and softcap and the model's query scale:
+# recurrentgemma-9b's local layers (MQA, head 256, window 2048), gemma2-
+# 27b's local and global layers (window 4096, softcap 50) and grok-1-
+# 314b's (softcap 30).  Each against the plain version under FLASH_TOL
+# and FLASH_BUDGET; recurrentgemma's shape again in f32 at 2e-5.  The
+# windowed kernel at recurrentgemma's shape takes at most
+# ZOO_WINDOW_RATIO of its own time without the window: it keeps 6.29 M of
+# the 8.39 M causal (query, key) pairs a head (0.75), and a kernel that
+# did not skip the key tiles before the window would take about 1.0.
+ZOO_FLASH = (
+    ("recurrentgemma-9b local", (4, 16, 1, 4096, 256),
+     dict(window=2048, softcap=None, scale=256 ** -0.5)),
+    ("gemma2-27b local", (1, 32, 16, 8192, 128),
+     dict(window=4096, softcap=50.0, scale=(4608 / 32) ** -0.5)),
+    ("gemma2-27b global", (1, 32, 16, 8192, 128),
+     dict(window=None, softcap=50.0, scale=(4608 / 32) ** -0.5)),
+    ("grok-1-314b", (2, 48, 8, 4096, 128),
+     dict(window=None, softcap=30.0, scale=128 ** -0.5)),
+)
+ZOO_WINDOW_RATIO = 0.9
+# Z1 / Z2: recurrentgemma-9b (src/repro/configs/recurrentgemma_9b.py) at
+# full width and depth (26 rglru and 12 local layers, 9.40 B parameters,
+# 18.8 GB in bf16): PREFILL, SERVE, AGREE and PAGED as llama3.2-3b; one
+# local block of the f32 copy also over 1 x (window + ZOO_WRAP) tokens
+# against decode_attention, whose rotating cache of the window wraps.
+# Z3: gemma2-27b (src/repro/configs/gemma2_27b.py) at full width, its
+# depth cut to 8 layers (4 local, 4 global; 5.71 B parameters): the full
+# 46 layers (54.5 GB) and the 1 x 8192 logits with the softcap's
+# temporaries would pass 80 GB.  Its prefill is 1 x 8192 tokens, so the
+# local layers' window of 4096 bites.  Z4: grok-1-314b
+# (src/repro/configs/grok_1.py) at full width, its depth cut to 4 layers
+# (21.3 B parameters, 42.6 GB; 64 layers are 633 GB), prefill 2 x 4096;
+# its f32 copy for the agreement has 1 layer (26 GB).  At AGREE's 2 x 64
+# tokens every expert's capacity is 256 slots, more than the 128 tokens,
+# so no token is dropped on either path.
+ZOO_WRAP = 256
+ZOO_DEPTH = {"gemma2-27b": 8, "grok-1-314b": 4}
+ZOO_PREFILL = {"recurrentgemma-9b": PREFILL, "gemma2-27b": (1, 8192),
+               "grok-1-314b": (2, 4096)}
+ZOO_AGREE_DEPTH = {"gemma2-27b": 8, "grok-1-314b": 1}
 # published H100 peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores; the
 # PCIe part is slower.  The int32 rate is the card's SMs x 64 int32
@@ -1356,16 +1411,16 @@ class Smoke:
         return model
 
     def prefill(self, model, cfg, kernel: str, want: int, symbol: str,
-                by_kernel=None):
-        """`forward` at full width and depth on 4 prompts of 4096 tokens:
-        `want` launches of `kernel` (one a layer) and none of the others
-        (for flash, exactly `by_kernel` of each of its CUDA kernels),
-        finite logits, execute seconds, and one traced forward (`symbol`
-        names the kernel in the trace)."""
+                by_kernel=None, shape=PREFILL):
+        """`forward` on `shape` (4 prompts of 4096 tokens unless given):
+        `want` launches of `kernel` (one a layer that runs it) and none of
+        the others (for flash, exactly `by_kernel` of each of its CUDA
+        kernels), finite logits, execute seconds, and one traced forward
+        (`symbol` names the kernel in the trace)."""
         torch = self.torch
         from repro_torch.models import forward
 
-        B, S = PREFILL
+        B, S = shape
         tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=self.gen(13),
                                device=self.dev)
         batch = {"tokens": tokens}
@@ -1375,9 +1430,9 @@ class Smoke:
         torch.cuda.synchronize()
         counts = self.read_counts()
         launches = counts[kernel]
-        check(launches == cfg.num_layers == want,
+        check(launches == want,
               f"{cfg.name} forward launched the {kernel} kernel {launches} "
-              f"times, not once per layer ({cfg.num_layers})")
+              f"times, not once per layer that runs it ({want})")
         self.check_idle(counts, kernel, f"{cfg.name} forward")
         if by_kernel is not None:
             check(self.flash_kernels() == by_kernel,
@@ -1470,10 +1525,11 @@ class Smoke:
         """forward against decode_step fed token by token: the logits at
         every position, and every block alone on the same input, the
         sequence through the block's kernel (the wkv kernel, or the flash
-        kernel forced onto its route with chunk_threshold=0) against the
-        same tokens one by one through decode (the wkv recurrence, or
-        decode_attention over the KV cache).  Held to AGREE_F32_TOL when
-        `checked`, else reported only."""
+        kernel forced onto its route with chunk_threshold=0; an rglru
+        block runs none) against the same tokens one by one through
+        decode (the wkv recurrence, decode_attention over the KV cache,
+        the rglru state update).  Held to AGREE_F32_TOL when `checked`,
+        else reported only."""
         torch = self.torch
         from repro_torch._tf32 import no_tf32
         from repro_torch.models import decode_step, forward, init_cache
@@ -1507,7 +1563,6 @@ class Smoke:
                 outs.append(out)
             return torch.cat(outs, 1)
 
-        ops = self.ops()
         from repro_torch.kernels.flash_attention.ops import KERNELS
 
         flash = KERNELS[getattr(torch, cfg.dtype)]  # this dtype's kernel
@@ -1516,15 +1571,18 @@ class Smoke:
         with no_tf32(), torch.no_grad():
             x = xd = _embed(model, cfg, tokens)
             for p, kind in zip(model.blocks, cfg.layer_kinds()):
-                op = ops["rwkv6" if kind == "rwkv" else "flash_attention"]
-                before = op.launches
+                name = {"rwkv": "rwkv6", "rglru": None}.get(
+                    kind, "flash_attention")
+                want = self.read_counts()
+                if name is not None:
+                    want[name] += 1
                 by_kernel = dict(self.flash_kernels())
                 y = _block_forward(p, cfg, kind, x, None,
                                    chunk_threshold=0).float()
-                check(op.launches == before + 1,
-                      f"{cfg.name} block {len(block_diff)} ({kind}) did not "
-                      f"launch its kernel once")
-                if kind != "rwkv":
+                check(self.read_counts() == want,
+                      f"{cfg.name} block {len(block_diff)} ({kind}) "
+                      f"launched {self.read_counts()}, not {want}")
+                if kind in ("attn", "local"):
                     by_kernel[flash] += 1
                 check(self.flash_kernels() == by_kernel,
                       f"{cfg.name} {cfg.dtype} block {len(block_diff)}: "
@@ -1541,7 +1599,7 @@ class Smoke:
                 x = y.to(xd.dtype)
         # the gap's mean growth a layer, from the first block to the last
         growth = ((chain_diff[-1] / chain_diff[0]) ** (1 / (len(chain_diff) - 1))
-                  if chain_diff[0] > 0 else None)
+                  if chain_diff[0] > 0 and len(chain_diff) > 1 else None)
         if checked:
             tol = AGREE_F32_TOL["logits"]
             check(diff <= tol, f"{cfg.name} {cfg.dtype} forward vs decode: "
@@ -1708,6 +1766,224 @@ class Smoke:
         self.report["flash_main_shape_err"] = {
             "bfloat16": main_err, "float32": err32,
             "bfloat16_mean": mean_err, "bfloat16_rounding_mean": mean_round}
+
+    # ----------------------------------------------------------- the zoo
+    @staticmethod
+    def kept_pairs(S: int, window) -> int:
+        """The (query, key) pairs a causal head of S rows keeps, with the
+        window where one is given."""
+        W = S if window is None else min(window, S)
+        return W * (W + 1) // 2 + (S - W) * W
+
+    def flash_zoo(self):
+        """Z0: the flash kernels at ZOO_FLASH's shapes.  Each bf16 case
+        on the wgmma kernel against the plain version (FLASH_TOL, and its
+        mean error within FLASH_BUDGET of the plain version's own bf16
+        rounding), timed beside its bound (the kept pairs only), the
+        plain version and, where one call computes the same function (no
+        softcap), SDPA with the window as a boolean mask; recurrentgemma's
+        shape again in f32 on the FMA kernel at 2e-5, and the windowed
+        kernel's time there against its own without the window."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.flash_attention import (
+            attention_ref, flash_attention)
+        from repro_torch.kernels.flash_attention.ops import KERNELS
+
+        bf16, f32 = torch.bfloat16, torch.float32
+        g = self.gen(17)
+        rows = []
+        for label, (B, Hq, Hkv, S, D), opts in ZOO_FLASH:
+            main = label.startswith("recurrentgemma")
+            q, k, v = (torch.randn((B, h, S, D), generator=g, device=self.dev)
+                       .to(bf16) for h in (Hq, Hkv, Hkv))
+            before = dict(self.flash_kernels())
+            got = flash_attention(q, k, v, **opts)
+            torch.cuda.synchronize()
+            before[KERNELS[bf16]] += 1
+            check(self.flash_kernels() == before,
+                  f"flash {label} launched {self.flash_kernels()}")
+            # the plain version on bf16 inputs is the f32 computation on
+            # their f32 values, rounded to bf16 at the end
+            want = attention_ref(q.float(), k.float(), v.float(), **opts)
+            plain = want.to(bf16)
+            err = float((got.float() - want).abs().max())
+            mean_err = float((got.float() - want).abs().mean())
+            mean_round = float((plain.float() - want).abs().mean())
+            tol = FLASH_TOL["bfloat16"]
+            check(got.dtype == bf16 and got.shape == q.shape,
+                  f"flash {label}: output {got.dtype} {tuple(got.shape)}")
+            check(torch.allclose(got.float(), plain.float(), rtol=tol,
+                                 atol=tol),
+                  f"flash kernel != plain version at {label} "
+                  f"{(B, Hq, Hkv, S, D)} {opts} (max abs err {err})")
+            check(mean_err <= FLASH_BUDGET * mean_round,
+                  f"flash {label}: bf16 mean abs err {mean_err} beyond "
+                  f"{FLASH_BUDGET}x the bf16 rounding's {mean_round}")
+            row = dict(label=label, shape=[B, Hq, Hkv, S, D], **opts,
+                       max_abs_err=err, mean_abs_err=mean_err,
+                       bf16_rounding_mean=mean_round)
+            del got, plain
+            if main:
+                # the f32 FMA kernel on the same inputs, every row at 2e-5
+                q32, k32, v32 = q.float(), k.float(), v.float()
+                before = dict(self.flash_kernels())
+                got32 = flash_attention(q32, k32, v32, **opts)
+                torch.cuda.synchronize()
+                before[KERNELS[f32]] += 1
+                check(self.flash_kernels() == before,
+                      f"flash {label} f32 launched {self.flash_kernels()}")
+                err32 = float((got32 - want).abs().max())
+                check(torch.allclose(got32, want, rtol=FLASH_TOL["float32"],
+                                     atol=FLASH_TOL["float32"]),
+                      f"flash kernel != plain version at {label} f32 (max "
+                      f"abs err {err32})")
+                row["f32_max_abs_err"] = err32
+                row["f32_ms"] = self.time_ms(
+                    lambda: flash_attention(q32, k32, v32, **opts), reps=3,
+                    warmup=1)
+                del got32, q32, k32, v32
+            del want
+            ms = self.time_ms(lambda: flash_attention(q, k, v, **opts),
+                              reps=10)
+            plain_ms = self.time_ms(lambda: attention_ref(q, k, v, **opts),
+                                    reps=1, warmup=1)
+            pairs = B * Hq * self.kept_pairs(S, opts["window"])
+            nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
+            bound, by = self.bound_ms(nbytes, 4 * D * pairs, peak=self.bf16)
+            library = None
+            if opts["softcap"] is None:
+                i = torch.arange(S, device=self.dev)
+                mask = i[None, :] <= i[:, None]
+                if opts["window"] is not None:
+                    mask &= i[None, :] > i[:, None] - opts["window"]
+                library = self.time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, scale=opts["scale"],
+                        enable_gqa=True), reps=10)
+                del mask
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                       library_ms=library, kept_pairs=pairs)
+            if main:
+                causal_ms = self.time_ms(
+                    lambda: flash_attention(q, k, v, **{**opts,
+                                                        "window": None}),
+                    reps=10)
+                row["causal_ms"] = causal_ms
+                row["window_ratio"] = ms / causal_ms
+                check(ms <= ZOO_WINDOW_RATIO * causal_ms,
+                      f"flash {label}: windowed {ms} ms beyond "
+                      f"{ZOO_WINDOW_RATIO}x its causal-only {causal_ms} ms")
+            log(f"[flash zoo] {label} {(B, Hq, Hkv, S, D)} window "
+                f"{opts['window']} softcap {opts['softcap']}: max abs err "
+                f"{err:.3e} (mean {mean_err:.3e}, "
+                f"{mean_err / mean_round:.3f}x the bf16 rounding's)"
+                + (f", f32 {row['f32_max_abs_err']:.3e} in "
+                   f"{row['f32_ms']:.3f} ms" if "f32_ms" in row else "")
+                + f"; bf16 kernel {ms:.4f} ms ({bound / ms:.3f} of its bound "
+                f"{bound:.4f} ms, {by}; {pairs / 1e6:.2f} M kept pairs), "
+                f"plain {plain_ms:.2f} ms, SDPA "
+                + ("none" if library is None else f"{library:.4f} ms")
+                + (f"; without the window {row['causal_ms']:.4f} ms "
+                   f"(ratio {row['window_ratio']:.3f})"
+                   if "causal_ms" in row else ""))
+            rows.append(row)
+            del q, k, v
+            torch.cuda.empty_cache()
+        self.report["flash_zoo"] = rows
+        return rows
+
+    def zoo_config(self, arch: str, dtype: str = "bfloat16", layers=None):
+        """The zoo config `arch` in `dtype`, its depth cut to `layers` (or
+        ZOO_DEPTH's) where one is given."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch)
+        depth = layers or ZOO_DEPTH.get(arch, cfg.num_layers)
+        return dataclasses.replace(cfg, dtype=dtype, num_layers=depth)
+
+    def zoo_serve(self, arch: str):
+        """Z1, Z3, Z4: the bf16 model's prefill (one bf16 flash launch a
+        local or global layer, none of any other kernel), Generator (no
+        launch) and forward-vs-decode reported; returns the model, the
+        config and the launches of each path."""
+        cfg = self.zoo_config(arch)
+        model = self.model(cfg)
+        attn = sum(k in ("attn", "local") for k in cfg.layer_kinds())
+        shape = ZOO_PREFILL[arch]
+        depth = f", {cfg.num_layers} layers" if arch in ZOO_DEPTH else ""
+        launches = {
+            f"forward {arch} {shape[0]}x{shape[1]}{depth}":
+            self.prefill(model, cfg, "flash_attention", attn,
+                         "flash_kernel_sm90",
+                         {"flash_attention_sm90": attn, "flash_attention": 0},
+                         shape=shape),
+            f"Generator {arch} {SERVE[0]}x({SERVE[1]}+{SERVE[2]})":
+            self.serve(model, cfg, "flash_kernel_sm90")}
+        self.agreement(model, cfg, checked=False)
+        return model, cfg, launches
+
+    def zoo_agree(self, arch: str):
+        """The f32 copy of the model (depth ZOO_AGREE_DEPTH) held to
+        AGREE_F32_TOL, forward against decode, every block on the kernel
+        route; for recurrentgemma also the past-the-window local block."""
+        torch = self.torch
+        cfg32 = self.zoo_config(arch, "float32", ZOO_AGREE_DEPTH.get(arch))
+        model32 = self.model(cfg32)
+        self.agreement(model32, cfg32, checked=True)
+        if arch == "recurrentgemma-9b":
+            self.local_wrap(model32, cfg32)
+        del model32
+        torch.cuda.empty_cache()
+
+    def local_wrap(self, model, cfg):
+        """The first local block of the f32 model over 1 x (window +
+        ZOO_WRAP) tokens: the kernel route (the f32 flash kernel with the
+        window) against decode_attention fed token by token through the
+        rotating cache of the window, which wraps ZOO_WRAP positions
+        later; each row at AGREE_F32_TOL["block"]."""
+        torch = self.torch
+        from repro_torch._tf32 import no_tf32
+        from repro_torch.kernels.flash_attention.ops import KERNELS
+        from repro_torch.models.model import (
+            _block_decode, _block_forward, _embed, layer_state)
+
+        layer = cfg.layer_kinds().index("local")
+        p = model.blocks[layer]
+        S = cfg.window + ZOO_WRAP
+        tokens = torch.randint(0, cfg.vocab_size, (1, S),
+                               generator=self.gen(18), device=self.dev)
+        t0 = time.perf_counter()
+        with no_tf32(), torch.no_grad():
+            x = _embed(model, cfg, tokens)
+            want = dict(self.flash_kernels())
+            want[KERNELS[torch.float32]] += 1
+            y = _block_forward(p, cfg, "local", x, None)
+            check(self.flash_kernels() == want,
+                  f"{cfg.name} local block over {S} tokens launched "
+                  f"{self.flash_kernels()}, not {want}")
+            state = layer_state(cfg, "local", 1, S, self.dev)
+            check(state["k"].shape[2] == cfg.window,
+                  f"local cache of {state['k'].shape[2]} positions")
+            outs = []
+            for t in range(S):
+                out, state = _block_decode(p, cfg, "local", x[:, t:t + 1],
+                                           state, t)
+                outs.append(out)
+            yd = torch.cat(outs, 1)
+        diff = float((yd - y).abs().max())
+        tol = AGREE_F32_TOL["block"]
+        check(torch.allclose(yd, y, rtol=tol, atol=tol),
+              f"{cfg.name} local block {layer} over {S} tokens: forward vs "
+              f"decode max abs diff {diff} beyond {tol}")
+        secs = time.perf_counter() - t0
+        log(f"[agree {cfg.name} local block {layer} 1x{S}] flash (window "
+            f"{cfg.window}) vs decode_attention through a cache of "
+            f"{cfg.window} that wraps: max abs diff {diff:.3e}, within {tol} "
+            f"({secs:.1f} s)")
+        self.report[f"local_wrap_{cfg.name}"] = dict(
+            layer=layer, seq=S, window=cfg.window, max_abs_diff=diff,
+            tol=tol, seconds=secs)
 
     # ---------------------------------------------------------- training
     # ---------------------------------------------------- serving fleet
@@ -1964,23 +2240,25 @@ class Smoke:
         and a one-element list counting its paged steps."""
         from repro_torch.serve import BatchingEngine, ModelBackend, PageTable
 
+        steps = [0]
+
+        # counts in a subclass: a wrapper stored on the instance would
+        # close over the backend, a reference cycle that keeps the model
+        # and its pools on the card until the garbage collector runs
+        class Counted(ModelBackend):
+            def _step(self, *args):
+                steps[0] += 1
+                return super()._step(*args)
+
         table = PageTable(num_pages=PAGED["pool"],
                           page_size=PAGED["page_size"],
                           num_slots=PAGED["slots"],
                           pages_per_slot=PAGED["pages_per_slot"])
-        backend = ModelBackend(cfg, model, num_slots=PAGED["slots"],
-                               num_pages=PAGED["pool"],
-                               page_size=PAGED["page_size"],
-                               max_prompt_len=PAGED["prompt"][1] - 1,
-                               device=self.dev)
-        steps = [0]
-        step = backend._step
-
-        def counted(*args):
-            steps[0] += 1
-            return step(*args)
-
-        backend._step = counted
+        backend = Counted(cfg, model, num_slots=PAGED["slots"],
+                          num_pages=PAGED["pool"],
+                          page_size=PAGED["page_size"],
+                          max_prompt_len=PAGED["prompt"][1] - 1,
+                          device=self.dev)
         return BatchingEngine(backend, table, eos_id=-1), steps
 
     def serve_paged(self, model, cfg):
@@ -2658,6 +2936,41 @@ def main() -> int:
     for name, row in smoke.kernels.items():
         row["train_launches"] = counts[name]
     log(f"[train] kernel launches over T1-T3: {counts}")
+
+    # the zoo's other block kinds, after training's state is freed: Z0 the
+    # flash kernels at their prefill shapes; Z1 recurrentgemma-9b at full
+    # width and depth, Z2 its paged paths, then its f32 copy; Z3 gemma2-
+    # 27b and Z4 grok-1-314b at full width, their depth cut
+    smoke.flash_zoo()
+    torch.cuda.empty_cache()
+    model, cfg, zoo_paths = smoke.zoo_serve("recurrentgemma-9b")
+    smoke.zero_counts()
+    smoke.report["paged_recurrentgemma-9b"] = dict(
+        vs_dense=smoke.paged_vs_dense(model, cfg),
+        engine=smoke.serve_paged(model, cfg))
+    paged_counts = smoke.read_counts()
+    smoke.check_idle(paged_counts, None, "the recurrentgemma-9b paged paths")
+    check(not any(smoke.flash_kernels().values()),
+          f"the recurrentgemma-9b paged paths launched "
+          f"{smoke.flash_kernels()}")
+    zoo_paths[f"paged_decode_step and BatchingEngine recurrentgemma-9b, "
+              f"{PAGED_REQUESTS[cfg.name]} requests through "
+              f"{PAGED['slots']} paged slots"] = paged_counts["flash_attention"]
+    del model
+    torch.cuda.empty_cache()
+    smoke.zoo_agree("recurrentgemma-9b")
+    for arch in ("gemma2-27b", "grok-1-314b"):
+        model, cfg, paths = smoke.zoo_serve(arch)
+        zoo_paths.update(paths)
+        del model
+        torch.cuda.empty_cache()
+        smoke.zoo_agree(arch)
+    smoke.kernels["flash_attention"]["launches_by_path"].update(zoo_paths)
+    smoke.kernels["flash_attention"]["zoo_shapes"] = [
+        {k: row[k] for k in ("label", "shape", "window", "softcap", "ms",
+                             "bound_ms", "bound_by", "plain_ms", "library_ms",
+                             "max_abs_err")}
+        for row in smoke.report["flash_zoo"]]
 
     total = time.perf_counter() - t_start
     smoke.report["total_s"] = total

@@ -1,7 +1,9 @@
 """The model zoo's decoder stack for the port's serving (dense and
-paged decode) and training paths (rwkv and dense attention blocks),
-with the reference's configuration class and converters for its
-parameters, caches and train states."""
+paged decode) and training paths (rwkv, RG-LRU, global and
+sliding-window attention blocks, MLP or mixture-of-experts
+feed-forwards), with the reference's configuration class and
+converters for its parameters, caches and train states.  The block
+modules (`attention`, `rglru`, `moe`, `rwkv`) hold the layers."""
 from .config import ModelConfig
 from .convert import (
     cache_from_reference, params_from_reference, state_from_reference,

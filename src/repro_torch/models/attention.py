@@ -1,26 +1,34 @@
-"""Attention for the dense serving path: GQA/MQA, RoPE / M-RoPE, logit
-softcap, the full-sequence (prefill) attention and the KV-cache decode.
+"""Attention for the serving and training paths: GQA/MQA, RoPE /
+M-RoPE, logit softcap, sliding windows ("local" layers), the
+full-sequence (prefill) attention and the KV-cache decode.
 
 Where the reference runs `chunked_attention` (keys beyond
-`chunk_threshold`), `attention` runs the `flash_attention` op instead:
-the CUDA kernel on the card, its plain version on the CPU.  That kernel
-masks by index (query i and key j from 0) where `chunked_attention`
-masks by position, so the route takes only self-attention at index
-positions: `positions=None`, which means 0..S-1 in every row, as
+`chunk_threshold`) or, for a "local" layer, `banded_local_attention`
+(keys beyond the window), `attention` serves through the
+`flash_attention` op instead, with the layer's window: the CUDA kernel
+on the card, its plain version on the CPU.  That kernel masks by index
+(query i and key j from 0) where the reference masks by position, so
+the route takes only self-attention at index positions:
+`positions=None`, which means 0..S-1 in every row, as
 `models.model._hidden` passes it for every config without M-RoPE.
-Explicit positions or cross-attention there raise, without reading
-the device.  Below the threshold, and in all of
-decode, attention is plain tensor code (`full_attention`), as the
-reference computes it outside any kernel.
+Explicit positions or cross-attention there raise, without reading the
+device.  Below the threshold and the window, and in all of decode,
+attention is plain tensor code (`full_attention`), as the reference
+computes it outside any kernel.
+
+Training (`train=True`) takes differentiable routes only:
+`full_attention` up to `chunk_threshold` keys, and for a "local" layer
+beyond its window `banded_local_attention`, ported as plain tensor
+code.  The flash kernel is forward only.
 
 The paged decode (`init_paged_kv_cache`, `paged_decode_attention`)
 serves continuous batching: each layer's KV lives in a pool of pages
 that a `serve.PageTable` hands to decode slots, and every slot decodes
 at its own position.  It is plain tensor code too, as in the reference.
 
-Not ported yet: `chunked_attention`, `banded_local_attention` (the
-sliding-window route of "local" layers) and long-sequence
-cross-attention.
+Not ported yet: `chunked_attention` and with it cross-attention,
+explicit or M-RoPE positions, and training beyond `chunk_threshold`
+(ROADMAP Queue A, whisper and `chunked_attention`).
 
 The functions take `params` as any mapping of name to tensor: a dict,
 or the `ParameterDict` of a `models.model.Transformer` block.
@@ -31,13 +39,15 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
 from .layers import DTYPES, P_, dense, mrope, rope
 
-__all__ = ["attn_params", "attention", "full_attention", "decode_attention",
-           "init_kv_cache", "init_paged_kv_cache", "paged_decode_attention"]
+__all__ = ["attn_params", "attention", "full_attention",
+           "banded_local_attention", "decode_attention", "init_kv_cache",
+           "init_paged_kv_cache", "paged_decode_attention"]
 
 _NEG_INF = -1e30
 
@@ -103,6 +113,48 @@ def full_attention(q, k, v, bias, *, softcap, scale):
     return o.reshape(B, H, Sq, dh).to(q.dtype)
 
 
+def banded_local_attention(q, k, v, q_pos, k_pos, *, window, softcap, scale,
+                           block: int = 1024):
+    """Causal sliding-window self-attention restricted to the diagonal
+    band: each block of `block` queries attends to the ceil(window /
+    block) + 1 key blocks that can fall inside its window.  q: (B,H,S,dh);
+    k/v: (B,Hkv,S,dh); q_pos, k_pos: (B,S).  Keys are front-padded so
+    the band is a static gather; padded positions are -1 and masked."""
+    B, H, Sq, dh = q.shape
+    _, Hkv, Sk, dv = v.shape
+    g = H // Hkv
+    c = min(block, Sq)
+    pad_t = (-Sq) % c
+    if pad_t:
+        q, k, v = (F.pad(a, (0, 0, 0, pad_t)) for a in (q, k, v))
+        q_pos, k_pos = (F.pad(a, (0, pad_t), value=-1) for a in (q_pos, k_pos))
+    S = q.shape[2]
+    nb = S // c
+    band = -(-window // c) + 1        # blocks that can meet the window
+    qf = (q.float() * scale).reshape(B, Hkv, g, nb, c, dh)
+    # band - 1 dummy blocks in front: padded block row i covers the
+    # true blocks i - band + 1 .. i
+    kb = F.pad(k.reshape(B, Hkv, nb, c, dh), (0, 0, 0, 0, band - 1, 0))
+    vb = F.pad(v.reshape(B, Hkv, nb, c, dv), (0, 0, 0, 0, band - 1, 0))
+    pb = F.pad(k_pos.reshape(B, nb, c), (0, 0, band - 1, 0), value=-1)
+    idx = (torch.arange(nb, device=q.device)[:, None]
+           + torch.arange(band, device=q.device)[None, :])   # (nb, band)
+    kband = kb[:, :, idx].reshape(B, Hkv, nb, band * c, dh)
+    vband = vb[:, :, idx].reshape(B, Hkv, nb, band * c, dv)
+    pband = pb[:, idx].reshape(B, nb, band * c)
+
+    s = torch.einsum("bhgncd,bhnkd->bhgnck", qf, kband.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qp = q_pos.reshape(B, nb, c)[:, None, None, :, :, None]
+    kp = pband[:, None, None, :, None, :]
+    keep = (kp >= 0) & (kp <= qp) & (kp > qp - window)
+    s = torch.where(keep, s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgnck,bhnkd->bhgncd", p, vband.float())
+    return o.reshape(B, H, S, dv)[:, :, :Sq].to(q.dtype)
+
+
 def attention(
     params,
     cfg: ModelConfig,
@@ -116,13 +168,19 @@ def attention(
     chunk_threshold: int = 2047,
     train: bool = False,
 ):
-    """Self- (or cross-) attention over a full sequence (prefill).
-    `positions` is (B, S), or (B, S, 3) for M-RoPE; None means index
-    positions 0..S-1, the only ones the flash route takes.  `train`
-    selects the differentiable route: `full_attention` up to
-    `chunk_threshold` keys, and beyond it a refusal, since the flash
-    kernel is forward only and the reference's `chunked_attention` is
-    not ported yet."""
+    """Self- (or cross-) attention over a full sequence (prefill, or
+    training when `train`).  `positions` is (B, S), or (B, S, 3) for
+    M-RoPE; None means index positions 0..S-1, the only ones the flash
+    route takes.
+
+    Routes, where the reference takes `banded_local_attention` (a
+    causal "local" self-attention beyond its window) or
+    `chunked_attention` (beyond `chunk_threshold` keys): serving runs
+    the flash op with the layer's window; training runs
+    `banded_local_attention` for the first, and refuses the second,
+    since the flash kernel is forward only and `chunked_attention` is
+    not ported yet.  Otherwise `full_attention` with the masks as
+    biases."""
     H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
     index = positions is None
     if index:
@@ -148,25 +206,27 @@ def attention(
     scale = _scale(cfg)
     softcap = cfg.attn_logit_softcap
     Sk = src.shape[1]
-    if window is not None and causal and memory is None and Sk > window:
-        raise NotImplementedError(
-            "the banded sliding-window route of 'local' layers is not "
-            "ported yet (ROADMAP Queue A 11)")
-    if Sk > chunk_threshold and train:
+    banded = (window is not None and causal and memory is None
+              and Sk > window)
+    if train and banded:
+        o = banded_local_attention(q, k, v, q_pos, k_pos, window=window,
+                                   softcap=softcap, scale=scale,
+                                   block=min(1024, window))
+    elif train and Sk > chunk_threshold:
         raise NotImplementedError(
             f"training attention over {Sk} keys: beyond chunk_threshold "
             f"({chunk_threshold}) the reference trains through "
-            f"chunked_attention, which is not ported yet (ROADMAP Queue A), "
-            f"and the flash kernel is forward only")
-    if Sk > chunk_threshold:
-        # the reference's chunked_attention route: the flash kernel,
-        # which masks by index, so only self-attention at 0..S-1
+            f"chunked_attention, which is not ported yet (ROADMAP Queue A, "
+            f"chunked_attention), and the flash kernel is forward only")
+    elif banded or Sk > chunk_threshold:
+        # the flash kernel masks by index: self-attention at 0..S-1 only
         if memory is not None or not index:
             raise NotImplementedError(
-                "the flash route above chunk_threshold masks by index and "
-                "takes self-attention at positions=None (0..S-1) only; "
-                "cross-attention and explicit or M-RoPE positions there are "
-                "not ported yet (ROADMAP Queue A 11)")
+                "the flash route (beyond chunk_threshold, or a local "
+                "layer's window) masks by index and takes self-attention at "
+                "positions=None (0..S-1) only; cross-attention and explicit "
+                "or M-RoPE positions there are not ported yet (ROADMAP "
+                "Queue A, chunked_attention)")
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal, window=window, softcap=softcap,
                             scale=scale)

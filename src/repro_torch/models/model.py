@@ -1,20 +1,23 @@
-"""The decoder stack of the reference's unified transformer, for rwkv
-blocks (rwkv6-3b) and dense attention blocks (llama3.2-3b, yi-6b,
-gemma-7b, qwen2-vl-72b below the flash route's threshold).
+"""The decoder stack of the reference's unified transformer: rwkv blocks
+(rwkv6-3b), RG-LRU blocks and sliding-window "local" attention blocks
+(recurrentgemma-9b, gemma2-27b), dense attention blocks (llama3.2-3b,
+yi-6b, gemma-7b, qwen2-vl-72b below the flash route's threshold), and
+attention blocks whose feed-forward is a mixture of experts
+(grok-1-314b, llama4-maverick-400b-a17b).
 
 The reference stacks each homogeneous group of layers and scans over
 it; here `Transformer` is an `nn.Module` holding one block per layer in
 a `ModuleList`, and the stack is a Python loop.  Remat and sharding
-constraints have no role when serving.  The other block kinds
-(sliding-window "local" attention, RG-LRU), MoE and the encoder are not
-ported yet and raise.
+constraints have no role when serving.  The encoder of an
+encoder-decoder model (whisper) is not ported yet and raises.
 
 Training (`loss_fn`) runs the same blocks with gradients on, each
 block recomputed in backward when `cfg.remat`, through differentiable
-routes only: `full_attention` (and a refusal beyond `chunk_threshold`,
-where the reference's `chunked_attention` is not ported yet) and the
-chunked plain wkv recurrence.  The forward-only kernels raise under
-autograd.
+routes only: `full_attention`, `banded_local_attention` for local
+layers beyond their window (and a refusal beyond `chunk_threshold`,
+where the reference's `chunked_attention` is not ported yet), the
+chunked plain wkv recurrence, the RG-LRU's doubling scan and the MoE
+dispatch.  The forward-only kernels raise under autograd.
 
 `params` is a `Transformer`, or the same parameters as a flat dict of
 tensors under their `named_parameters` names (`param_dict`), as the
@@ -45,6 +48,8 @@ from .config import ModelConfig
 from .layers import (
     DTYPES, P_, count_params, dense, layer_norm, mlp, mlp_params, rms_norm,
 )
+from .moe import moe_ffn, moe_params
+from .rglru import init_rglru_state, rglru_block, rglru_decode, rglru_params
 from .rwkv import (
     init_rwkv_state, rwkv_channel_mix, rwkv_channel_mix_decode, rwkv_params,
     rwkv_time_mix, rwkv_time_mix_decode,
@@ -53,9 +58,6 @@ from .rwkv import (
 __all__ = ["Transformer", "forward", "loss_fn", "init_cache", "decode_step",
            "init_paged_cache", "paged_decode_step", "model_params",
            "param_dict"]
-
-_PORTED_KINDS = ("rwkv", "attn")
-
 
 # --------------------------- parameter tree ---------------------------
 
@@ -76,22 +78,23 @@ def _apply_norm(p, cfg: ModelConfig, x):
 
 
 def block_params(cfg: ModelConfig, kind: str) -> dict:
-    if kind not in _PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} of {cfg.name} is not ported yet; the port "
-            f"runs {_PORTED_KINDS} blocks")
     d: dict = {"ln1": _norm_params(cfg, kind), "ln2": _norm_params(cfg, kind)}
-    if kind == "rwkv":
+    if kind in ("attn", "local"):
+        d["attn"] = attn_params(cfg)
+        if cfg.num_experts:
+            d["moe"] = moe_params(cfg)
+        else:
+            d["mlp"] = mlp_params(cfg.d_model, cfg.d_ff, cfg.mlp_kind)
+        if cfg.post_norms:
+            d["post1"] = _norm_params(cfg, kind)
+            d["post2"] = _norm_params(cfg, kind)
+    elif kind == "rglru":
+        d["rglru"] = rglru_params(cfg)
+        d["mlp"] = mlp_params(cfg.d_model, cfg.d_ff, cfg.mlp_kind)
+    elif kind == "rwkv":
         d.update(rwkv_params(cfg))
-        return d
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE feed-forward is not ported yet")
-    d["attn"] = attn_params(cfg)
-    d["mlp"] = mlp_params(cfg.d_model, cfg.d_ff, cfg.mlp_kind)
-    if cfg.post_norms:
-        d["post1"] = _norm_params(cfg, kind)
-        d["post2"] = _norm_params(cfg, kind)
+    else:
+        raise ValueError(kind)
     return d
 
 
@@ -182,6 +185,9 @@ def _block_forward(p, cfg: ModelConfig, kind: str, x, positions, *,
                               train=train)
         return x + rwkv_channel_mix(p["channel"], cfg,
                                     _apply_norm(p["ln2"], cfg, x))
+    if kind == "rglru":
+        x = x + rglru_block(p["rglru"], cfg, _apply_norm(p["ln1"], cfg, x))
+        return x + mlp(_apply_norm(p["ln2"], cfg, x), p["mlp"], cfg.mlp_kind)
     h = attention(p["attn"], cfg, _apply_norm(p["ln1"], cfg, x), positions,
                   kind=kind, chunk_threshold=chunk_threshold, train=train)
     return _attn_block_rest(p, cfg, x, h)
@@ -189,11 +195,14 @@ def _block_forward(p, cfg: ModelConfig, kind: str, x, positions, *,
 
 def _attn_block_rest(p, cfg: ModelConfig, x, h):
     """An attention block after its attention output `h`: the residual,
-    then the MLP's, each with its post-norm where the config has them."""
+    then the feed-forward's (the MLP, or the MoE), each with its
+    post-norm where the config has them."""
     if cfg.post_norms:
         h = _apply_norm(p["post1"], cfg, h)
     x = x + h
-    h = mlp(_apply_norm(p["ln2"], cfg, x), p["mlp"], cfg.mlp_kind)
+    z = _apply_norm(p["ln2"], cfg, x)
+    h = (moe_ffn(p["moe"], cfg, z) if cfg.num_experts
+         else mlp(z, p["mlp"], cfg.mlp_kind))
     if cfg.post_norms:
         h = _apply_norm(p["post2"], cfg, h)
     return x + h
@@ -316,10 +325,13 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 def layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                 device) -> dict:
-    """One layer's empty decode state: a KV cache for attention, the
-    recurrent state for rwkv."""
+    """One layer's empty decode state: a KV cache for attention (a
+    rotating one of the window for "local"), the recurrent state for
+    rwkv and rglru."""
     if kind == "rwkv":
         return init_rwkv_state(cfg, batch, device)
+    if kind == "rglru":
+        return init_rglru_state(cfg, batch, device)
     return init_kv_cache(cfg, kind, batch, max_len, device)
 
 
@@ -331,6 +343,12 @@ def _block_decode(p, cfg: ModelConfig, kind: str, x, state, step: int):
         h, new_c = rwkv_channel_mix_decode(
             p["channel"], cfg, _apply_norm(p["ln2"], cfg, x), new_t)
         return x + h, new_c
+    if kind == "rglru":
+        h, new = rglru_decode(p["rglru"], cfg, _apply_norm(p["ln1"], cfg, x),
+                              state)
+        x = x + h
+        return (x + mlp(_apply_norm(p["ln2"], cfg, x), p["mlp"],
+                        cfg.mlp_kind), new)
     h, new = decode_attention(p["attn"], cfg, _apply_norm(p["ln1"], cfg, x),
                               state, step, kind=kind)
     return _attn_block_rest(p, cfg, x, h), new
@@ -360,8 +378,9 @@ def init_paged_cache(params, cfg: ModelConfig, num_slots: int,
                      num_pages: int, page_size: int) -> dict:
     """Decode state of the paged (continuous-batching) path on the
     parameters' device: one page pool per attention layer (plus its
-    trash page, `attention.init_paged_kv_cache`), per-slot recurrent
-    state for rwkv layers, which the step zeroes at a fresh admission.
+    trash page, `attention.init_paged_kv_cache`; "local" layers too,
+    masked by the window), per-slot recurrent state for rwkv and rglru
+    layers, which the step zeroes at a fresh admission.
     Encoder-decoder configs are not paged: their decode state is
     per-request memory, not a KV pool."""
     if cfg.encoder_layers:
@@ -370,8 +389,9 @@ def init_paged_cache(params, cfg: ModelConfig, num_slots: int,
             f"{cfg.name} has encoder layers")
     device = params["embed"].device
     return {"layers": [
-        init_rwkv_state(cfg, num_slots, device) if kind == "rwkv"
-        else init_paged_kv_cache(cfg, num_pages, page_size, device)
+        init_paged_kv_cache(cfg, num_pages, page_size, device)
+        if kind in ("attn", "local")
+        else layer_state(cfg, kind, num_slots, 0, device)
         for kind in cfg.layer_kinds()]}
 
 
@@ -386,7 +406,7 @@ def _slot_mask(m, a):
 
 def _block_decode_paged(p, cfg: ModelConfig, kind: str, x, state,
                         page_map, steps, write_mask):
-    if kind != "rwkv":
+    if kind in ("attn", "local"):
         h, new = paged_decode_attention(
             p["attn"], cfg, _apply_norm(p["ln1"], cfg, x), state, page_map,
             steps, write_mask, kind=kind)

@@ -4,8 +4,10 @@
 it (greedy or temperature sampling, batched requests with per-slot stop
 handling).  The prompt is teacher-forced through the same step, token by
 token, as in the reference, so serving launches neither the wkv nor the
-flash kernel: rwkv layers run the O(1) recurrence, attention layers
-attend over a `max_len` KV cache in plain tensor code.
+flash kernel: recurrent layers (rwkv, rglru) run their O(1) state
+update, attention layers attend over a `max_len` KV cache ("local"
+layers over a rotating one of their window) in plain tensor code, and
+MoE feed-forwards route each step's tokens alone.
 """
 from __future__ import annotations
 

@@ -408,11 +408,16 @@ _BF16, _F32 = torch.bfloat16, torch.float32
     (1, 4, 2, 300, 128, _BF16, {"causal": False, "window": 100}),
     (2, 6, 2, 130, 128, _BF16, {}),
     (1, 2, 1, 64, 128, _BF16, {}),
+    (2, 16, 1, 700, 256, _BF16, {"window": 256}),
+    (2, 16, 1, 700, 256, _F32, {"window": 256}),
+    (1, 8, 4, 600, 128, _BF16, {"window": 200, "softcap": 50.0}),
+    (1, 8, 4, 600, 128, _F32, {"window": 200, "softcap": 50.0}),
 ], ids=["gqa-bf16", "mqa-f32", "unaligned", "window64", "window128",
         "softcap", "noncausal", "d256", "llama-heads", "mqa-bf16",
         "unaligned-bf16", "window64-bf16", "window128-bf16", "softcap-bf16",
         "noncausal-bf16", "d64-bf16", "window-noncausal-bf16",
-        "tile-tail-bf16", "short-bf16"])
+        "tile-tail-bf16", "short-bf16", "window-d256-mqa-bf16",
+        "window-d256-mqa-f32", "window-softcap-bf16", "window-softcap-f32"])
 def test_flash_attention_kernel_on_card(cuda_device, B, Hq, Hkv, S, D, dtype,
                                         opts):
     rng = np.random.default_rng(S + D)
@@ -676,3 +681,75 @@ def test_paged_decode_bitwise_to_dense_on_card(cuda_device, arch):
         got, paged = paged_decode_step(model, cfg, paged, toks[:, t],
                                        page_map, steps, live)
         assert torch.equal(got, want), t
+
+
+# the local route of `attention()`: a recurrentgemma-like layer (MQA, head
+# 256) and a gemma2-like one (GQA, softcap 50), each at a width of 256
+# with a window of 64 over 300 tokens, on the card (the flash kernel of
+# the dtype, once) against the same call on the CPU (the plain version)
+_LOCAL_CFGS = {
+    "mqa-d256": dict(num_heads=4, num_kv_heads=1, head_dim=256),
+    "gqa-softcap": dict(num_heads=4, num_kv_heads=2, head_dim=128,
+                        attn_logit_softcap=50.0, query_scale=0.1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [_BF16, _F32])
+@pytest.mark.parametrize("layer", list(_LOCAL_CFGS))
+def test_local_attention_route_on_card(cuda_device, layer, dtype):
+    import dataclasses
+
+    from repro_torch._tf32 import no_tf32
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models.attention import attention, attn_params
+
+    cfg = dataclasses.replace(
+        reduce_config(get_config("gemma2-27b")), d_model=256, window=64,
+        dtype=str(dtype).split(".")[-1],
+        **{"attn_logit_softcap": None, **_LOCAL_CFGS[layer]})
+    gen = torch.Generator().manual_seed(0)
+    params = {k: (torch.randn(d.shape, generator=gen) * d.std()).to(dtype)
+              for k, d in attn_params(cfg).items()}
+    x = torch.randn((2, 300, cfg.d_model), generator=gen).to(dtype)
+    with no_tf32():
+        want = attention(params, cfg, x, kind="local")
+        before = dict(flash_attention.kernel_launches)
+        got = attention({k: v.to(cuda_device) for k, v in params.items()},
+                        cfg, x.to(cuda_device), kind="local")
+        torch.cuda.synchronize()
+    name = KERNELS[dtype]
+    assert flash_attention.kernel_launches == {**before,
+                                               name: before[name] + 1}
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+def test_recurrentgemma_paged_decode_bitwise_to_dense_on_card(cuda_device):
+    """A reduced recurrentgemma (rglru and local blocks, window 16): the
+    paged step through an identity page map of 16 positions, the
+    window, is the dense step bit for bit, and no kernel launches."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import (
+        Transformer, decode_step, init_cache, init_paged_cache,
+        paged_decode_step,
+    )
+
+    cfg = reduce_config(get_config("recurrentgemma-9b"))
+    model = Transformer(cfg).init(seed=3, device=cuda_device)
+    B, ps, P = 4, 4, 4
+    dense = init_cache(model, cfg, B, P * ps)
+    paged = init_paged_cache(model, cfg, B, B * P, ps)
+    page_map = torch.arange(B * P, device=cuda_device).reshape(B, P)
+    live = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    toks = np.random.default_rng(4).integers(2, cfg.vocab_size, (B, P * ps))
+    before = flash_attention.launches
+    for t in range(P * ps):
+        want, dense = decode_step(model, cfg, dense, toks[:, t])
+        steps = torch.full((B,), t, dtype=torch.int32, device=cuda_device)
+        got, paged = paged_decode_step(model, cfg, paged, toks[:, t],
+                                       page_map, steps, live)
+        assert torch.equal(got, want), t
+    assert flash_attention.launches == before

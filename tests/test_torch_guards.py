@@ -366,3 +366,35 @@ def test_model_backend_rejects_parameters_elsewhere():
     with pytest.raises(ValueError, match="parameters lie on meta"):
         ModelBackend(cfg, Transformer(cfg), num_slots=2, num_pages=4,
                      page_size=4, max_prompt_len=4, device="cpu")
+
+
+def test_zoo_block_modules_import_neither_jax_nor_reference():
+    code = ("import sys; import repro_torch.models.rglru, "
+            "repro_torch.models.moe, repro_torch.models.attention; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "gemma2-27b",
+                                  "grok-1-314b"])
+def test_zoo_entry_points_raise_without_cuda(no_cuda, arch):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import Transformer, params_from_reference
+    from repro_torch.serve import Generator, ModelBackend
+
+    cfg = reduce_config(get_config(arch))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Transformer(get_config(arch)).init(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_reference({"groups": []}, cfg)
+    model = Transformer(cfg).init(seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Generator(cfg, model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelBackend(cfg, model, num_slots=2, num_pages=4, page_size=4,
+                     max_prompt_len=4)
+    Generator(cfg, model, device="cpu")

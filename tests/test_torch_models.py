@@ -134,12 +134,32 @@ def test_num_params_match_reference(reduced):
     assert all(p.device.type == "meta" for p in model.parameters())
 
 
-@pytest.mark.parametrize("arch", ["gemma2-27b", "recurrentgemma-9b",
-                                  "whisper-tiny",
-                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny"])
 def test_unported_block_kinds_raise(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Transformer(reduce_config(get_config(arch)))
+
+
+# the reference's counts at full size (`Transformer(cfg, model_axis=1)`)
+ZOO_PARAMS = {"recurrentgemma-9b": 9_396_088_832,
+              "gemma2-27b": 27_227_128_320,
+              "grok-1-314b": 316_489_340_928,
+              "llama4-maverick-400b-a17b": 778_214_937_600}
+
+
+@pytest.mark.parametrize("arch", list(ZOO_PARAMS))
+@pytest.mark.parametrize("reduced", [True, False])
+def test_zoo_num_params_match_reference(arch, reduced):
+    """The RG-LRU, local-attention and MoE configs build (on the meta
+    device) with the reference's parameter tree: names, shapes, count."""
+    cfg, ref_cfg = get_config(arch), ref_configs.get_config(arch)
+    if reduced:
+        cfg, ref_cfg = reduce_config(cfg), ref_configs.reduce_config(ref_cfg)
+    model = Transformer(cfg)
+    want = ref_models.Transformer(ref_cfg, model_axis=1).num_params
+    assert model.num_params == want == sum(p.numel() for p in model.parameters())
+    if not reduced:
+        assert want == ZOO_PARAMS[arch]
 
 
 @pytest.mark.parametrize("arch", DENSE)

@@ -184,7 +184,8 @@ def _no_trash(layer):
             for k, v in layer.items()}
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b",
+                                  "recurrentgemma-9b", "grok-1-314b"])
 def test_paged_decode_step_matches_reference_f32(arch):
     ref_cfg, cfg = _cfgs(arch, "float32")
     ref_p, port_p = _params(ref_cfg, cfg, seed=1)
@@ -267,7 +268,8 @@ def _lifecycle(r):
     return (r.rid, r.slot, r.arrived, r.admitted, r.finished, r.tokens)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b",
+                                  "recurrentgemma-9b"])
 def test_engine_retire_refill_matches_reference(arch):
     """2 slots, 5 requests of uneven prompts and budgets: slots retire
     and refill mid-stream; every request's tokens, slot and step stamps
