@@ -36,7 +36,16 @@
 // Both paths form each output as a sequential fmaf chain over k, f32
 // throughout, no tensor cores, no TF32.  The sums run in another order
 // than the plain matmul, so the two agree to f32 rounding, not bitwise.
+//
+// Binding: besides the plain C entry point the library is a CPython
+// extension module (Python.h only, no PyTorch headers), whose one
+// METH_FASTCALL function takes the ten integers of a launch.  At the
+// matmul backend's shapes the host's path to the launch is most of the
+// op's time, and ctypes' per-argument conversions were the largest part
+// of the wrapper's own share.
 
+#include <Python.h>
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -191,3 +200,47 @@ extern "C" int cell_mixing_launch(const float* w, const float* x, float* y,
                                                         rounds, w_in_smem);
   return (int)cudaGetLastError();
 }
+
+namespace {
+
+// launch(w, x, y, B, m, d, rounds, dt, w_in_smem, stream) -> int: the
+// three device pointers and the stream as Python ints, the rest as ints
+// that fit a C int; returns cell_mixing_launch's error code.
+PyObject* py_launch(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  if (nargs != 10) {
+    PyErr_SetString(PyExc_TypeError, "launch takes 10 arguments");
+    return nullptr;
+  }
+  void* ptr[4];  // w, x, y and the stream
+  for (int i = 0; i < 4; ++i) {
+    ptr[i] = PyLong_AsVoidPtr(args[i < 3 ? i : 9]);
+    if (ptr[i] == nullptr && PyErr_Occurred()) return nullptr;
+  }
+  int v[6];
+  for (int i = 0; i < 6; ++i) {
+    const long t = PyLong_AsLong(args[3 + i]);
+    if (t == -1 && PyErr_Occurred()) return nullptr;
+    if (t > INT_MAX || t < INT_MIN) {
+      PyErr_SetString(PyExc_OverflowError, "launch argument beyond a C int");
+      return nullptr;
+    }
+    v[i] = (int)t;
+  }
+  return PyLong_FromLong(cell_mixing_launch(
+      static_cast<const float*>(ptr[0]), static_cast<const float*>(ptr[1]),
+      static_cast<float*>(ptr[2]), v[0], v[1], v[2], v[3], v[4], v[5],
+      ptr[3]));
+}
+
+PyMethodDef kMethods[] = {
+    {"launch", reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)(void)>(
+                   py_launch)),
+     METH_FASTCALL, "Launch cell_mixing on a stream; returns its error code."},
+    {nullptr, nullptr, 0, nullptr}};
+
+PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "cell_mixing", nullptr, -1,
+                       kMethods, nullptr, nullptr, nullptr, nullptr};
+
+}  // namespace
+
+PyMODINIT_FUNC PyInit_cell_mixing(void) { return PyModule_Create(&kModule); }

@@ -1,8 +1,9 @@
 """The forward-only kernels refuse autograd.
 
-Each op writes its CUDA kernel's result through ctypes into a fresh
-tensor, which carries no `grad_fn`: a loss computed through it would
-silently give nothing upstream a gradient.  So on any device but the
+Each op writes its CUDA kernel's result through ctypes (cell_mixing
+through its extension module's entry) into a fresh tensor, which
+carries no `grad_fn`: a loss computed through it would silently give
+nothing upstream a gradient.  So on any device but the
 CPU (whose plain versions are differentiable tensor code) an op raises
 before its launch when gradients are on and a floating input asks for
 one.  Training takes the differentiable route instead: `full_attention`

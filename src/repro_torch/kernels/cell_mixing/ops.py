@@ -8,13 +8,12 @@ kernel (``csrc/cell_mixing.cu``) or raises.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from .._build import load
+from .._build import load_module
 from .._guard import refuse_autograd
 from .ref import cell_mixing_ref
 
@@ -22,6 +21,8 @@ __all__ = ["mixing_matrix", "pad_mixing", "cell_mixing", "launch_config"]
 
 _SMEM_CAP = 200 * 1024
 _DT = 64
+_WARP_PATH = (0, False)  # m <= 32: the kernel reads neither d-tile nor flag
+_F32 = torch.float32
 _LAUNCH = None
 
 
@@ -82,14 +83,12 @@ def launch_config(m: int, d: int, smem_cap: int = _SMEM_CAP):
 
 
 def _lib():
-    """The kernel's C entry point, its signature set on first use."""
+    """The kernel's launch function, from its extension module (loaded
+    on first use): launch(w, x, y, B, m, d, rounds, dt, w_in_smem,
+    stream) with pointers and the stream as ints."""
     global _LAUNCH
     if _LAUNCH is None:
-        fn = load("cell_mixing").cell_mixing_launch
-        p, n = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, n, n, n, n, n, n, p]
-        fn.restype = ctypes.c_int
-        _LAUNCH = fn
+        _LAUNCH = load_module("cell_mixing").launch
     return _LAUNCH
 
 
@@ -99,7 +98,9 @@ def cell_mixing(w, x, *, rounds: int = 1):
     w: (B, m, m), x: (B, m, d), both float32; on the card both must be
     contiguous and on one device.  The path to the kernel is kept short:
     at the matmul backend's sizes the host's time per call is most of
-    the op's.
+    the op's: each check is one attribute read, the launch config is
+    looked up only for the block path, and the launch goes through an
+    extension module's fast-call entry rather than ctypes.
     """
     if not x.is_cuda:
         if x.device.type == "cpu":
@@ -108,7 +109,7 @@ def cell_mixing(w, x, *, rounds: int = 1):
         raise ValueError(f"cell_mixing runs on cpu or cuda, not {x.device}")
     if w.requires_grad or x.requires_grad:  # kept off the short path
         refuse_autograd("cell_mixing", w, x)
-    if x.dim() != 3 or x.dtype != torch.float32 or w.dtype != torch.float32:
+    if x.dtype is not _F32 or w.dtype is not _F32 or x.dim() != 3:
         raise ValueError("w and x must be float32 (B, m, m) and (B, m, d)")
     B, m, d = x.shape
     if w.shape != (B, m, m):
@@ -120,7 +121,7 @@ def cell_mixing(w, x, *, rounds: int = 1):
         raise ValueError("w and x must be contiguous")
     if rounds < 0:
         raise ValueError("rounds must be >= 0")
-    dt, w_in_smem = launch_config(m, d)
+    dt, w_in_smem = _WARP_PATH if m <= 32 else launch_config(m, d)
     y = torch.empty_like(x)
     args = (w.data_ptr(), x.data_ptr(), y.data_ptr(), B, m, d, int(rounds),
             dt, w_in_smem)
@@ -129,7 +130,7 @@ def cell_mixing(w, x, *, rounds: int = 1):
     else:
         with torch.cuda.device(idx):
             rc = _lib()(*args, torch._C._cuda_getCurrentRawStream(idx))
-    if rc != 0:
+    if rc:
         raise RuntimeError(f"cell_mixing kernel launch failed: CUDA error {rc}")
     cell_mixing.launches += 1
     return y

@@ -302,6 +302,31 @@ def test_cell_mixing_kernel_takes_numpy_rounds_on_card(cuda_device, m):
 
 
 @pytest.mark.cuda
+def test_cell_mixing_launch_entry_refuses_bad_arguments(cuda_device):
+    """The extension module's launch entry takes ten integers that fit
+    its C types and raises, launching nothing, on anything else."""
+    from repro_torch.kernels.cell_mixing.ops import _lib
+
+    launch = _lib()
+    w = torch.zeros((1, 4, 4), device=cuda_device)
+    x = torch.zeros((1, 4, 2), device=cuda_device)
+    y = torch.full_like(x, 7.0)
+    ptrs = (w.data_ptr(), x.data_ptr(), y.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    with pytest.raises(TypeError, match="10 arguments"):
+        launch(*ptrs)
+    with pytest.raises(OverflowError):
+        launch(*ptrs, 2**31, 4, 2, 1, 0, 0, stream)
+    with pytest.raises(TypeError):
+        launch(*ptrs, 1, 4, 2, 1.5, 0, 0, stream)
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all())
+    assert launch(*ptrs, 1, 4, 2, 1, 0, 0, stream) == 0
+    torch.cuda.synchronize()
+    assert bool((y == 0.0).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,d", [(15, 2), (30, 3), (49, 33)])
 def test_cell_mixing_kernel_padded_layout_on_card(cuda_device, m, d):
     """pad_mixing's identity-padded layout (m to a multiple of 8, d of
