@@ -15,7 +15,9 @@ backend at n=20000 (also under churn and Byzantine scenarios),
 `synchronous_multiscale` at n=2000, and the baselines (`standard_gossip`
 at n=500 on the card, fig5's path averaging on the host), and checks the
 results against the repository's recorded message counts and errors
-and against the plain backend on the card.  Then the rwkv6-3b serving path at full
+and against the plain backend on the card (the sample_chunk op's device
+time held to 2.0x its bound in plain mode and 3.0x with the stragglers
+scenario and the cost model).  Then the rwkv6-3b serving path at full
 width and depth, with parameters drawn on the card from a seed:
 `forward` on 4 prompts of 4096 tokens (one rwkv6 kernel launch per
 layer, finite logits, a traced run), `Generator` answering 8 requests
@@ -108,6 +110,12 @@ FIG5_MULTISCALE = [126892, 127012, 127188]
 # pair_apply's device time at the n=10^5 finest level, at most this
 # multiple of its bound
 PAIR_APPLY_BOUND_LIMIT = 2.0
+# sample_chunk's device time at the same level (T=50, R=1, B=43250, C=9),
+# at most this multiple of its bound: plain mode, and the op with the
+# stragglers scenario and SCENARIO_COST (the kernel, the concurrency
+# pairs' kernel and the zeroing of the attempts a tick)
+SAMPLE_CHUNK_BOUND_LIMIT = 2.0
+SAMPLE_CHUNK_SCENARIO_BOUND_LIMIT = 3.0
 SYNC_CHUNK = 8  # synchronous_multiscale's rounds per cell_mixing launch
 # rwkv6-3b serving (src/repro/configs/rwkv6_3b.py, full width and depth):
 # prefill on 4 prompts of 4096 tokens (a cut from prefill_32k's 32 x
@@ -346,6 +354,22 @@ class Smoke:
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                            else "operations")
 
+    def chunk_bound(self, lp, T: int, R: int):
+        """The least time of one plain-mode sample_chunk draw of `T` ticks
+        for `R` trials over level `lp`, and what bounds it: each input
+        read once (keys; start and degrees (B, C); nbr and hops; n_nodes;
+        done), usage and msgs read and written once, the (T, R*B) pairs
+        and bits written once; the hashes: 5 for each tick's keys of a
+        trial, 2 for each counter pair of a tick (i and j words).
+        Returns (bound ms, "bytes" or "operations", bytes, hashes)."""
+        B, C = lp.num_graphs, lp.degrees.shape[1]
+        nflat = lp.nbr_flat.shape[0]
+        nbytes = (16 * R + 2 * B * C * 4 + 2 * nflat * 4 + B * 4 + R * B
+                  + 2 * R * (nflat * 4 + B * 4) + T * R * B * (4 + 4 + 1 + 1))
+        hashes = R * (5 * T + 2 * T * ((B + 1) // 2))
+        bound, by = self.bound_ms(nbytes, hashes * HASH_OPS, peak=self.int32)
+        return bound, by, nbytes, hashes
+
     def gen(self, seed: int):
         return self.torch.Generator(device=self.dev).manual_seed(seed)
 
@@ -460,8 +484,9 @@ class Smoke:
         T=50), at level 1 (B=12539, odd) and at the top level (B=1,
         C=49, T=64), each for R in (1, 4), without loss and at
         loss_p=0.9, with a random `done` freeze.  Times it at the finest
-        level.  Returns the top level's slots and its draw for one
-        trial."""
+        level, held to SAMPLE_CHUNK_BOUND_LIMIT times its bound, and at
+        the top level beside its bound.  Returns the top level's slots and
+        its draw for one trial."""
         torch = self.torch
         from repro_torch.core import CsrGraphs, fi_ticks, prng
         from repro_torch.kernels.sample_chunk import (
@@ -530,24 +555,36 @@ class Smoke:
         ms = self.time_ms(kernel, reps=50)
         dev_ms = self.device_ms(kernel, 50)
         plain_ms = self.time_ms(plain, reps=3, warmup=1)
-        # each input read once (keys; start and degrees (B, C); nbr and
-        # hops; n_nodes; done), usage and msgs read and written once, and
-        # the (T, B) pairs and bits written once; the hashes: 5 for each
-        # tick's keys, 2 for each counter pair of a tick (i and j words)
+        bound, by, nbytes, hashes = self.chunk_bound(lp, T, 1)
         nflat = lp.nbr_flat.shape[0]
-        nbytes = (16 + 2 * B * C * 4 + 2 * nflat * 4 + B * 4 + B
-                  + 2 * (nflat * 4 + B * 4) + T * B * (4 + 4 + 1 + 1))
-        hashes = 5 * T + 2 * T * ((B + 1) // 2)
-        bound, by = self.bound_ms(nbytes, hashes * HASH_OPS, peak=self.int32)
         log(f"[sample_chunk] bitwise == plain version in all six outputs at "
             f"{cases} cases (levels {levels}: B = "
             f"{[plan.levels[i].num_graphs for i in levels]}; R 1, 4; loss "
             f"none, 0.9; done random); at (T={T}, B={B}, C={C}): kernel "
             f"{ms:.4f} ms a call, {dev_ms:.4f} ms on the device (CUDA "
-            f"graph), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
-            f"{nbytes / 1e6:.2f} MB, {hashes} hashes, "
-            f"{hashes * HASH_OPS / 1e6:.1f} M int32 operations at "
-            f"{self.int32 / 1e12:.2f} T/s)")
+            f"graph, {dev_ms / bound:.2f}x the bound), plain {plain_ms:.4f} "
+            f"ms, bound {bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+            f"{hashes} hashes, {hashes * HASH_OPS / 1e6:.1f} M int32 "
+            f"operations at {self.int32 / 1e12:.2f} T/s)")
+        check(dev_ms <= SAMPLE_CHUNK_BOUND_LIMIT * bound,
+              f"sample_chunk {dev_ms:.4f} ms on the device at (T={T}, B={B}, "
+              f"C={C}), above {SAMPLE_CHUNK_BOUND_LIMIT}x its "
+              f"{bound:.4f} ms bound")
+        # the top level's draw: one graph of 49 slots, 64 ticks; also
+        # pair_apply's top-level shape
+        top = plan.levels[-1]
+        T_top = chunk_T(top)
+        adj, keys, done, usage, msgs = inputs(len(plan.levels) - 1, 1, 9)
+        done.zero_()
+
+        def kernel_top():
+            return sample_chunk(0, T_top, keys, adj, None, done, usage, msgs)
+
+        top_dev_ms = self.device_ms(kernel_top, 50)
+        top_bound, top_by, _, _ = self.chunk_bound(top, T_top, 1)
+        log(f"[sample_chunk] top level (T={T_top}, R=1, B=1, "
+            f"C={top.degrees.shape[1]}): {top_dev_ms:.4f} ms on the device, "
+            f"bound {top_bound:.7f} ms ({top_by})")
         self.kernels["sample_chunk"] = dict(
             name="sample_chunk", route="cuda",
             source="src/repro_torch/csrc/sample_chunk.cu",
@@ -556,13 +593,11 @@ class Smoke:
                      "XLA, no Pallas kernel",
             launches=None, max_abs_err=0.0, ms=ms, device_ms=dev_ms,
             plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+            bound_limit=SAMPLE_CHUNK_BOUND_LIMIT,
+            top_device_ms=top_dev_ms, top_bound_ms=top_bound,
+            top_bound_by=top_by,
             shape=dict(T=T, R=1, B=B, C=C, nflat=nflat))
-        # the top level's draw for pair_apply's top-level shape
-        top = plan.levels[-1]
-        adj, keys, done, usage, msgs = inputs(len(plan.levels) - 1, 1, 9)
-        done.zero_()
-        return top.degrees.shape[1], sample_chunk(
-            0, chunk_T(top), keys, adj, None, done, usage, msgs)
+        return top.degrees.shape[1], kernel_top()
 
     @staticmethod
     def fi_levels(plan, check_every: int = 64):
@@ -588,7 +623,9 @@ class Smoke:
         (1, 2), each scenario of scenario_matrix() with its level flags
         as `execute_plan` builds them, without loss and at loss_p=0.9,
         under SCENARIO_COST, a random `done` freeze.  Times the op at the
-        finest level with the stragglers scenario and the cost on."""
+        finest level with the stragglers scenario and the cost on, held to
+        SAMPLE_CHUNK_SCENARIO_BOUND_LIMIT times its bound, and splits its
+        device time by kernel."""
         torch = self.torch
         from repro_torch.core import (CostModel, CsrGraphs, prng,
                                       scenario_matrix)
@@ -692,6 +729,24 @@ class Smoke:
         hashes = (5 * T + 2 * T * ((B + 1) // 2) + -(-strag_words // 2)
                   + -(-retx_words // 2))
         bound, by = self.bound_ms(nbytes, hashes * HASH_OPS, peak=self.int32)
+        # the op's device time split by kernel: the draw, the congestion
+        # pairs, and the zeroing of the attempts a tick
+        for _ in range(3):
+            kernel()
+        rows_t, _ = self.trace(lambda: [kernel() for _ in range(20)])
+
+        def part(match):
+            return sum(r[0] for r in rows_t if match(r[2])) / 1e3 / 20
+
+        split = {
+            "kernel": part(lambda k: "sample_chunk" in k
+                           and "congestion" not in k),
+            "congestion": part(lambda k: "sample_chunk_congestion" in k),
+            "fill": part(lambda k: "FillFunctor" in k)}
+        split["other"] = part(lambda k: True) - sum(split.values())
+        log(f"[sample_chunk scenario] the op's device ms a call by kernel "
+            f"(torch.profiler, 20 calls): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in split.items()))
         log(f"[sample_chunk scenario] bitwise == plain version in all eight "
             f"outputs at {cases} cases (levels {levels}, B = "
             f"{[plan.levels[i].num_graphs for i in levels]}, hop_cap "
@@ -702,11 +757,20 @@ class Smoke:
             f"device (CUDA graph), plain {plain_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {hashes} hashes "
             f"of which {-(-strag_words // 2)} straggler and "
-            f"{-(-retx_words // 2)} retransmission)")
+            f"{-(-retx_words // 2)} retransmission; the op "
+            f"{dev_ms / bound:.2f}x the bound)")
+        check(dev_ms <= SAMPLE_CHUNK_SCENARIO_BOUND_LIMIT * bound,
+              f"sample_chunk with stragglers and cost {dev_ms:.4f} ms on the "
+              f"device at (T={T}, B={B}, C={C}), above "
+              f"{SAMPLE_CHUNK_SCENARIO_BOUND_LIMIT}x its {bound:.4f} ms bound")
         self.kernels["sample_chunk"].update(
             scenario_cases=cases, scenario_ms=ms, scenario_device_ms=dev_ms,
             scenario_plain_ms=plain_ms, scenario_bound_ms=bound,
-            scenario_bound_by=by, scenario_shape=dict(
+            scenario_bound_by=by,
+            scenario_bound_limit=SAMPLE_CHUNK_SCENARIO_BOUND_LIMIT,
+            scenario_kernel_ms=split["kernel"],
+            scenario_congestion_ms=split["congestion"],
+            scenario_fill_ms=split["fill"], scenario_shape=dict(
                 T=T, R=1, B=B, C=C, scenario="stragglers", **SCENARIO_COST),
             scenario_hashes=hashes)
 
@@ -2115,6 +2179,14 @@ class Smoke:
                                                   - scores[None]).max()))
             row.update(self.busy(f"control plane R={R}", rows, traced_s,
                                  warm_s, "pair_apply"))
+            if "device_busy_ms" in row:
+                row["sample_chunk_device_ms"] = sum(
+                    r[0] for r in rows if "sample_chunk" in r[2]) / 1e3
+                log(f"[control R={R}] sample_chunk "
+                    f"{row['sample_chunk_device_ms']:.3f} ms on the device a "
+                    f"round (PR 19: 2.55 ms at R=1024)")
+            if R == 1024:
+                row.update(self.control_chunk(cp))
             log(f"[control R={R}] levels {cp.levels}, messages {rr.messages} "
                 f"{rr.level_messages.tolist()}, ticks "
                 f"{rr.level_ticks.tolist()}, {rr.control_bytes} bytes a "
@@ -2125,6 +2197,36 @@ class Smoke:
             launches[R] = chunks
         self.report["control_plane"] = out
         return launches
+
+    def control_chunk(self, cp):
+        """One chunk of a ControlPlane round's finest level, timed on the
+        device beside its bound: every payload field is a trial (4 + R)
+        and, as the round draws them, all trials share one key."""
+        torch = self.torch
+        from repro_torch.core import CsrGraphs, prng
+        from repro_torch.kernels.sample_chunk import sample_chunk
+
+        lp = cp.plan.levels[0]
+        R, B, T = 4 + cp.R, lp.num_graphs, 64
+        adj = CsrGraphs(lp.nbr_start, lp.nbr_flat, lp.hop_flat, lp.degrees,
+                        lp.n_nodes).to_device(self.dev)
+        keys = prng.fold_in(prng.PRNGKey(0, self.dev)[None], 0).expand(
+            R, 2).contiguous()
+        done = torch.zeros((R, B), dtype=torch.bool, device=self.dev)
+        usage = torch.zeros(R * lp.nbr_flat.shape[0], dtype=torch.int32,
+                            device=self.dev)
+        msgs = torch.zeros((R, B), dtype=torch.int32, device=self.dev)
+        dev_ms = self.device_ms(
+            lambda: sample_chunk(0, T, keys, adj, None, done, usage, msgs), 5)
+        bound, by, _, _ = self.chunk_bound(lp, T, R)
+        log(f"[control R={cp.R}] the finest level's chunk (T={T}, R={R}, "
+            f"B={B}, C={lp.degrees.shape[1]}): sample_chunk {dev_ms:.4f} ms "
+            f"on the device, bound {bound:.4f} ms ({by})")
+        self.kernels["sample_chunk"].update(
+            control_device_ms=dev_ms, control_bound_ms=bound,
+            control_bound_by=by,
+            control_shape=dict(T=T, R=R, B=B, C=lp.degrees.shape[1]))
+        return dict(chunk_device_ms=dev_ms, chunk_bound_ms=bound)
 
     def fleet(self):
         """P3: run_fleet at FLEET for each router on the card against the

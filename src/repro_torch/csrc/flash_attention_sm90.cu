@@ -72,7 +72,7 @@
 // Fast math: ex2.approx.ftz for exp2 and tanh.approx for the softcap; P
 // is rounded to bf16 anyway.
 //
-// Not done yet (ROADMAP Queue D): a persistent scheduler, overlap of
+// Not done yet (ROADMAP Queue B): a persistent scheduler, overlap of
 // one tile's softmax with the next tile's QK^T within a warpgroup, and
 // ping-pong between the two consumer warpgroups.
 

@@ -1,7 +1,8 @@
 // sample_chunk: draw one gossip chunk's exchange schedule and count its
 // messages, for R trials and B graphs, in one launch; under a failure
 // scenario and a cost model, the same launch perturbs the schedule and
-// counts the chunk's retransmissions and concurrency.
+// counts the chunk's retransmissions and concurrency, and a second small
+// kernel forms its congestion pairs.
 //
 // Replaces no Pallas kernel: the reference draws a chunk in one jitted,
 // vmapped XLA pass (`sample_schedule`, src/repro/core/schedule.py:204)
@@ -30,9 +31,11 @@
 // `strag_success`; a Byzantine slot never updates.
 // Under a cost model (gossip.py:314-330):
 //   retx[r*B + b] += sum over m < hops_t of floor(log u_m / log q)
-//   conc[r*T + t] += attempt, and attempt (T, R*B) uint8 is written; the
-//   wrapper forms the congestion pairs from these with tensor ops.
-// Integer atomics are order-free, so every count stays exact.
+//   conc[r*T + t] += attempt, and attempt (T, R*B) uint8 is written;
+//   congp[r*B + b] += f32(sum over t of attempt * max(conc[r, t] - 1, 0))
+//   by the second kernel, the int32 sum rounded once, as the plain
+//   version sums in int32 and adds in f32.
+// Integer sums are order-free, so every count stays exact.
 //
 // Bitwise points, each against src/repro_torch/core/prng.py:
 // * Words are uint32; torch holds them in int64 masked to 32 bits, whose
@@ -44,12 +47,12 @@
 // * A draw of S words hashes counter c with (c, c + half), half =
 //   (S+1)/2: word c is y1, word c + half is y2.  For odd S the last
 //   pair's second counter is 0, not 2*half - 1 (prng.py:82-84).  The
-//   exchange draws are one draw of B words a (tick, trial) key; the two
-//   tagged streams are one draw a (trial, chunk) over the flat (T, B)
-//   straggler words and (T, B, 2*hop_cap) retransmission words, keyed
-//   fold_in(fold_in(k_r, tag), t0).  So a tagged word pairs with a word
-//   of another tick or graph: a thread hashes the counter of each tagged
-//   word it needs and keeps that word's half.
+//   exchange draws are one draw of B words a (tick, trial) key, so graphs
+//   c and c + half share a hash.  The two tagged streams are one draw a
+//   (trial, chunk) over the flat (T, B) straggler words and (T, B,
+//   2*hop_cap) retransmission words, keyed fold_in(fold_in(k_r, tag),
+//   t0).  At even T both sizes are even and half is T/2 ticks' worth of
+//   words, so word (t, b[, m]) pairs with (t + T/2, b[, m]).
 // * uniform: the float with bits ((w >> 9) | 0x3F800000), minus 1,
 //   clamped at 0 (prng.py:123-127).
 // * i = min((int)(u * n_nodes), n_nodes - 1) and jidx = min((int)(v *
@@ -65,19 +68,56 @@
 //   without --use_fast_math, logf and the division are the library's,
 //   as in torch's own kernels.
 //
-// Shape of the work: draws are independent over ticks, trials and
-// graphs.  The top level of a hierarchy has B = 1 and T = 64, so the
-// grid covers (t, r, c) with c fastest, one thread per counter pair c,
-// which hashes once per key for its two graphs c and c + half.  A block
-// first computes the tick keys of the (t, r) pairs it covers into shared
-// memory, four threads a pair, each one fold_in and one split hash, and
-// each pair's two tagged stream keys.  A block sums its attempts a
-// (t, r) pair in shared memory and adds each pair's sum to `conc` once.
+// Shape of the work.  A block owns one trial r and a run of G counter
+// pairs c0 .. c0+G-1, that is graphs [c0, c0+G) and [c0+half,
+// c0+G+half), for all T ticks of the chunk (G = 32; on the main path 64,
+// fewer for a draw too small to fill the card, with more tick lanes).
+// It hashes its tick keys (one fold_in and split's four hashes a tick)
+// once into shared memory.  Its threads are graph
+// pair x tick lane: a warp holds 32 neighbouring pairs, so each store of
+// the schedule is coalesced, and each lane walks its ticks.  Because a
+// block alone owns its (r, b), a thread sums its graphs' messages and
+// retransmissions in registers and the block adds each sum once, with a
+// plain read-add-write of the counts it read when it started.  Usage
+// goes to a shared histogram over each run's window of edges
+// [start[first, 0], start[end, 0]) (the plan's CSR lays a graph's edges
+// out in one run), flushed by one atomicAdd a counter touched: another
+// block may reach the same counter under another layout.  A position
+// outside the window (a CSR whose graphs are not in order, a window
+// longer than the histogram) takes a global atomic in the same pass, so
+// any layout is counted right.  Attempts a tick are summed in shared
+// memory and added to `conc` once a block.  Three kernels share this
+// shape:
+// * sample_chunk_plain, the main path (no loss, scenario or cost model):
+//   a thread draws two of its ticks at a time, their four exchange
+//   hashes in lockstep (threefry_n), then all eight gathers, then the
+//   stores, at 32-bit offsets; a grid too small to fill the card counts
+//   straight into device memory, with no window and no flush, since its
+//   blocks' start-up and flush would cost more than its atomics;
+// * sample_chunk_paired, a scenario or a cost model at even T without
+//   loss: a thread draws ticks t and t + T/2 together, so each tagged
+//   counter it hashes gives both ticks' words (a straggler word and the
+//   2*hop_cap retransmission words of an exchange), the graphs' counters
+//   in lockstep too;
+// * sample_chunk_kernel, every other case (loss, odd T, offsets past
+//   2^31): the same draws one graph at a time, and at odd T a tagged
+//   word from its own counter.
+// Under a cost model a second kernel, sample_chunk_congestion, forms the
+// concurrency pairs from the attempt bits and `conc`.
 //
 // What bounds it on an H100: the integer work of the hash (20 rounds of
 // add, rotate, xor; 72 operations a hash) against the int32 lanes, and
-// the bytes of the schedule it writes (10 a draw).  chip_smoke.py takes
-// the larger of the two.
+// the bytes of the schedule it writes (10 a draw); chip_smoke.py takes
+// the larger of the two.  On the card (PERF.md, PR 21) the kernel is
+// bound by the integer ALU pipe that runs the funnel shifts, xors and
+// 3-input adds of the hash: an extra hash a thread and tick slowed it far
+// more than half again as many gathers did, and the draw around each
+// hash (uniforms, two truncating products, three dependent gathers, the
+// stores, the counts) costs about as many ALU instructions again.  So the design spends none it can avoid: no 64-bit
+// division or device atomic a draw, no tagged hash twice, no register
+// set a mode does not need; the retransmission count is estimated from
+// the special function unit's log2 and computed exactly (logf, a
+// correctly rounded division) only near an integer (`retries`).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,10 +125,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-// (t, r) pairs a block of kThreads counters can touch: kThreads when
-// half == 1, at most kThreads / half + 2 otherwise
-constexpr int kMaxPairs = kThreads + 1;
+constexpr int kThreads = 128;
+constexpr int kPairs = 32;    // counter pairs a block at most: a warp's width
+// the main path's blocks: twice as wide, so each tick's keys serve twice
+// as many graphs; narrower, with more tick lanes, for a draw too small to
+// fill the card (the launch picks both)
+constexpr int kPlainPairs = 64;
+constexpr int kPlainThreads = 1024;
+constexpr int kTile = 64;     // tick keys a block holds at once
+constexpr int kWindow = 2048; // usage counters of a graph run kept on chip
+constexpr int kPlainWindow = 512;  // the same on the main path
 constexpr uint32_t kTagRetx = 2147483640u;  // medium.py _TAG_RETX
 constexpr uint32_t kTagStraggler = 2147483641u;
 constexpr uint8_t kChurned = 1, kStraggler = 2, kByz = 4, kRegional = 8;
@@ -98,31 +144,52 @@ __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
 }
 
 // The 20-round threefry-2x32 hash of (x1, x2) under key (k1, k2)
-// (prng.py:54-69).
-__device__ __forceinline__ void threefry(uint32_t k1, uint32_t k2, uint32_t x1,
-                                         uint32_t x2, uint32_t& y1,
-                                         uint32_t& y2) {
-  const uint32_t ks[3] = {k1, k2, k1 ^ k2 ^ 0x1BD11BDAu};
+// (prng.py:54-69), N hashes in lockstep: their chains of dependent
+// adds, rotates and xors interleave.
+template <int N>
+__device__ __forceinline__ void threefry_n(const uint32_t* k1,
+                                           const uint32_t* k2, uint32_t* x1,
+                                           uint32_t* x2) {
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x1 += k1;
-  x2 += k2;
+  uint32_t ks[N][3];
+#pragma unroll
+  for (int h = 0; h < N; ++h) {
+    ks[h][0] = k1[h];
+    ks[h][1] = k2[h];
+    ks[h][2] = k1[h] ^ k2[h] ^ 0x1BD11BDAu;
+    x1[h] += k1[h];
+    x2[h] += k2[h];
+  }
 #pragma unroll
   for (int block = 0; block < 5; ++block) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      x1 += x2;
-      x2 = rotl(x2, rot[block % 2][q]) ^ x1;
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int h = 0; h < N; ++h) {
+        x1[h] += x2[h];
+        x2[h] = rotl(x2[h], rot[block % 2][q]) ^ x1[h];
+      }
+#pragma unroll
+    for (int h = 0; h < N; ++h) {
+      x1[h] += ks[h][(block + 1) % 3];
+      x2[h] += ks[h][(block + 2) % 3] + (uint32_t)(block + 1);
     }
-    x1 += ks[(block + 1) % 3];
-    x2 += ks[(block + 2) % 3] + (uint32_t)(block + 1);
   }
+}
+
+__device__ __forceinline__ void threefry(uint32_t k1, uint32_t k2, uint32_t x1,
+                                         uint32_t x2, uint32_t& y1,
+                                         uint32_t& y2) {
+  threefry_n<1>(&k1, &k2, &x1, &x2);
   y1 = x1;
   y2 = x2;
 }
 
+// f is in [1, 2), so f - 1 is exact and at least +0: prng.py's clamp at
+// 0 never binds
 __device__ __forceinline__ float uniform(uint32_t bits) {
   const float f = __uint_as_float((bits >> 9) | 0x3F800000u);
-  return fmaxf(__fsub_rn(f, 1.0f), 0.0f);
+  return __fsub_rn(f, 1.0f);
 }
 
 // Word w of a draw of `size` words under key k (prng.py `_halves_bits`):
@@ -147,6 +214,23 @@ __device__ __forceinline__ void lost_hops(float u, float log_p, int h,
   const float s = floorf(__fdiv_rn(logf(u), log_p));
   ok = s >= (float)h;
   sent = ok ? h : (int)__fadd_rn(s, 1.0f);
+}
+
+// extra attempts of one hop slot from its retransmission word:
+// floor(logf(u) / log_q), u = max(uniform(w), 1e-12).  The integer is
+// first estimated as x' = log2(u) * (ln 2 / log_q) from the special
+// function unit (scale = ln 2 / log_q); only where x' lies within
+// 2e-3 (|x'| + 1) + 2e-6 |scale| of an integer, far above the few ulps
+// that separate x' from the exact quotient, is the exact quotient (the
+// library's logf, a correctly rounded division) taken.  Either way the
+// count is the exact quotient's floor.
+__device__ __forceinline__ int retries(uint32_t w, float log_q, float scale) {
+  const float u = fmaxf(uniform(w), 1e-12f);
+  const float x = __log2f(u) * scale;
+  const float k = floorf(x);
+  const float margin = 2e-3f * (fabsf(x) + 1.0f) + 2e-6f * fabsf(scale);
+  if (x - k > margin && k + 1.0f - x > margin) return (int)k;
+  return (int)floorf(__fdiv_rn(logf(u), log_q));
 }
 
 struct Args {
@@ -178,18 +262,31 @@ struct Args {
   float log_q;        // log of f32(1 - retransmit_p)
   int* conc;          // (R*T,) attempts a tick of each trial
   uint8_t* out_att;   // (T, R*B) attempt
+  int G, runs;        // counter pairs a block; blocks a trial
+  unsigned stride;    // main path: L*R*B, from a thread's tick to its next
+  int direct;         // main path: 1 for a grid too small to fill the
+                      // card, whose counts go straight to device atomics
 };
 
-// One graph's tick from its four uniform words (kf/kr words unused
-// without loss); `tk` holds the pair's straggler and retransmission
-// stream keys.  Returns 1 when the exchange was attempted.
-__device__ __forceinline__ int draw_one(const Args& a, float log_p, int tl,
-                                        int r, int b, uint32_t wi, uint32_t wj,
-                                        uint32_t wf, uint32_t wr,
-                                        const uint32_t* tk) {
-  const int n = a.n_nodes[b];
-  int i = min((int)__fmul_rn(uniform(wi), (float)n), n - 1);
-  const int row = b * a.C + (i < 0 ? i + a.C : i);
+// A thread's graph: what stays the same over its ticks.
+struct Graph {
+  int b, n;   // graph, its node count
+  bool live;  // not frozen by `done`
+};
+
+// One graph's exchange at one tick, drawn up to the straggler's word.
+struct Draw {
+  int i, j, pos, cost;  // cost: the transmissions charged (cost_t)
+  bool attempt, delivered, slow, ui, uj;  // ui, uj: the bits if delivered
+};
+
+__device__ __forceinline__ Draw draw(const Args& a, float log_p,
+                                     long long when, const Graph& g,
+                                     uint32_t wi, uint32_t wj, uint32_t wf,
+                                     uint32_t wr) {
+  const int n = g.n;
+  const int i = min((int)__fmul_rn(uniform(wi), (float)n), n - 1);
+  const int row = g.b * a.C + (i < 0 ? i + a.C : i);
   const int deg = a.degrees[row];
   const int jidx = min((int)__fmul_rn(uniform(wj), (float)deg), max(deg - 1, 0));
   const int pos = a.start[row] + jidx;
@@ -203,135 +300,806 @@ __device__ __forceinline__ int draw_one(const Args& a, float log_p, int tl,
     lost_hops(uniform(wr), log_p, h, rep_ok, rep_sent);
     cost = fwd_sent + (fwd_ok ? rep_sent : 0);
   }
-  const long long flat = (long long)tl * a.B + b;  // (t, b) in the streams
-  const bool active = deg > 0 && !a.done[(long long)r * a.B + b];
-  bool attempt = active, delivered = active, keep_i = true, keep_j = true;
-  int cost_t = cost;
+  Draw d;
+  d.i = i;
+  d.j = j;
+  d.pos = pos;
+  d.cost = cost;
+  d.attempt = d.delivered = deg > 0 && g.live;
+  d.slow = false;
+  bool keep_i = true, keep_j = true;
   if (a.fbits) {
-    const uint8_t fi = a.fbits[row], fj = a.fbits[b * a.C + j];
-    const long long when = a.t0 + tl;
+    const uint8_t fi = a.fbits[row], fj = a.fbits[g.b * a.C + j];
     const bool churn_now = when >= a.churn_tick;
     const bool reg_now = when >= a.reg_t0 && when < a.reg_t1;
     const bool down_i = ((fi & kChurned) && churn_now) ||
                         ((fi & kRegional) && reg_now);
     const bool down_j = ((fj & kChurned) && churn_now) ||
                         ((fj & kRegional) && reg_now);
-    attempt = active && !down_i;
-    delivered = attempt && !down_j;
-    if (a.strag && delivered && ((fi | fj) & kStraggler))
-      delivered = uniform(word(tk, flat, (long long)a.T * a.B)) <
-                  a.strag_success;
+    d.attempt = d.attempt && !down_i;
+    d.delivered = d.attempt && !down_j;
+    d.slow = a.strag && d.delivered && ((fi | fj) & kStraggler);
     keep_i = !(fi & kByz);
     keep_j = !(fj & kByz);
-    cost_t = (attempt && !down_j) ? cost : h;
+    d.cost = d.delivered ? cost : h;
   }
-  const bool upd_j = delivered && fwd_ok && keep_j;
-  const bool upd_i = delivered && fwd_ok && rep_ok && keep_i;
-  const long long o = ((long long)tl * a.R + r) * a.B + b;
-  a.out_i[o] = i;
-  a.out_j[o] = j;
-  a.out_ui[o] = upd_i;
-  a.out_uj[o] = upd_j;
-  if (a.out_att) a.out_att[o] = attempt;
-  if (!attempt) return 0;
-  atomicAdd(a.usage + (long long)r * a.nflat + pos, 1);
-  atomicAdd(a.msgs + (long long)r * a.B + b, cost_t);
-  if (a.retx) {
-    // extra attempts of each hop slot m < hops_t, one word each
-    const long long size = (long long)a.T * a.B * a.two_h;
-    const int hops_t = min(cost_t, a.two_h);
-    int extra = 0;
-    for (int m = 0; m < hops_t; ++m) {
-      const float u = fmaxf(uniform(word(tk + 2, flat * a.two_h + m, size)),
-                            1e-12f);
-      extra += (int)floorf(__fdiv_rn(logf(u), a.log_q));
-    }
-    if (extra) atomicAdd(a.retx + (long long)r * a.B + b, extra);
-  }
+  d.uj = fwd_ok && keep_j;
+  d.ui = fwd_ok && rep_ok && keep_i;
+  return d;
+}
+
+// Count one attempted exchange at edge `pos` into the block's window, or
+// into device memory outside it.
+__device__ __forceinline__ void count_edge(int* usage_r, int* hist, int lo,
+                                           int size, int pos) {
+  const int off = pos - lo;
+  if ((unsigned)off < (unsigned)size)
+    atomicAdd(hist + off, 1);
+  else
+    atomicAdd(usage_r + pos, 1);
+}
+
+// Write one draw's schedule entry and count it; returns its attempt.
+__device__ __forceinline__ int settle(const Args& a, const Draw& d,
+                                      long long o, int* usage_r, int* hist,
+                                      const int* win, int& msgs) {
+  a.out_i[o] = d.i;
+  a.out_j[o] = d.j;
+  a.out_ui[o] = d.delivered && d.ui;
+  a.out_uj[o] = d.delivered && d.uj;
+  if (a.out_att) a.out_att[o] = d.attempt;
+  if (!d.attempt) return 0;
+  msgs += d.cost;
+  count_edge(usage_r, hist, win[0], win[1], d.pos);
   return 1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    sample_chunk_kernel(const Args a) {
-  __shared__ uint32_t skey[kMaxPairs][8];
-  __shared__ uint32_t stag[kMaxPairs][4];  // straggler key, retx key
-  __shared__ int sconc[kMaxPairs];
-  const long long half = a.half;
-  const long long total = (long long)a.T * a.R * half;
-  const long long g0 = (long long)blockIdx.x * kThreads;
-  const long long g1 = min(total, g0 + kThreads) - 1;
-  const long long p0 = g0 / half;  // (t, r) pair p = t * R + r
-  const int npairs = (int)(g1 / half - p0 + 1);
-  const bool tagged = a.strag || a.retx;
-
-  // the tick keys: fold_in(key_r, t0 + t), then split's 4 hashes,
-  // counters (q, q + 4) for q = 0..3; then the tagged streams' keys
-  // fold_in(fold_in(key_r, tag), t0)
-  const int nwork = (tagged ? 6 : 4) * npairs;
-  for (int e = threadIdx.x; e < nwork; e += kThreads) {
-    if (e < npairs) sconc[e] = 0;
-    if (e < 4 * npairs) {
-      const long long p = p0 + (e >> 2);
-      const int q = e & 3;
-      const int r = (int)(p % a.R);
-      const uint32_t t = (uint32_t)(a.t0 + p / a.R);
-      uint32_t kt1, kt2, y1, y2;
-      threefry((uint32_t)a.keys[2 * r], (uint32_t)a.keys[2 * r + 1], 0u, t,
-               kt1, kt2);
-      threefry(kt1, kt2, (uint32_t)q, (uint32_t)(q + 4), y1, y2);
-      skey[e >> 2][q] = y1;
-      skey[e >> 2][4 + q] = y2;
-    } else {
-      const int e2 = e - 4 * npairs;
-      const int which = e2 & 1;  // 0: straggler, 1: retransmissions
-      const int r = (int)((p0 + (e2 >> 1)) % a.R);
-      uint32_t k1, k2;
-      threefry((uint32_t)a.keys[2 * r], (uint32_t)a.keys[2 * r + 1], 0u,
-               which ? kTagRetx : kTagStraggler, k1, k2);
-      threefry(k1, k2, 0u, (uint32_t)a.t0, stag[e2 >> 1][2 * which],
-               stag[e2 >> 1][2 * which + 1]);
+// NT = 2: ticks tl[0] and tl[1] = tl[0] + T/2 of a thread's graphs,
+// their tagged words from shared counters.  NT = 1: one tick.  Writes
+// the attempts of each tick into att.
+template <int NT>
+__device__ __forceinline__ void ticks(const Args& a, float log_p, int r,
+                                      uint32_t c, uint32_t x2, int ng,
+                                      const Graph* gr, int* usage_r,
+                                      int (*hist)[kWindow],
+                                      const int (*win)[2],
+                                      const uint32_t* const* keys,
+                                      const int* tl, const uint32_t* tk,
+                                      int* att, int* msgs, int* retx) {
+  // w[t][s][k]: tick t, stream s (i, j, f, r), graph k; the i and j
+  // hashes of every tick in lockstep, then f and r under loss
+  uint32_t w[NT][4][2];
+  {
+    uint32_t k1[2 * NT], k2[2 * NT], y1[2 * NT], y2[2 * NT];
+#pragma unroll
+    for (int h = 0; h < 2 * NT; ++h) {
+      k1[h] = keys[h / 2][2 * (h % 2)];
+      k2[h] = keys[h / 2][2 * (h % 2) + 1];
+      y1[h] = c;
+      y2[h] = x2;
     }
+    threefry_n<2 * NT>(k1, k2, y1, y2);
+#pragma unroll
+    for (int h = 0; h < 2 * NT; ++h) {
+      w[h / 2][h % 2][0] = y1[h];
+      w[h / 2][h % 2][1] = y2[h];
+    }
+    if (a.lossy) {
+#pragma unroll
+      for (int h = 0; h < 2 * NT; ++h) {
+        k1[h] = keys[h / 2][4 + 2 * (h % 2)];
+        k2[h] = keys[h / 2][5 + 2 * (h % 2)];
+        y1[h] = c;
+        y2[h] = x2;
+      }
+      threefry_n<2 * NT>(k1, k2, y1, y2);
+    }
+#pragma unroll
+    for (int h = 0; h < 2 * NT; ++h) {
+      w[h / 2][2 + h % 2][0] = a.lossy ? y1[h] : 0u;
+      w[h / 2][2 + h % 2][1] = a.lossy ? y2[h] : 0u;
+    }
+  }
+  Draw d[NT][2];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (k < ng)
+        d[t][k] = draw(a, log_p, a.t0 + tl[t], gr[k], w[t][0][k], w[t][1][k],
+                       w[t][2][k], w[t][3][k]);
+  const long long TB = (long long)a.T * a.B;
+  if (a.strag) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (k >= ng) continue;
+      const long long flat = (long long)tl[0] * a.B + gr[k].b;
+      if (NT == 2) {
+        if (!(d[0][k].slow || d[NT - 1][k].slow)) continue;
+        uint32_t y1, y2;
+        threefry(tk[0], tk[1], (uint32_t)flat, (uint32_t)(flat + TB / 2), y1,
+                 y2);
+        if (d[0][k].slow) d[0][k].delivered = uniform(y1) < a.strag_success;
+        if (d[NT - 1][k].slow)
+          d[NT - 1][k].delivered = uniform(y2) < a.strag_success;
+      } else if (d[0][k].slow) {
+        d[0][k].delivered = uniform(word(tk, flat, TB)) < a.strag_success;
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const long long o = ((long long)tl[t] * a.R + r) * a.B;
+    att[t] = 0;
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (k < ng)
+        att[t] += settle(a, d[t][k], o + gr[k].b, usage_r, hist[k], win[k],
+                         msgs[k]);
+  }
+  if (a.retx) {
+    // extra attempts of each hop slot m < hops_t, one word each; at even
+    // T a counter serves ticks t and t + T/2, the graphs' counters hashed
+    // in lockstep, two slots of each at a time
+    const long long size = TB * a.two_h;
+    const float scale = 0.693147182f / a.log_q;
+    int h[NT][2], hm[2];
+    long long base[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+        h[t][k] = k < ng && d[t][k].attempt ? min(d[t][k].cost, a.two_h) : 0;
+      hm[k] = NT == 2 ? max(h[0][k], h[NT - 1][k]) : h[0][k];
+      base[k] = ((long long)tl[0] * a.B + gr[k].b) * a.two_h;
+    }
+    if (NT == 2) {
+      const int top = max(hm[0], hm[1]);
+      for (int m = 0; m < top; m += 2) {
+        uint32_t q1[4], q2[4], y1[4], y2[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const long long w = base[q >> 1] + m + (q & 1);
+          q1[q] = tk[2];
+          q2[q] = tk[3];
+          y1[q] = (uint32_t)w;
+          y2[q] = (uint32_t)(w + size / 2);
+        }
+        threefry_n<4>(q1, q2, y1, y2);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = q >> 1, mm = m + (q & 1);
+          if (mm < h[0][k]) retx[k] += retries(y1[q], a.log_q, scale);
+          if (mm < h[NT - 1][k]) retx[k] += retries(y2[q], a.log_q, scale);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        for (int m = 0; m < h[0][k]; ++m)
+          retx[k] += retries(word(tk + 2, base[k] + m, size), a.log_q, scale);
+    }
+  }
+}
+
+// A block's trial r and its counter pairs [c0, c1); run k is graphs
+// [c0 + k*half, min(c1 + k*half, B)).
+struct Block {
+  int r, c0, c1;
+};
+
+__device__ __forceinline__ Block block_of(const Args& a) {
+  Block blk;
+  blk.r = blockIdx.x / a.runs;
+  blk.c0 = (blockIdx.x - blk.r * a.runs) * a.G;
+  blk.c1 = min(blk.c0 + a.G, a.half);
+  return blk;
+}
+
+// Thread k < 2 finds run k's window, from its first graph's row start to
+// the next graph's, at most cap edges.
+__device__ __forceinline__ void find_window(const Args& a, const Block& blk,
+                                            int k, int cap, int* win) {
+  const int first = blk.c0 + k * a.half, end = min(blk.c1 + k * a.half, a.B);
+  long long lo = 0, size = 0;
+  if (first < end && a.C > 0) {
+    lo = a.start[(long long)first * a.C];
+    const long long hi =
+        end < a.B ? a.start[(long long)end * a.C] : (long long)a.nflat;
+    size = max(0LL, min(hi - lo, (long long)cap));
+  }
+  win[0] = (int)lo;
+  win[1] = (int)size;
+}
+
+// The block alone owns its graphs' msgs (and retx): thread e < 2G reads
+// graph e's counts when the block starts, and adds the block's sums to
+// them at its end; then one atomic a usage counter the block touched.
+struct Flush {
+  long long o;  // (r, b) of the thread's graph, or -1
+  int msgs, retx;
+};
+
+__device__ __forceinline__ Flush flush_begin(const Args& a, const Block& blk) {
+  // every launch has at least two threads a counter pair
+  static_assert(kThreads >= 2 * kPairs, "a thread a graph of the block");
+  Flush f{-1, 0, 0};
+  const int e = threadIdx.x;
+  if (e >= 2 * a.G) return f;
+  const int k = e / a.G, gg = e - k * a.G;
+  const long long b = (long long)blk.c0 + gg + (long long)k * a.half;
+  if (blk.c0 + gg >= blk.c1 || b >= a.B) return f;
+  f.o = (long long)blk.r * a.B + b;
+  f.msgs = a.msgs[f.o];
+  if (a.retx) f.retx = a.retx[f.o];
+  return f;
+}
+
+template <int kCap, int kP>
+__device__ __forceinline__ void flush(const Args& a, const Block& blk,
+                                      const Flush& f, int (*sums)[2][kP],
+                                      int (*hist)[kCap],
+                                      const int (*win)[2]) {
+  if (f.o >= 0) {
+    const int k = threadIdx.x / a.G, gg = threadIdx.x - k * a.G;
+    if (sums[0][k][gg]) a.msgs[f.o] = f.msgs + sums[0][k][gg];
+    if (a.retx && sums[1][k][gg]) a.retx[f.o] = f.retx + sums[1][k][gg];
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    int* u = a.usage + (long long)blk.r * a.nflat + win[k][0];
+    for (int e = threadIdx.x; e < win[k][1]; e += blockDim.x)
+      if (hist[k][e]) atomicAdd(u + e, hist[k][e]);
+  }
+}
+
+// The main path's draw of two ticks (t = 0, 1: ticks ts[0] and ts[1])
+// for a thread's NG graphs: the i and j hashes of both ticks in lockstep,
+// then the gathers of every draw together, then the stores and counts.
+template <int NG>
+__device__ __forceinline__ void plain_ticks(
+    const Args& a, const uint32_t (*skey)[4], const int* ts, bool two,
+    unsigned o0, uint32_t c, uint32_t x2, const float* fn, const int* n,
+    const int* row0, const bool* live, int half, int* usage_r,
+    int (*hist)[kPlainWindow], const int* lo, const int* size, int* msgs) {
+  uint32_t kk1[4], kk2[4], w1[4], w2[4];
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    kk1[h] = skey[ts[h / 2]][2 * (h % 2)];
+    kk2[h] = skey[ts[h / 2]][2 * (h % 2) + 1];
+    w1[h] = c;
+    w2[h] = x2;
+  }
+  threefry_n<4>(kk1, kk2, w1, w2);
+  int i[2][NG], deg[2][NG], first[2][NG], pos[2][NG], j[2][NG], hp[2][NG];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      const uint32_t wi = k ? w2[2 * t] : w1[2 * t];
+      i[t][k] = min((int)__fmul_rn(uniform(wi), fn[k]), n[k] - 1);
+      deg[t][k] = __ldg(a.degrees + row0[k] + i[t][k]);
+      first[t][k] = __ldg(a.start + row0[k] + i[t][k]);
+    }
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      const uint32_t wj = k ? w2[2 * t + 1] : w1[2 * t + 1];
+      pos[t][k] = first[t][k] +
+                  min((int)__fmul_rn(uniform(wj), (float)deg[t][k]),
+                      max(deg[t][k] - 1, 0));
+      j[t][k] = __ldg(a.nbr + pos[t][k]);
+      hp[t][k] = __ldg(a.hops + pos[t][k]);
+    }
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    if (t == 1 && !two) break;
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      const bool active = deg[t][k] > 0 && live[k];
+      const unsigned o = o0 + (t ? a.stride : 0u) + (unsigned)(k * half);
+      a.out_i[o] = i[t][k];
+      a.out_j[o] = j[t][k];
+      a.out_ui[o] = active;
+      a.out_uj[o] = active;
+      msgs[k] += active ? 2 * hp[t][k] : 0;
+      if (active) {
+        const int off = pos[t][k] - lo[k];
+        if ((unsigned)off < (unsigned)size[k])
+          atomicAdd(&hist[k][off], 1);
+        else
+          atomicAdd(usage_r + pos[t][k], 1);
+      }
+    }
+  }
+}
+
+// The main path: no loss, no scenario, no cost model, T*R*B < 2^31.
+// A thread draws two of its ticks at a time (plain_ticks); i, j and both
+// update bits (active) are stored at a 32-bit offset.
+__global__ void __launch_bounds__(kPlainThreads)
+    sample_chunk_plain(const Args a) {
+  __shared__ uint32_t skey[kTile][4];  // ki, kj of each tick of a tile
+  __shared__ int shist[2][kPlainWindow];
+  __shared__ int ssum[2][2][kPlainPairs];
+  __shared__ int swin[2][2];
+
+  const Block blk = block_of(a);
+  const int G = a.G, L = blockDim.x / G, half = a.half, C = a.C;
+  const int g = threadIdx.x % G, lane = threadIdx.x / G;
+  const uint32_t k1 = (uint32_t)__ldg(a.keys + 2 * blk.r);
+  const uint32_t k2 = (uint32_t)__ldg(a.keys + 2 * blk.r + 1);
+  // a small grid counts straight into device memory: no window, no
+  // block sums, no flush
+  if (threadIdx.x < 2) {
+    if (a.direct)
+      swin[threadIdx.x][0] = swin[threadIdx.x][1] = 0;
+    else
+      find_window(a, blk, threadIdx.x, kPlainWindow, swin[threadIdx.x]);
+  }
+  if (!a.direct) {
+    for (int e = threadIdx.x; e < 4 * kPlainPairs; e += blockDim.x)
+      (&ssum[0][0][0])[e] = 0;
+    for (int e = threadIdx.x; e < 2 * kPlainWindow; e += blockDim.x)
+      (&shist[0][0])[e] = 0;
+  }
+  const Flush fl = a.direct ? Flush{-1, 0, 0} : flush_begin(a, blk);
+
+  const int c = blk.c0 + g;
+  const int ng = c >= blk.c1 ? 0 : (c + half < a.B ? 2 : 1);
+  int n[2], row0[2], msgs[2] = {0, 0};
+  float fn[2];
+  bool live[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int b = c + (k < ng ? k : 0) * half;
+    n[k] = ng > 0 ? a.n_nodes[b] : 1;
+    fn[k] = (float)n[k];
+    // i = -1 (a graph of 0 nodes) reads the graph's last slot
+    row0[k] = b * C + (n[k] > 0 ? 0 : C);
+    live[k] = ng > 0 && !a.done[(long long)blk.r * a.B + b];
+  }
+  const uint32_t x2 =
+      ((a.B & 1) && c == half - 1) ? 0u : (uint32_t)(c + half);
+  const unsigned RB = (unsigned)a.R * (unsigned)a.B;
+  const unsigned rb = (unsigned)blk.r * (unsigned)a.B + (unsigned)c;
+  int* usage_r = a.usage + (long long)blk.r * a.nflat;
+
+  for (int s0 = 0; s0 < a.T; s0 += kTile) {
+    const int nt = min(kTile, a.T - s0);
+    if (s0) __syncthreads();  // the last tile's keys are read
+    for (int e = threadIdx.x; e < nt; e += blockDim.x) {
+      // fold_in(key_r, t0 + t), then the y1 halves of split's 4 hashes
+      uint32_t kt1, kt2;
+      threefry(k1, k2, 0u, (uint32_t)(a.t0 + s0 + e), kt1, kt2);
+      const uint32_t q1[4] = {kt1, kt1, kt1, kt1}, q2[4] = {kt2, kt2, kt2, kt2};
+      uint32_t y1[4] = {0u, 1u, 2u, 3u}, y2[4] = {4u, 5u, 6u, 7u};
+      threefry_n<4>(q1, q2, y1, y2);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) skey[e][q] = y1[q];
+    }
+    // the keys, and at the first tile the zeroed counters and the
+    // windows, visible to the block
+    __syncthreads();
+    if (ng == 0) continue;
+    const int lo[2] = {swin[0][0], swin[1][0]};
+    const int size[2] = {swin[0][1], swin[1][1]};
+    for (int s = lane; s < nt; s += 2 * L) {
+      const bool two = s + L < nt;
+      const int ts[2] = {s, two ? s + L : s};
+      const unsigned o0 = (unsigned)(s0 + s) * RB + rb;
+      if (ng == 2)
+        plain_ticks<2>(a, skey, ts, two, o0, c, x2, fn, n, row0, live, half,
+                       usage_r, shist, lo, size, msgs);
+      else
+        plain_ticks<1>(a, skey, ts, two, o0, c, x2, fn, n, row0, live, half,
+                       usage_r, shist, lo, size, msgs);
+    }
+  }
+  if (a.direct) {
+    for (int k = 0; k < ng; ++k)
+      if (msgs[k])
+        atomicAdd(a.msgs + (long long)blk.r * a.B + c + k * half, msgs[k]);
+    return;
+  }
+  for (int k = 0; k < ng; ++k)
+    if (msgs[k]) atomicAdd(&ssum[0][k][g], msgs[k]);
+  __syncthreads();
+  flush(a, blk, fl, ssum, shist, swin);
+}
+
+// What a thread of the paired kernel keeps over its ticks.
+struct PairedThread {
+  uint32_t c, x2;      // counter pair (c, c + half) of the exchange draws
+  float fn[2];         // node counts of its graphs, as floats
+  int n[2], row0[2];   // node counts; row of i = 0 (graph of 0 nodes: C)
+  int b[2];            // its graphs (a missing second graph: the first)
+  bool live[2];        // not frozen by `done`
+  int lo[2], size[2];  // its runs' windows of usage counters
+  unsigned rb;         // r*B + c
+};
+
+// Ticks tl and tl + T/2 (keys key0, key1) of a thread's NG graphs with a
+// scenario and/or a cost model, no loss: the exchange hashes of both
+// ticks in lockstep, every gather together, one straggler and one
+// retransmission hash for each counter both ticks need, then the stores
+// and counts.  Adds the attempts of each tick into att.
+template <int NG>
+__device__ __forceinline__ void paired_ticks(
+    const Args& a, const PairedThread& p, const uint32_t* key0,
+    const uint32_t* key1, int tl, const uint32_t* tk, float scale,
+    int* usage_r, int (*hist)[kPlainWindow], int* msgs, int* retx,
+    int* att) {
+  const int half = a.half, T2 = a.T / 2;
+  uint32_t kk1[4] = {key0[0], key0[2], key1[0], key1[2]};
+  uint32_t kk2[4] = {key0[1], key0[3], key1[1], key1[3]};
+  uint32_t w1[4] = {p.c, p.c, p.c, p.c}, w2[4] = {p.x2, p.x2, p.x2, p.x2};
+  threefry_n<4>(kk1, kk2, w1, w2);
+  int i[2][NG], deg[2][NG], first[2][NG], pos[2][NG], j[2][NG], h[2][NG];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      const uint32_t wi = k ? w2[2 * t] : w1[2 * t];
+      i[t][k] = min((int)__fmul_rn(uniform(wi), p.fn[k]), p.n[k] - 1);
+      deg[t][k] = __ldg(a.degrees + p.row0[k] + i[t][k]);
+      first[t][k] = __ldg(a.start + p.row0[k] + i[t][k]);
+    }
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      const uint32_t wj = k ? w2[2 * t + 1] : w1[2 * t + 1];
+      pos[t][k] = first[t][k] +
+                  min((int)__fmul_rn(uniform(wj), (float)deg[t][k]),
+                      max(deg[t][k] - 1, 0));
+      j[t][k] = __ldg(a.nbr + pos[t][k]);
+      h[t][k] = __ldg(a.hops + pos[t][k]);
+    }
+  // the scenario (gossip.py:287-310)
+  bool attempt[2][NG], delivered[2][NG], slow[2][NG], ui[2][NG], uj[2][NG];
+  int cost[2][NG];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      attempt[t][k] = deg[t][k] > 0 && p.live[k];
+      delivered[t][k] = attempt[t][k];
+      slow[t][k] = false;
+      cost[t][k] = 2 * h[t][k];
+      ui[t][k] = uj[t][k] = true;
+      if (a.fbits) {
+        const uint8_t fi = __ldg(a.fbits + p.row0[k] + i[t][k]);
+        const uint8_t fj = __ldg(a.fbits + p.b[k] * a.C + j[t][k]);
+        const long long when = a.t0 + tl + t * T2;
+        const bool churn_now = when >= a.churn_tick;
+        const bool reg_now = when >= a.reg_t0 && when < a.reg_t1;
+        const bool down_i = ((fi & kChurned) && churn_now) ||
+                            ((fi & kRegional) && reg_now);
+        const bool down_j = ((fj & kChurned) && churn_now) ||
+                            ((fj & kRegional) && reg_now);
+        attempt[t][k] = attempt[t][k] && !down_i;
+        delivered[t][k] = attempt[t][k] && !down_j;
+        slow[t][k] = a.strag && delivered[t][k] && ((fi | fj) & kStraggler);
+        ui[t][k] = !(fi & kByz);
+        uj[t][k] = !(fj & kByz);
+        if (!delivered[t][k]) cost[t][k] = h[t][k];
+      }
+    }
+  const unsigned TB = (unsigned)a.T * (unsigned)a.B;
+  if (a.strag) {
+    // word (t, b) of the straggler stream pairs with (t + T/2, b)
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      if (!(slow[0][k] || slow[1][k])) continue;
+      const unsigned flat = (unsigned)tl * a.B + p.b[k];
+      uint32_t y1, y2;
+      threefry(tk[0], tk[1], flat, flat + TB / 2, y1, y2);
+      if (slow[0][k]) delivered[0][k] = uniform(y1) < a.strag_success;
+      if (slow[1][k]) delivered[1][k] = uniform(y2) < a.strag_success;
+    }
+  }
+  const unsigned RB = (unsigned)a.R * (unsigned)a.B;
+  const unsigned o0 = (unsigned)tl * RB + p.rb;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    att[t] = 0;
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      const unsigned o = o0 + (t ? (unsigned)T2 * RB : 0u) + (unsigned)(k * half);
+      a.out_i[o] = i[t][k];
+      a.out_j[o] = j[t][k];
+      a.out_ui[o] = delivered[t][k] && ui[t][k];
+      a.out_uj[o] = delivered[t][k] && uj[t][k];
+      if (a.out_att) a.out_att[o] = attempt[t][k];
+      if (!attempt[t][k]) continue;
+      att[t] += 1;
+      msgs[k] += cost[t][k];
+      const int off = pos[t][k] - p.lo[k];
+      if ((unsigned)off < (unsigned)p.size[k])
+        atomicAdd(&hist[k][off], 1);
+      else
+        atomicAdd(usage_r + pos[t][k], 1);
+    }
+  }
+  if (a.retx) {
+    // word (t, b, m) of the retransmission stream pairs with
+    // (t + T/2, b, m): the graphs' counters hashed in lockstep, two hop
+    // slots of each at a time
+    const unsigned size2 = TB * (unsigned)a.two_h / 2;
+    int hs[2][2] = {{0, 0}, {0, 0}};
+    unsigned base[2] = {0u, 0u};
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+        hs[t][k] = attempt[t][k] ? min(cost[t][k], a.two_h) : 0;
+      base[k] = ((unsigned)tl * a.B + p.b[k]) * (unsigned)a.two_h;
+    }
+    // four counters in flight: kM hop slots of each of the NG graphs
+    constexpr int kM = 4 / NG;
+    int top = 0;
+#pragma unroll
+    for (int k = 0; k < NG; ++k) top = max(top, max(hs[0][k], hs[1][k]));
+    for (int m = 0; m < top; m += kM) {
+      uint32_t q1[4], q2[4], y1[4], y2[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        q1[q] = tk[2];
+        q2[q] = tk[3];
+        y1[q] = base[q / kM] + m + q % kM;
+        y2[q] = y1[q] + size2;
+      }
+      threefry_n<4>(q1, q2, y1, y2);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = q / kM, mm = m + q % kM;
+        if (mm < hs[0][k]) retx[k] += retries(y1[q], a.log_q, scale);
+        if (mm < hs[1][k]) retx[k] += retries(y2[q], a.log_q, scale);
+      }
+    }
+  }
+}
+
+// The scenario and cost path at even T without loss, T*R*B*2*hop_cap
+// < 2^31: a thread draws ticks t and t + T/2 of its graphs together
+// (paired_ticks), so each tagged counter serves both ticks' words.
+// kMax: the threads of its widest block (kThreads, six blocks an SM; a
+// draw too small to fill the card takes more tick lanes, up to 1024).
+template <int kMax, int kMinBlocks>
+__global__ void __launch_bounds__(kMax, kMinBlocks)
+    sample_chunk_paired(const Args a) {
+  __shared__ uint32_t skey[kTile][4];  // ki, kj of each tick of a tile
+  __shared__ uint32_t stag[4];         // straggler key, retransmission key
+  __shared__ int sconc[kTile];
+  __shared__ int shist[2][kPlainWindow];
+  __shared__ int ssum[2][2][kPairs];
+  __shared__ int swin[2][2];
+
+  const Block blk = block_of(a);
+  const int G = a.G, L = blockDim.x / G, half = a.half, C = a.C, r = blk.r;
+  const int g = threadIdx.x % G, lane = threadIdx.x / G;
+  const uint32_t k1 = (uint32_t)__ldg(a.keys + 2 * r);
+  const uint32_t k2 = (uint32_t)__ldg(a.keys + 2 * r + 1);
+  if (threadIdx.x < 2) {
+    find_window(a, blk, threadIdx.x, kPlainWindow, swin[threadIdx.x]);
+  } else if (threadIdx.x < 4) {
+    // fold_in(fold_in(key_r, tag), t0)
+    const int which = threadIdx.x - 2;  // 0: straggler, 1: retransmissions
+    uint32_t y1, y2;
+    threefry(k1, k2, 0u, which ? kTagRetx : kTagStraggler, y1, y2);
+    threefry(y1, y2, 0u, (uint32_t)a.t0, stag[2 * which],
+             stag[2 * which + 1]);
+  }
+  for (int e = threadIdx.x; e < 4 * kPairs; e += blockDim.x)
+    (&ssum[0][0][0])[e] = 0;
+  for (int e = threadIdx.x; e < 2 * kPlainWindow; e += blockDim.x)
+    (&shist[0][0])[e] = 0;
+  const Flush fl = flush_begin(a, blk);
+
+  PairedThread p;
+  const int c = blk.c0 + g;
+  const int ng = c >= blk.c1 ? 0 : (c + half < a.B ? 2 : 1);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    p.b[k] = c + (k < ng ? k : 0) * half;
+    p.n[k] = ng > 0 ? a.n_nodes[p.b[k]] : 1;
+    p.fn[k] = (float)p.n[k];
+    p.row0[k] = p.b[k] * C + (p.n[k] > 0 ? 0 : C);
+    p.live[k] = ng > 0 && !a.done[(long long)r * a.B + p.b[k]];
+  }
+  p.c = (uint32_t)c;
+  p.x2 = ((a.B & 1) && c == half - 1) ? 0u : (uint32_t)(c + half);
+  p.rb = (unsigned)r * (unsigned)a.B + (unsigned)c;
+  int* usage_r = a.usage + (long long)r * a.nflat;
+  const float scale = a.retx ? 0.693147182f / a.log_q : 0.0f;
+  int msgs[2] = {0, 0}, retx[2] = {0, 0};
+
+  // slot s of a tile holds ticks s0 + s and s0 + s + T/2: key e is tick
+  // s0 + e for e < ns, else s0 + e - ns + T/2
+  const int span = a.T / 2;
+  for (int s0 = 0; s0 < span; s0 += kTile / 2) {
+    const int ns = min(kTile / 2, span - s0), nt = 2 * ns;
+    if (s0) __syncthreads();  // the last tile's keys and counts are read
+    for (int e = threadIdx.x; e < nt; e += blockDim.x) {
+      const int tl = e < ns ? s0 + e : s0 + e - ns + span;
+      uint32_t kt1, kt2;
+      threefry(k1, k2, 0u, (uint32_t)(a.t0 + tl), kt1, kt2);
+      const uint32_t q1[4] = {kt1, kt1, kt1, kt1}, q2[4] = {kt2, kt2, kt2, kt2};
+      uint32_t y1[4] = {0u, 1u, 2u, 3u}, y2[4] = {4u, 5u, 6u, 7u};
+      threefry_n<4>(q1, q2, y1, y2);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) skey[e][q] = y1[q];
+      sconc[e] = 0;
+    }
+    __syncthreads();
+    if (ng > 0) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        p.lo[k] = swin[ng < 2 ? 0 : k][0];
+        p.size[k] = swin[ng < 2 ? 0 : k][1];
+      }
+      for (int s = lane; s < ns; s += L) {
+        int att[2];
+        if (ng == 2)
+          paired_ticks<2>(a, p, skey[s], skey[s + ns], s0 + s, stag, scale,
+                          usage_r, shist, msgs, retx, att);
+        else
+          paired_ticks<1>(a, p, skey[s], skey[s + ns], s0 + s, stag, scale,
+                          usage_r, shist, msgs, retx, att);
+        if (a.conc && att[0]) atomicAdd(&sconc[s], att[0]);
+        if (a.conc && att[1]) atomicAdd(&sconc[s + ns], att[1]);
+      }
+    }
+    if (a.conc) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < nt; e += blockDim.x) {
+        if (!sconc[e]) continue;
+        const int tl = e < ns ? s0 + e : s0 + e - ns + span;
+        atomicAdd(a.conc + (long long)r * a.T + tl, sconc[e]);
+      }
+    }
+  }
+
+  for (int k = 0; k < ng; ++k) {
+    if (msgs[k]) atomicAdd(&ssum[0][k][g], msgs[k]);
+    if (retx[k]) atomicAdd(&ssum[1][k][g], retx[k]);
   }
   __syncthreads();
+  flush(a, blk, fl, ssum, shist, swin);
+}
 
-  const long long g = g0 + threadIdx.x;
-  if (g <= g1) {
-    const long long p = g / half;
-    const uint32_t c = (uint32_t)(g - p * half);
-    const int tl = (int)(p / a.R);
-    const int r = (int)(p - (long long)tl * a.R);
-    const uint32_t* k = skey[p - p0];
-    // counter pair (c, c + half); the odd draw's last pair is (c, 0)
-    const uint32_t x2 = ((a.B & 1) && c == (uint32_t)half - 1)
-                            ? 0u
-                            : c + (uint32_t)half;
-    uint32_t wi0, wi1, wj0, wj1, wf0 = 0, wf1 = 0, wr0 = 0, wr1 = 0;
-    threefry(k[0], k[1], c, x2, wi0, wi1);
-    threefry(k[2], k[3], c, x2, wj0, wj1);
-    float log_p = 0.0f;
-    if (a.lossy) {
-      threefry(k[4], k[5], c, x2, wf0, wf1);
-      threefry(k[6], k[7], c, x2, wr0, wr1);
-      // on the device, as torch takes log(clamp_min(p, 1e-12)) there
-      log_p = logf(fmaxf(a.p, 1e-12f));
-    }
-    const uint32_t* tk = stag[p - p0];
-    int att = draw_one(a, log_p, tl, r, (int)c, wi0, wj0, wf0, wr0, tk);
-    const long long b1 = (long long)c + half;
-    if (b1 < a.B)
-      att += draw_one(a, log_p, tl, r, (int)b1, wi1, wj1, wf1, wr1, tk);
-    if (a.conc && att) atomicAdd(sconc + (p - p0), att);
+// Every mode: loss, a scenario (with the straggler stream), a cost model
+// (retransmissions and the attempts a tick), each as `a` says.
+__global__ void __launch_bounds__(kThreads, 6)
+    sample_chunk_kernel(const Args a) {
+  __shared__ uint32_t skey[kTile][8];
+  __shared__ uint32_t stag[4];  // straggler key, retransmission key
+  __shared__ int sconc[kTile];
+  __shared__ int shist[2][kWindow];
+  __shared__ int ssum[2][2][kPairs];  // msgs, retx of each graph
+  __shared__ int swin[2][2];          // each run's window: lo, size
+
+  const Block blk = block_of(a);
+  const int G = a.G, L = kThreads / G, half = a.half, r = blk.r;
+  const int g = threadIdx.x % G, lane = threadIdx.x / G;
+  const uint32_t k1 = (uint32_t)a.keys[2 * r], k2 = (uint32_t)a.keys[2 * r + 1];
+  const bool tagged = a.strag || a.retx;
+
+  if (threadIdx.x < 2) {
+    find_window(a, blk, threadIdx.x, kWindow, swin[threadIdx.x]);
+  } else if (tagged && threadIdx.x < 4) {
+    // fold_in(fold_in(key_r, tag), t0)
+    const int which = threadIdx.x - 2;  // 0: straggler, 1: retransmissions
+    uint32_t y1, y2;
+    threefry(k1, k2, 0u, which ? kTagRetx : kTagStraggler, y1, y2);
+    threefry(y1, y2, 0u, (uint32_t)a.t0, stag[2 * which],
+             stag[2 * which + 1]);
   }
-  if (a.conc) {  // uniform over the block
+  for (int e = threadIdx.x; e < 4 * kPairs; e += kThreads)
+    (&ssum[0][0][0])[e] = 0;
+  const Flush fl = flush_begin(a, blk);
+  __syncthreads();
+  for (int k = 0; k < 2; ++k)
+    for (int e = threadIdx.x; e < swin[k][1]; e += kThreads) shist[k][e] = 0;
+
+  const int c = blk.c0 + g;
+  const int ng = c >= blk.c1 ? 0 : (c + half < a.B ? 2 : 1);
+  Graph gr[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    gr[k].b = c + k * half;
+    gr[k].n = k < ng ? a.n_nodes[gr[k].b] : 0;
+    gr[k].live = k < ng && !a.done[(long long)r * a.B + gr[k].b];
+  }
+  // counter pair (c, c + half); the odd draw's last pair is (c, 0)
+  const uint32_t x2 =
+      ((a.B & 1) && c == half - 1) ? 0u : (uint32_t)(c + half);
+  // on the device, as torch takes log(clamp_min(p, 1e-12)) there
+  const float log_p = a.lossy ? logf(fmaxf(a.p, 1e-12f)) : 0.0f;
+  int* usage_r = a.usage + (long long)r * a.nflat;
+  int msgs[2] = {0, 0}, retx[2] = {0, 0};
+
+  // with tagged streams at even T slot s holds ticks s and s + T/2,
+  // else tick s
+  const bool paired = tagged && (a.T & 1) == 0;
+  const int span = paired ? a.T / 2 : a.T;
+  const int per_tile = paired ? kTile / 2 : kTile;
+  for (int s0 = 0; s0 < span; s0 += per_tile) {
+    const int ns = min(per_tile, span - s0);
+    const int nt = paired ? 2 * ns : ns;  // key e: tick s0 + e, or of the
+    // second half s0 + e - ns + T/2
+    __syncthreads();  // the last tile's keys and counts are read
+    for (int e = threadIdx.x; e < nt; e += kThreads) {
+      // fold_in(key_r, t0 + t), then split's 4 hashes, counters (q, q + 4)
+      const int tl = e < ns ? s0 + e : s0 + e - ns + a.T / 2;
+      uint32_t kt1, kt2;
+      threefry(k1, k2, 0u, (uint32_t)(a.t0 + tl), kt1, kt2);
+      const uint32_t q1[4] = {kt1, kt1, kt1, kt1}, q2[4] = {kt2, kt2, kt2, kt2};
+      uint32_t y1[4] = {0u, 1u, 2u, 3u}, y2[4] = {4u, 5u, 6u, 7u};
+      threefry_n<4>(q1, q2, y1, y2);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        skey[e][q] = y1[q];
+        skey[e][4 + q] = y2[q];
+      }
+      sconc[e] = 0;
+    }
     __syncthreads();
-    for (int e = threadIdx.x; e < npairs; e += kThreads) {
-      if (!sconc[e]) continue;
-      const long long p = p0 + e;
-      const int tl = (int)(p / a.R);
-      const int r = (int)(p - (long long)tl * a.R);
-      atomicAdd(a.conc + (long long)r * a.T + tl, sconc[e]);
+    if (ng > 0) {
+      for (int s = lane; s < ns; s += L) {
+        if (paired) {
+          const int tl[2] = {s0 + s, s0 + s + a.T / 2};
+          const uint32_t* kp[2] = {skey[s], skey[s + ns]};
+          int att[2];
+          ticks<2>(a, log_p, r, (uint32_t)c, x2, ng, gr, usage_r, shist, swin,
+                   kp, tl, stag, att, msgs, retx);
+          if (a.conc && att[0]) atomicAdd(&sconc[s], att[0]);
+          if (a.conc && att[1]) atomicAdd(&sconc[s + ns], att[1]);
+        } else {
+          const int tl[1] = {s0 + s};
+          const uint32_t* kp[1] = {skey[s]};
+          int att[1];
+          ticks<1>(a, log_p, r, (uint32_t)c, x2, ng, gr, usage_r, shist, swin,
+                   kp, tl, stag, att, msgs, retx);
+          if (a.conc && att[0]) atomicAdd(&sconc[s], att[0]);
+        }
+      }
+    }
+    if (a.conc) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < nt; e += kThreads) {
+        if (!sconc[e]) continue;
+        const int tl = e < ns ? s0 + e : s0 + e - ns + a.T / 2;
+        atomicAdd(a.conc + (long long)r * a.T + tl, sconc[e]);
+      }
     }
   }
+
+  for (int k = 0; k < ng; ++k) {
+    if (msgs[k]) atomicAdd(&ssum[0][k][g], msgs[k]);
+    if (retx[k]) atomicAdd(&ssum[1][k][g], retx[k]);
+  }
+  __syncthreads();
+  flush(a, blk, fl, ssum, shist, swin);
+}
+
+// congp[r*B + b] += f32(sum over t of att[t, r, b] * max(conc[r, t] - 1,
+// 0)), the sum in int32 as the plain version takes it; a thread a graph.
+__global__ void __launch_bounds__(256)
+    sample_chunk_congestion(const uint8_t* __restrict__ att,
+                            const int* __restrict__ conc,
+                            float* __restrict__ congp, int T, int R, int B) {
+  const long long RB = (long long)R * B;
+  const long long rb = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (rb >= RB) return;
+  const int* w = conc + rb / B * T;
+  uint32_t s = 0;
+#pragma unroll 8
+  for (int t = 0; t < T; ++t)
+    if (__ldg(att + t * RB + rb)) s += (uint32_t)max(__ldg(w + t) - 1, 0);
+  congp[rb] = __fadd_rn(congp[rb], __int2float_rn((int)s));
 }
 
 }  // namespace
@@ -340,8 +1108,9 @@ __global__ void __launch_bounds__(kThreads)
 // `lossy` is 0 without loss or for loss_p >= 1 (every hop delivered:
 // the same outputs as no loss), else 1 with p = loss_p in f32.  `fbits`
 // null runs no scenario; `strag` draws the straggler stream.  `retx`
-// null samples no retransmissions; `conc` and `out_att` null track no
-// congestion (conc must be zeroed by the caller).
+// null samples no retransmissions; `conc`, `out_att` and `congp` null
+// track no congestion (else conc, (R, T), must be zeroed by the caller,
+// and a second kernel adds the congestion pairs into congp).
 extern "C" int sample_chunk_launch(
     const long long* keys, const int* start, const int* nbr, const int* hops,
     const int* degrees, const int* n_nodes, const uint8_t* done, int* out_i,
@@ -349,20 +1118,73 @@ extern "C" int sample_chunk_launch(
     long long t0, int T, int R, int B, int C, int nflat, int lossy, float p,
     const uint8_t* fbits, long long churn_tick, long long reg_t0,
     long long reg_t1, int strag, float strag_success, int* retx, int two_h,
-    float log_q, int* conc, uint8_t* out_att, void* stream) {
+    float log_q, int* conc, uint8_t* out_att, float* congp, void* stream) {
   if (T == 0 || R == 0 || B == 0) return 0;
+  const int half = (B + 1) / 2;
+  // the main path (no loss, scenario or cost model) and the scenario and
+  // cost path at even T without loss take kernels of their own
+  const long long words = (long long)T * R * B * (retx ? two_h : 1);
+  const bool plain = !lossy && !fbits && !retx && !conc && words <= 0x7FFFFFFFLL;
+  const bool paired = !plain && !lossy && T % 2 == 0 && words <= 0x7FFFFFFFLL;
+  // a block's counter pairs: its full width, or the fewest powers of two
+  // that cover a small draw (the top level has one pair)
+  int G = plain ? kPlainPairs : kPairs;
+  while (G > 1 && G / 2 >= half) G /= 2;
+  int threads = kThreads, direct = 0;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (plain) {
+    // narrower blocks until the grid covers the card twice
+    while (G > 8 && (long long)R * ((half + G - 1) / G) < 2LL * sms) G /= 2;
+    // a lane draws two of its ticks at a time: 4 or 5 lanes, whichever
+    // leaves fewer of its tick pairs empty; a small draw doubles them, up
+    // to a lane a tick, while the card has room
+    int lanes = (T + 9) / 10 * 10 - T < (T + 7) / 8 * 8 - T ? 5 : 4;
+    const long long blocks = (long long)R * ((half + G - 1) / G);
+    while (lanes < T && G * lanes * 2 <= kPlainThreads &&
+           blocks * G * lanes * 2 <= (long long)sms * 1024)
+      lanes *= 2;
+    threads = G * lanes;
+    direct = blocks < sms;
+  } else if (paired) {
+    // a small draw: more tick lanes, up to a lane a slot of T/2 ticks
+    int lanes = kThreads / G;
+    const long long blocks = (long long)R * ((half + G - 1) / G);
+    while (2 * lanes <= T / 2 && G * lanes * 2 <= 1024 &&
+           blocks * G * lanes * 2 <= (long long)sms * 1024)
+      lanes *= 2;
+    threads = G * lanes;
+  }
+  const int runs = (half + G - 1) / G;
   Args a{keys,   start,   nbr,    hops,       degrees, n_nodes, done,
          out_i,  out_j,   out_ui, out_uj,     usage,   msgs,    t0,
-         T,      R,       B,      C,          nflat,   (B + 1) / 2,
-         lossy,  p,       fbits,  churn_tick, reg_t0,  reg_t1,  strag,
-         strag_success,   retx,   two_h,      log_q,   conc,    out_att};
-  const long long total = (long long)T * R * a.half;
-  const long long blocks = (total + kThreads - 1) / kThreads;
+         T,      R,       B,      C,          nflat,   half,    lossy,
+         p,      fbits,   churn_tick, reg_t0, reg_t1,  strag,
+         strag_success,   retx,   two_h,      log_q,   conc,    out_att,
+         G,      runs,    (unsigned)(threads / G) * (unsigned)R * (unsigned)B,
+         direct};
+  const long long blocks = (long long)R * runs;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   // the tagged streams' counters are uint32
   if ((strag || retx) && (long long)T * B * (retx ? two_h : 1) >= 0xFFFFFFFFLL)
     return (int)cudaErrorInvalidValue;
-  sample_chunk_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      a);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (plain)
+    sample_chunk_plain<<<(unsigned)blocks, threads, 0, s>>>(a);
+  else if (paired && threads <= kThreads)
+    sample_chunk_paired<kThreads, 6><<<(unsigned)blocks, threads, 0, s>>>(a);
+  else if (paired)
+    sample_chunk_paired<1024, 1><<<(unsigned)blocks, threads, 0, s>>>(a);
+  else
+    sample_chunk_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || conc == nullptr) return (int)err;
+  const long long RB = (long long)R * B;
+  sample_chunk_congestion<<<(unsigned)((RB + 255) / 256), 256, 0, s>>>(
+      out_att, conc, congp, T, R, B);
   return (int)cudaGetLastError();
 }

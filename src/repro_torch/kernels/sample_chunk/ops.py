@@ -1,12 +1,15 @@
 """Public op for drawing one gossip chunk's exchange schedule.
 
 A tensor on the CPU goes to the plain version (`ref.sample_chunk_ref`);
-a tensor on the card goes to the CUDA kernel (``csrc/sample_chunk.cu``)
-or raises — there is no fallback.  Both produce the same bits, and add
+a tensor on the card goes to the CUDA kernels (``csrc/sample_chunk.cu``:
+one for the main path, one for a scenario or cost model at even T
+without loss, one for every other case, chosen by the launch) or raises
+— there is no fallback.  Both produce the same bits, and add
 the same counts into `usage` and `msgs` (and, under a cost model, into
 `retx` and `congp`).  Under congestion pricing the kernel counts each
-tick's attempts and writes the attempt bits; a few tensor ops then form
-the chunk's concurrency pairs, as the plain version does.
+tick's attempts and writes the attempt bits, and a second kernel of the
+same source, launched by the same call, adds the chunk's concurrency
+pairs into `congp`.
 
 `sample_chunk.launches` counts the kernel's launches.
 """
@@ -34,7 +37,7 @@ def _lib():
         p, n, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
         fn.argtypes = ([p] * 13 + [ll, n, n, n, n, n, n, f]
-                       + [p, ll, ll, ll, n, f] + [p, n, f, p, p, p])
+                       + [p, ll, ll, ll, n, f] + [p, n, f, p, p, p, p])
         fn.restype = ctypes.c_int
         _LAUNCH = fn
     return _LAUNCH
@@ -144,7 +147,7 @@ def sample_chunk(t0: int, T: int, keys, adj, loss_p: Optional[float], done,
             fc.straggler_success if fc else 1.0,
             ptr(retx) if sample_retx else None, 2 * hop_cap,
             log_q(cost.retransmit_p) if sample_retx else 0.0, ptr(conc),
-            ptr(att))
+            ptr(att), ptr(congp) if track_cong else None)
     if idx == torch._C._cuda_getDevice():
         rc = _lib()(*args, torch._C._cuda_getCurrentRawStream(idx))
     else:
@@ -154,11 +157,6 @@ def sample_chunk(t0: int, T: int, keys, adj, loss_p: Optional[float], done,
         raise RuntimeError(f"sample_chunk kernel launch failed: CUDA error "
                            f"{rc}")
     sample_chunk.launches += 1
-    if track_cong:
-        # the chunk's concurrency pairs, summed in int32, added in f32
-        w = torch.sub(conc, 1).clamp_(min=0)
-        congp += (att.view(T, R, B) * w.t()[:, :, None]).sum(
-            0, dtype=torch.int32).to(torch.float32)
     return i, j, upd_i, upd_j
 
 

@@ -178,7 +178,7 @@ def test_sample_chunk_kernel_rejects_what_it_does_not_take(cuda_device):
 @pytest.mark.parametrize("mode", ["scenario", "cost", "both"])
 @pytest.mark.parametrize("loss_p", [None, 0.9])
 @pytest.mark.parametrize("R", [1, 3])
-@pytest.mark.parametrize("T", [1, 50, 63])
+@pytest.mark.parametrize("T", [1, 49, 50, 63])
 @pytest.mark.parametrize("B", [1, 2, 7, 4099])
 def test_sample_chunk_kernel_scenario_bitwise_on_card(cuda_device, B, T, R,
                                                       loss_p, mode):
@@ -187,7 +187,8 @@ def test_sample_chunk_kernel_scenario_bitwise_on_card(cuda_device, B, T, R,
     model (retransmissions over hops 1..3, congestion), or both, every
     output of the kernel equals the plain version's bitwise: pairs, bits,
     usage, msgs, retx and congestion pairs.  T=63 with odd B makes the
-    straggler stream's size odd."""
+    straggler stream's size odd; T=49 and T=1 draw each tagged word from
+    its own counter, even T two words a counter."""
     from repro_torch.core import CostModel, FailureCtx
 
     rng = np.random.default_rng(B * 1000 + T * 10 + R + 7)
@@ -222,6 +223,114 @@ def test_sample_chunk_kernel_scenario_bitwise_on_card(cuda_device, B, T, R,
                             counts["msgs"], failure_ctx=ctx, cost=cost,
                             hop_cap=3, retx=counts["retx"],
                             congp=counts["congp"])
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    for name in counts:
+        assert torch.equal(got_c[name], counts[name]), name
+
+
+def _permuted_csr(csr, rng):
+    """The same graphs with each graph's run of edges moved to a random
+    place in the flat arrays: a block's draws then fall outside its
+    window of edges and take the kernel's global-atomic branch."""
+    start, nbr, hops, degrees, n_nodes = (np.asarray(a) for a in csr)
+    total = degrees.sum(1)
+    first = start[:, 0]
+    new_start = np.empty_like(start)
+    runs_nbr, runs_hops, off = [], [], 0
+    for b in rng.permutation(len(total)):
+        new_start[b] = start[b] - first[b] + off
+        runs_nbr.append(nbr[first[b]:first[b] + total[b]])
+        runs_hops.append(hops[first[b]:first[b] + total[b]])
+        off += total[b]
+    return type(csr)(new_start, np.concatenate(runs_nbr + [[0]]).astype(
+        np.int32), np.concatenate(runs_hops + [[1]]).astype(np.int32),
+        degrees, n_nodes)
+
+
+def _wide_csr(rng, B=3, C=130, D=60):
+    """B graphs of C nodes each of degree D: 7800 edges a graph, more
+    than the kernel's shared-memory window of a graph run."""
+    neighbors = rng.integers(0, C, (B, C, D)).astype(np.int32)
+    degrees = np.full((B, C), D, np.int32)
+    n_nodes = np.full(B, C, np.int32)
+    hops = rng.integers(1, 4, (B, C, D)).astype(np.int32)
+    return dense_to_csr(neighbors, degrees, n_nodes, hops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,B,T,R,mode,loss_p", [
+    ("permuted", 300, 64, 2, "both", None),
+    ("permuted", 300, 50, 2, "plain", 0.9),
+    ("permuted", 4099, 49, 1, "both", 0.9),
+    ("wide", 3, 50, 2, "both", None),
+    ("wide", 3, 49, 1, "plain", 0.9),
+    ("wide", 3, 64, 3, "cost", 0.9),
+    ("long", 300, 64, 2, "both", None),
+    ("long", 77, 49, 3, "plain", 0.9),
+    ("control", 485, 64, 260, "plain", None),
+    ("control", 485, 64, 260, "both", None),
+    ("tiles", 77, 130, 2, "plain", None),
+    ("tiles", 77, 130, 2, "both", None),
+])
+def test_sample_chunk_kernel_layouts_on_card(cuda_device, layout, B, T, R,
+                                             mode, loss_p):
+    """A block counts usage in shared memory over each graph run's
+    window of edges, [start[first, 0], start[end, 0]), and any other
+    position in device memory.  Every output equals the plain version's
+    bitwise where the graphs' edges are permuted (most outside the
+    window), where each graph has more edges than the window, at C=20,
+    at a control-plane shape (R=260, B=485 graphs of at most 7 nodes,
+    half the graphs frozen by `done`), and over T=130, more ticks than a
+    block holds keys for at once."""
+    from repro_torch.core import CostModel, FailureCtx
+
+    rng = np.random.default_rng(B * 100 + T + R)
+    if layout == "permuted":
+        base = _random_csr(rng, B)
+        csr = _permuted_csr(base, rng)
+        assert not np.array_equal(csr.start, base.start)
+    elif layout == "wide":
+        csr = _wide_csr(rng)
+        assert int(np.asarray(csr.degrees)[0].sum()) > 2048
+    elif layout in ("long", "tiles"):
+        csr = _random_csr(rng, B, C=20 if layout == "long" else 9, D=6)
+    else:
+        csr = _random_csr(rng, B, C=7, D=6)
+    adj = csr.to_device(cuda_device)
+    C = adj.degrees.shape[1]
+    nflat = adj.nbr.shape[0]
+    keys = prng.fold_in(torch.stack(
+        [prng.PRNGKey(int(s), cuda_device)
+         for s in rng.integers(0, 2**32, R)]), 1)
+    frozen = 0.5 if layout == "control" else 0.2
+    done = torch.from_numpy(rng.uniform(size=(R, B)) < frozen).to(
+        cuda_device)
+    t0 = int(rng.integers(0, 2**20))
+    ctx = cost = None
+    if mode == "both":
+        ctx = FailureCtx.from_masks(
+            *[rng.uniform(size=(B, C)) < 0.25 for _ in range(4)],
+            t0 + T // 2, t0 + T // 4, t0 + 3 * T // 4 + 1, 0.25,
+            device=cuda_device)
+    if mode != "plain":
+        cost = CostModel(retransmit_p=0.9, congestion_alpha=0.01)
+    counts = {name: torch.from_numpy(rng.integers(0, 100, shape).astype(
+        dtype)).to(cuda_device) for name, shape, dtype in (
+            ("usage", R * nflat, np.int32), ("msgs", (R, B), np.int32),
+            ("retx", (R, B), np.int32), ("congp", (R, B), np.float32))}
+    got_c = {k: v.clone() for k, v in counts.items()}
+    kw = dict(failure_ctx=ctx, cost=cost, hop_cap=3)
+    before = sample_chunk.launches
+    got = sample_chunk(t0, T, keys, adj, loss_p, done, got_c["usage"],
+                       got_c["msgs"], retx=got_c["retx"],
+                       congp=got_c["congp"], **kw)
+    torch.cuda.synchronize()
+    assert sample_chunk.launches == before + 1
+    want = sample_chunk_ref(t0, T, keys, adj, loss_p, done, counts["usage"],
+                            counts["msgs"], retx=counts["retx"],
+                            congp=counts["congp"], **kw)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a, b)

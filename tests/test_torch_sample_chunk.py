@@ -108,6 +108,38 @@ def test_sample_chunk_rejects_other_devices(plan500):
     assert sample_chunk.launches == 0
 
 
+@pytest.fixture(scope="module")
+def port_plan500():
+    import repro_torch.core as P
+
+    return P.build_plan(P.random_geometric_graph(500, seed=7), seed=0)
+
+
+@pytest.mark.parametrize("which", ["port", "reference"])
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_plan_lays_each_graphs_edges_out_in_one_run(plan500, port_plan500,
+                                                    level, which):
+    """What the kernel's shared-memory usage window relies on: graph b's
+    edges are exactly [nbr_start[b, 0], nbr_start[b+1, 0]) (the last
+    graph's run ends at the flat arrays' sentinel), each row's edges
+    following the one before, so a block owning graphs [b0, b1) finds
+    every edge it draws in [nbr_start[b0, 0], nbr_start[b1, 0])."""
+    lp = (port_plan500 if which == "port" else plan500).levels[level]
+    start = np.asarray(lp.nbr_start, np.int64)
+    deg = np.asarray(lp.degrees, np.int64)
+    B = lp.num_graphs
+    assert start.shape == deg.shape == (B, lp.degrees.shape[1])
+    nnz = lp.nbr_flat.shape[0] - 1  # one trailing sentinel entry
+    assert nnz == int(deg.sum())
+    ends = np.append(start[1:, 0], nnz)
+    for b in range(B):
+        # each row starts where the one before ends
+        np.testing.assert_array_equal(start[b, 1:], start[b, :-1]
+                                      + deg[b, :-1])
+        assert start[b, 0] + deg[b].sum() == ends[b]
+    assert start[0, 0] == 0
+
+
 def _random_ctx(rng, lp, T, t0):
     """Random failure flags on the level's slots (a fifth of each), with
     the churn tick and the regional window inside the chunk."""
