@@ -354,6 +354,24 @@ class Smoke:
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                            else "operations")
 
+    def instance_ms(self, fn, kernel: int) -> float:
+        """Device ms a call of `fn` with sample_chunk launched on template
+        instance `kernel` of csrc/sample_chunk.cu (2: every mode, with the
+        shape `launch_shape` gives it) in place of the one the op picks:
+        the instances compared at one shape."""
+        from repro_torch.kernels.sample_chunk import ops
+
+        chosen = ops.launch_shape
+
+        def forced(T, R, B, C, nflat, sms, mode):
+            return chosen(T, R, B, C, nflat, sms, 2)._replace(kernel=kernel)
+
+        ops.launch_shape = forced
+        try:
+            return self.device_ms(fn, 50)
+        finally:
+            ops.launch_shape = chosen
+
     def chunk_bound(self, lp, T: int, R: int):
         """The least time of one plain-mode sample_chunk draw of `T` ticks
         for `R` trials over level `lp`, and what bounds it: each input
@@ -570,6 +588,11 @@ class Smoke:
               f"sample_chunk {dev_ms:.4f} ms on the device at (T={T}, B={B}, "
               f"C={C}), above {SAMPLE_CHUNK_BOUND_LIMIT}x its "
               f"{bound:.4f} ms bound")
+        # the same draw on the every-mode instance of the kernel's template
+        every_ms = self.instance_ms(kernel, 2)
+        log(f"[sample_chunk] the same draw on the every-mode instance: "
+            f"{every_ms:.4f} ms on the device (the main path's instance: "
+            f"{dev_ms:.4f})")
         # the top level's draw: one graph of 49 slots, 64 ticks; also
         # pair_apply's top-level shape
         top = plan.levels[-1]
@@ -595,7 +618,7 @@ class Smoke:
             plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
             bound_limit=SAMPLE_CHUNK_BOUND_LIMIT,
             top_device_ms=top_dev_ms, top_bound_ms=top_bound,
-            top_bound_by=top_by,
+            top_bound_by=top_by, every_mode_instance_device_ms=every_ms,
             shape=dict(T=T, R=1, B=B, C=C, nflat=nflat))
         return top.degrees.shape[1], kernel_top()
 
@@ -759,6 +782,11 @@ class Smoke:
             f"of which {-(-strag_words // 2)} straggler and "
             f"{-(-retx_words // 2)} retransmission; the op "
             f"{dev_ms / bound:.2f}x the bound)")
+        # the same op on the instance that also draws loss
+        loss_ms = self.instance_ms(kernel, 2)
+        log(f"[sample_chunk scenario] the same op on the every-mode "
+            f"instance (with loss's code): {loss_ms:.4f} ms on the device "
+            f"(the instance without it: {dev_ms:.4f})")
         check(dev_ms <= SAMPLE_CHUNK_SCENARIO_BOUND_LIMIT * bound,
               f"sample_chunk with stragglers and cost {dev_ms:.4f} ms on the "
               f"device at (T={T}, B={B}, C={C}), above "
@@ -770,7 +798,9 @@ class Smoke:
             scenario_bound_limit=SAMPLE_CHUNK_SCENARIO_BOUND_LIMIT,
             scenario_kernel_ms=split["kernel"],
             scenario_congestion_ms=split["congestion"],
-            scenario_fill_ms=split["fill"], scenario_shape=dict(
+            scenario_fill_ms=split["fill"],
+            scenario_every_mode_instance_device_ms=loss_ms,
+            scenario_shape=dict(
                 T=T, R=1, B=B, C=C, scenario="stragglers", **SCENARIO_COST),
             scenario_hashes=hashes)
 

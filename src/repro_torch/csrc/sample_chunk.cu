@@ -31,7 +31,8 @@
 // `strag_success`; a Byzantine slot never updates.
 // Under a cost model (gossip.py:314-330):
 //   retx[r*B + b] += sum over m < hops_t of floor(log u_m / log q)
-//   conc[r*T + t] += attempt, and attempt (T, R*B) uint8 is written;
+//   conc[r*T + t] += attempt, and the attempt bits are written packed,
+//   a word for each graph and each half of a tile of tick slots;
 //   congp[r*B + b] += f32(sum over t of attempt * max(conc[r, t] - 1, 0))
 //   by the second kernel, the int32 sum rounded once, as the plain
 //   version sums in int32 and adds in f32.
@@ -70,54 +71,58 @@
 //
 // Shape of the work.  A block owns one trial r and a run of G counter
 // pairs c0 .. c0+G-1, that is graphs [c0, c0+G) and [c0+half,
-// c0+G+half), for all T ticks of the chunk (G = 32; on the main path 64,
-// fewer for a draw too small to fill the card, with more tick lanes).
-// It hashes its tick keys (one fold_in and split's four hashes a tick)
-// once into shared memory.  Its threads are graph
-// pair x tick lane: a warp holds 32 neighbouring pairs, so each store of
-// the schedule is coalesced, and each lane walks its ticks.  Because a
-// block alone owns its (r, b), a thread sums its graphs' messages and
-// retransmissions in registers and the block adds each sum once, with a
-// plain read-add-write of the counts it read when it started.  Usage
-// goes to a shared histogram over each run's window of edges
-// [start[first, 0], start[end, 0]) (the plan's CSR lays a graph's edges
-// out in one run), flushed by one atomicAdd a counter touched: another
-// block may reach the same counter under another layout.  A position
-// outside the window (a CSR whose graphs are not in order, a window
-// longer than the histogram) takes a global atomic in the same pass, so
-// any layout is counted right.  Attempts a tick are summed in shared
-// memory and added to `conc` once a block.  Three kernels share this
-// shape:
-// * sample_chunk_plain, the main path (no loss, scenario or cost model):
-//   a thread draws two of its ticks at a time, their four exchange
-//   hashes in lockstep (threefry_n), then all eight gathers, then the
-//   stores, at 32-bit offsets; a grid too small to fill the card counts
-//   straight into device memory, with no window and no flush, since its
-//   blocks' start-up and flush would cost more than its atomics;
-// * sample_chunk_paired, a scenario or a cost model at even T without
-//   loss: a thread draws ticks t and t + T/2 together, so each tagged
-//   counter it hashes gives both ticks' words (a straggler word and the
-//   2*hop_cap retransmission words of an exchange), the graphs' counters
-//   in lockstep too;
-// * sample_chunk_kernel, every other case (loss, odd T, offsets past
-//   2^31): the same draws one graph at a time, and at odd T a tagged
-//   word from its own counter.
-// Under a cost model a second kernel, sample_chunk_congestion, forms the
-// concurrency pairs from the attempt bits and `conc`.
+// c0+G+half), for all T ticks of the chunk.  A slot s holds ticks s and
+// s + span, span = ceil(T/2): at even T the tick whose tagged words share
+// a hash with tick s.  The block hashes the keys of a tile of up to 32
+// slots once into shared memory (one fold_in and split's four hashes a
+// tick).  An item is one slot of one pair: both ticks of both graphs,
+// its four exchange hashes in lockstep, then its gathers, the scenario,
+// the tagged words (each counter hashed once for both ticks at even T),
+// the stores and the counts.  The host picks the shape (`launch_shape`,
+// kernels/sample_chunk/ops.py): as many blocks as the card has SMs, or
+// a multiple, so every SM draws as many pairs.  One template serves
+// every mode, in three instances:
+// * the main path (no loss, scenario or cost model): thread (lane, p)
+//   draws slots lane, lane + lanes, ... of pair p, its pair and its
+//   message sums in registers to the end; lanes are as few as the
+//   block's turns need, so they differ by one turn at most.  Its two
+//   update bits are equal, and it writes only upd_i, which the op
+//   returns for both;
+// * every mode but loss, and every mode: a draw there needs more
+//   registers than a pair kept for the whole chunk leaves (at 832
+//   threads it spilled and ran slower), so the threads take the tile's
+//   (slot, pair) items in turn, pairs fastest, every thread as many,
+//   and add each item's sums to the block's in shared memory.  The loss
+//   code has its own instance: the scenario op runs faster without its
+//   registers.  The last instance takes 64-bit offsets, for T*R*B past
+//   2^31.
+// Because a block alone owns its (r, b), its messages and retransmissions
+// are added to device memory once, with a plain read-add-write of the
+// counts it read when it started.  Usage goes to a shared histogram over
+// each run's window of edges [start[first, 0], start[end, 0]) (the plan's
+// CSR lays a graph's edges out in one run), flushed by one atomicAdd a
+// counter touched: another block may reach the same counter under
+// another layout.  A position outside the window (a CSR whose graphs
+// are not in order, a run with more edges than the host allotted, or a
+// grid too small to fill the card, where the host allots none) takes a
+// device atomic in the same pass, so any layout is counted right.  Under
+// congestion pricing each graph's attempt bits of a tile are one word a
+// half of the tile, ORed in shared memory, counted by column with warp
+// ballots into the attempts a tick, added to `conc` once a block, and
+// written for the congestion kernel, which stages each trial's weights
+// max(conc - 1, 0) in shared memory.
 //
 // What bounds it on an H100: the integer work of the hash (20 rounds of
 // add, rotate, xor; 72 operations a hash) against the int32 lanes, and
 // the bytes of the schedule it writes (10 a draw); chip_smoke.py takes
-// the larger of the two.  On the card (PERF.md, PR 21) the kernel is
-// bound by the integer ALU pipe that runs the funnel shifts, xors and
-// 3-input adds of the hash: an extra hash a thread and tick slowed it far
-// more than half again as many gathers did, and the draw around each
-// hash (uniforms, two truncating products, three dependent gathers, the
-// stores, the counts) costs about as many ALU instructions again.  So the design spends none it can avoid: no 64-bit
-// division or device atomic a draw, no tagged hash twice, no register
-// set a mode does not need; the retransmission count is estimated from
-// the special function unit's log2 and computed exactly (logf, a
-// correctly rounded division) only near an integer (`retries`).
+// the larger of the two.  On the card (PERF.md, PR 21) the main path
+// runs about 480 integer instructions an item, 288 of them its four
+// hashes, and its stores cost a fifth of its time; so the kernel spends
+// none it can avoid: no division or device atomic a draw, no tagged hash
+// twice, one update-bit tensor on the main path; the retransmission
+// count is estimated from the special function unit's log2 and computed
+// exactly (logf, a correctly rounded division) only near an integer
+// (`retries`).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -125,16 +130,14 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kPairs = 32;    // counter pairs a block at most: a warp's width
-// the main path's blocks: twice as wide, so each tick's keys serve twice
-// as many graphs; narrower, with more tick lanes, for a draw too small to
-// fill the card (the launch picks both)
-constexpr int kPlainPairs = 64;
-constexpr int kPlainThreads = 1024;
-constexpr int kTile = 64;     // tick keys a block holds at once
-constexpr int kWindow = 2048; // usage counters of a graph run kept on chip
-constexpr int kPlainWindow = 512;  // the same on the main path
+// threads a block at most: the main path's instance, the others' (more
+// registers a thread: their draw keeps more in flight)
+constexpr int kMaxThreads = 1024;
+constexpr int kFullThreads = 640;
+constexpr int kMaxPairs = 512;    // counter pairs a block at most
+constexpr int kTileSlots = 32;    // tick slots a block holds keys for
+constexpr int kMaxWindow = 8192;  // usage counters of a graph run on chip
+constexpr int kMaxDevices = 64;
 constexpr uint32_t kTagRetx = 2147483640u;  // medium.py _TAG_RETX
 constexpr uint32_t kTagStraggler = 2147483641u;
 constexpr uint8_t kChurned = 1, kStraggler = 2, kByz = 4, kRegional = 8;
@@ -220,15 +223,17 @@ __device__ __forceinline__ void lost_hops(float u, float log_p, int h,
 // floor(logf(u) / log_q), u = max(uniform(w), 1e-12).  The integer is
 // first estimated as x' = log2(u) * (ln 2 / log_q) from the special
 // function unit (scale = ln 2 / log_q); only where x' lies within
-// 2e-3 (|x'| + 1) + 2e-6 |scale| of an integer, far above the few ulps
-// that separate x' from the exact quotient, is the exact quotient (the
-// library's logf, a correctly rounded division) taken.  Either way the
-// count is the exact quotient's floor.
+// 2e-5 (|x'| + 1) + 2e-6 |scale| of an integer is the exact quotient (the
+// library's logf, a correctly rounded division) taken.  x' and the exact
+// quotient differ by less than 7e-7 |x'| (log2's 2 ulps, logf's 1, three
+// roundings) plus 2^-22.6 |scale| (log2's absolute error on [0.5, 2]),
+// at least 8 times inside that margin.  Either way the count is the
+// exact quotient's floor.
 __device__ __forceinline__ int retries(uint32_t w, float log_q, float scale) {
   const float u = fmaxf(uniform(w), 1e-12f);
   const float x = __log2f(u) * scale;
   const float k = floorf(x);
-  const float margin = 2e-3f * (fabsf(x) + 1.0f) + 2e-6f * fabsf(scale);
+  const float margin = 2e-5f * (fabsf(x) + 1.0f) + 2e-6f * fabsf(scale);
   if (x - k > margin && k + 1.0f - x > margin) return (int)k;
   return (int)floorf(__fdiv_rn(logf(u), log_q));
 }
@@ -248,7 +253,7 @@ struct Args {
   int* usage;  // (R*nflat,)
   int* msgs;   // (R*B,)
   long long t0;
-  int T, R, B, C, nflat, half, lossy;
+  int T, R, B, C, nflat, lossy;
   float p;  // loss_p in f32
   // scenario: fbits == nullptr runs none
   const uint8_t* fbits;  // (B, C) failure flags of each slot
@@ -257,860 +262,616 @@ struct Args {
   float strag_success;  // straggler_success in f32
   // cost: retx == nullptr samples no retransmissions, conc == nullptr
   // tracks no congestion
-  int* retx;          // (R*B,)
-  int two_h;          // 2 * hop_cap retransmission words an exchange
-  float log_q;        // log of f32(1 - retransmit_p)
-  int* conc;          // (R*T,) attempts a tick of each trial
-  uint8_t* out_att;   // (T, R*B) attempt
-  int G, runs;        // counter pairs a block; blocks a trial
-  unsigned stride;    // main path: L*R*B, from a thread's tick to its next
-  int direct;         // main path: 1 for a grid too small to fill the
-                      // card, whose counts go straight to device atomics
+  int* retx;           // (R*B,)
+  int two_h;           // 2 * hop_cap retransmission words an exchange
+  float log_q;         // log of f32(1 - retransmit_p)
+  int* conc;           // (R*T,) attempts a tick of each trial
+  uint32_t* out_att;   // (2 * tiles, R*B) attempt bits, one word a graph
+                       // for each half of each tile of slots
+  // the shape: half = ceil(B/2) counter pairs, span = ceil(T/2) slots;
+  // G pairs a block, `lanes` threads a pair, runs blocks a trial, window
+  // usage counters of each graph run kept on chip
+  int half, span, G, lanes, runs, window;
 };
 
-// A thread's graph: what stays the same over its ticks.
-struct Graph {
-  int b, n;   // graph, its node count
-  bool live;  // not frozen by `done`
+// What shared memory holds.  kFull: the other modes' keys, tick flags,
+// retransmission sums, attempt bits and counts a tick.
+template <bool kFull>
+struct Shared {
+  uint32_t key[2 * kTileSlots][kFull ? 8 : 4];  // split(fold_in(k_r, t))
+  uint8_t now[2 * kTileSlots];  // 1: churned slots down, 2: regional ones
+  int conc[2 * kTileSlots];     // attempts of each tick of the tile
+  uint32_t tag[4];              // straggler key, retransmission key
+  // of graphs c and c + half: n | done << 31, then the row of i = 0
+  // (a graph of 0 nodes: C, so that i = -1 reads its last slot)
+  uint4 info[kMaxPairs];
+  int sum[kFull ? 4 : 2][kMaxPairs];        // msgs of graph k, then retx
+  uint32_t att[kFull ? 4 : 1][kMaxPairs];   // attempt bits, graph k, half
+  int win[2][2];                            // each run's window: lo, size
 };
 
-// One graph's exchange at one tick, drawn up to the straggler's word.
-struct Draw {
-  int i, j, pos, cost;  // cost: the transmissions charged (cost_t)
-  bool attempt, delivered, slow, ui, uj;  // ui, uj: the bits if delivered
+// What a block keeps in registers.
+struct Run {
+  int r, c0, np;       // trial, first counter pair, pairs
+  int* usage_r;        // usage counters of trial r
+  int* hist;           // window k's counts at hist + k * window
+  int lo[2], size[2];  // each run's window
+  float log_p, scale;  // log of the loss p; ln 2 / log_q
 };
 
-__device__ __forceinline__ Draw draw(const Args& a, float log_p,
-                                     long long when, const Graph& g,
-                                     uint32_t wi, uint32_t wj, uint32_t wf,
-                                     uint32_t wr) {
-  const int n = g.n;
-  const int i = min((int)__fmul_rn(uniform(wi), (float)n), n - 1);
-  const int row = g.b * a.C + (i < 0 ? i + a.C : i);
-  const int deg = a.degrees[row];
-  const int jidx = min((int)__fmul_rn(uniform(wj), (float)deg), max(deg - 1, 0));
-  const int pos = a.start[row] + jidx;
-  const int j = a.nbr[pos];
-  const int h = a.hops[pos];
+// A counter pair p of the block's run: graphs c and c + half.
+struct Pair {
+  int c, b[2];          // graphs (a missing second graph: the first)
+  bool has2;            // the odd draw's last pair has one graph
+  uint32_t x2;          // the exchange draws' second counter
+  uint32_t nfo[2];      // n | done << 31
+  int row0[2];          // row of i = 0 (a graph of 0 nodes: C)
+};
+
+// What a thread sums (over its ticks on the main path, over an item in
+// the other modes): messages and retransmissions of each graph, and its
+// attempt bits of the tile (graph k, half u).
+struct Sums {
+  int msgs[2], retx[2];
+  uint32_t att[2][2];
+};
+
+// Count one attempted exchange of graph k at edge `pos` into its run's
+// window, or into device memory outside it.
+__device__ __forceinline__ void count_edge(const Args& a, const Run& run,
+                                           int k, int pos) {
+  const int off = pos - run.lo[k];
+  if ((unsigned)off < (unsigned)run.size[k])
+    atomicAdd(run.hist + k * a.window + off, 1);
+  else
+    atomicAdd(run.usage_r + pos, 1);
+}
+
+// One exchange's outcome under loss and a scenario (gossip.py:287-310,
+// schedule.py:136-151), up to the straggler's word; fi, fj: the flags of
+// its nodes' slots.  cost: the transmissions charged (cost_t); ui, uj:
+// the update bits if delivered.
+struct Fate {
+  int cost;
+  bool attempt, delivered, slow, ui, uj;
+};
+
+// kMode 0: the main path (no loss, scenario or cost model); 1: every
+// mode but loss, each as `a` says; 2: every mode.
+template <int kMode>
+__device__ __forceinline__ Fate fate(const Args& a, const Run& run,
+                                     bool valid, int h, uint32_t wf,
+                                     uint32_t wr, uint8_t fi, uint8_t fj,
+                                     uint8_t now) {
+  Fate f{2 * h, valid, valid, false, true, true};
+  if (kMode == 0) return f;
   bool fwd_ok = true, rep_ok = true;
-  int cost = 2 * h;
-  if (a.lossy) {
+  if (kMode == 2 && a.lossy) {
     int fwd_sent, rep_sent;
-    lost_hops(uniform(wf), log_p, h, fwd_ok, fwd_sent);
-    lost_hops(uniform(wr), log_p, h, rep_ok, rep_sent);
-    cost = fwd_sent + (fwd_ok ? rep_sent : 0);
+    lost_hops(uniform(wf), run.log_p, h, fwd_ok, fwd_sent);
+    lost_hops(uniform(wr), run.log_p, h, rep_ok, rep_sent);
+    f.cost = fwd_sent + (fwd_ok ? rep_sent : 0);
   }
-  Draw d;
-  d.i = i;
-  d.j = j;
-  d.pos = pos;
-  d.cost = cost;
-  d.attempt = d.delivered = deg > 0 && g.live;
-  d.slow = false;
   bool keep_i = true, keep_j = true;
   if (a.fbits) {
-    const uint8_t fi = a.fbits[row], fj = a.fbits[g.b * a.C + j];
-    const bool churn_now = when >= a.churn_tick;
-    const bool reg_now = when >= a.reg_t0 && when < a.reg_t1;
+    const bool churn_now = now & 1, reg_now = now & 2;
     const bool down_i = ((fi & kChurned) && churn_now) ||
                         ((fi & kRegional) && reg_now);
     const bool down_j = ((fj & kChurned) && churn_now) ||
                         ((fj & kRegional) && reg_now);
-    d.attempt = d.attempt && !down_i;
-    d.delivered = d.attempt && !down_j;
-    d.slow = a.strag && d.delivered && ((fi | fj) & kStraggler);
+    f.attempt = valid && !down_i;
+    f.delivered = f.attempt && !down_j;
+    f.slow = a.strag && f.delivered && ((fi | fj) & kStraggler);
     keep_i = !(fi & kByz);
     keep_j = !(fj & kByz);
-    d.cost = d.delivered ? cost : h;
+    if (!f.delivered) f.cost = h;
   }
-  d.uj = fwd_ok && keep_j;
-  d.ui = fwd_ok && rep_ok && keep_i;
-  return d;
+  f.uj = fwd_ok && keep_j;
+  f.ui = fwd_ok && rep_ok && keep_i;
+  return f;
 }
 
-// Count one attempted exchange at edge `pos` into the block's window, or
-// into device memory outside it.
-__device__ __forceinline__ void count_edge(int* usage_r, int* hist, int lo,
-                                           int size, int pos) {
-  const int off = pos - lo;
-  if ((unsigned)off < (unsigned)size)
-    atomicAdd(hist + off, 1);
-  else
-    atomicAdd(usage_r + pos, 1);
-}
-
-// Write one draw's schedule entry and count it; returns its attempt.
-__device__ __forceinline__ int settle(const Args& a, const Draw& d,
-                                      long long o, int* usage_r, int* hist,
-                                      const int* win, int& msgs) {
-  a.out_i[o] = d.i;
-  a.out_j[o] = d.j;
-  a.out_ui[o] = d.delivered && d.ui;
-  a.out_uj[o] = d.delivered && d.uj;
-  if (a.out_att) a.out_att[o] = d.attempt;
-  if (!d.attempt) return 0;
-  msgs += d.cost;
-  count_edge(usage_r, hist, win[0], win[1], d.pos);
-  return 1;
-}
-
-// NT = 2: ticks tl[0] and tl[1] = tl[0] + T/2 of a thread's graphs,
-// their tagged words from shared counters.  NT = 1: one tick.  Writes
-// the attempts of each tick into att.
-template <int NT>
-__device__ __forceinline__ void ticks(const Args& a, float log_p, int r,
-                                      uint32_t c, uint32_t x2, int ng,
-                                      const Graph* gr, int* usage_r,
-                                      int (*hist)[kWindow],
-                                      const int (*win)[2],
-                                      const uint32_t* const* keys,
-                                      const int* tl, const uint32_t* tk,
-                                      int* att, int* msgs, int* retx) {
-  // w[t][s][k]: tick t, stream s (i, j, f, r), graph k; the i and j
-  // hashes of every tick in lockstep, then f and r under loss
-  uint32_t w[NT][4][2];
+// Slot s of the tile at s0 for pair pr: ticks s0 + s and s0 + s + span
+// of graphs c and c + half, summed into `sum`.  Each value is stored or
+// folded as soon as it is drawn, so few stay in registers.
+template <int kMode, typename Off>
+__device__ __forceinline__ void draw_item(const Args& a, const Run& run,
+                                          Shared<(kMode > 0)>& sh,
+                                          const Pair& pr, int s0, int ns,
+                                          int s, Sums& sum) {
+  constexpr bool kFull = kMode > 0;
+  const int B = a.B, c = pr.c;
+  const bool has2 = pr.has2;
+  const int* b = pr.b;
+  const uint32_t x2 = pr.x2;
+  const uint32_t* nfo = pr.nfo;
+  const int* row0 = pr.row0;
+  const int e[2] = {s, s + ns};  // the ticks' keys
+  const int t[2] = {s0 + s, s0 + s + a.span};
+  const bool two = t[1] < a.T;
+  bool put[2][2];  // (u, k) exists: tick u drawn, graph k real
+  Off o[2][2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      put[u][k] = (u == 0 || two) && (k == 0 || has2);
+      o[u][k] = ((Off)t[u] * a.R + run.r) * B + b[k];
+    }
+  // the i and j words of both ticks in lockstep; w1 graph c, w2 graph
+  // c + half; then the f and r words under loss
+  uint32_t w1[4], w2[4], v1[4] = {0u, 0u, 0u, 0u}, v2[4] = {0u, 0u, 0u, 0u};
   {
-    uint32_t k1[2 * NT], k2[2 * NT], y1[2 * NT], y2[2 * NT];
+    uint32_t q1[4], q2[4];
 #pragma unroll
-    for (int h = 0; h < 2 * NT; ++h) {
-      k1[h] = keys[h / 2][2 * (h % 2)];
-      k2[h] = keys[h / 2][2 * (h % 2) + 1];
-      y1[h] = c;
-      y2[h] = x2;
+    for (int h = 0; h < 4; ++h) {
+      q1[h] = sh.key[e[h / 2]][2 * (h % 2)];
+      q2[h] = sh.key[e[h / 2]][2 * (h % 2) + 1];
+      w1[h] = (uint32_t)c;
+      w2[h] = x2;
     }
-    threefry_n<2 * NT>(k1, k2, y1, y2);
+    threefry_n<4>(q1, q2, w1, w2);
+    if (kMode == 2 && a.lossy) {
 #pragma unroll
-    for (int h = 0; h < 2 * NT; ++h) {
-      w[h / 2][h % 2][0] = y1[h];
-      w[h / 2][h % 2][1] = y2[h];
-    }
-    if (a.lossy) {
-#pragma unroll
-      for (int h = 0; h < 2 * NT; ++h) {
-        k1[h] = keys[h / 2][4 + 2 * (h % 2)];
-        k2[h] = keys[h / 2][5 + 2 * (h % 2)];
-        y1[h] = c;
-        y2[h] = x2;
+      for (int h = 0; h < 4; ++h) {
+        q1[h] = sh.key[e[h / 2]][(kFull ? 4 : 0) + 2 * (h % 2)];
+        q2[h] = sh.key[e[h / 2]][(kFull ? 5 : 1) + 2 * (h % 2)];
+        v1[h] = (uint32_t)c;
+        v2[h] = x2;
       }
-      threefry_n<2 * NT>(k1, k2, y1, y2);
-    }
-#pragma unroll
-    for (int h = 0; h < 2 * NT; ++h) {
-      w[h / 2][2 + h % 2][0] = a.lossy ? y1[h] : 0u;
-      w[h / 2][2 + h % 2][1] = a.lossy ? y2[h] : 0u;
+      threefry_n<4>(q1, q2, v1, v2);
     }
   }
-  Draw d[NT][2];
+  int deg[2][2], pos[2][2], hp[2][2];
+  uint8_t fi[2][2] = {{0, 0}, {0, 0}}, fj[2][2] = {{0, 0}, {0, 0}};
 #pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-      if (k < ng)
-        d[t][k] = draw(a, log_p, a.t0 + tl[t], gr[k], w[t][0][k], w[t][1][k],
-                       w[t][2][k], w[t][3][k]);
-  const long long TB = (long long)a.T * a.B;
-  if (a.strag) {
+  for (int u = 0; u < 2; ++u)
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      if (k >= ng) continue;
-      const long long flat = (long long)tl[0] * a.B + gr[k].b;
-      if (NT == 2) {
-        if (!(d[0][k].slow || d[NT - 1][k].slow)) continue;
-        uint32_t y1, y2;
-        threefry(tk[0], tk[1], (uint32_t)flat, (uint32_t)(flat + TB / 2), y1,
-                 y2);
-        if (d[0][k].slow) d[0][k].delivered = uniform(y1) < a.strag_success;
-        if (d[NT - 1][k].slow)
-          d[NT - 1][k].delivered = uniform(y2) < a.strag_success;
-      } else if (d[0][k].slow) {
-        d[0][k].delivered = uniform(word(tk, flat, TB)) < a.strag_success;
-      }
+      const int n = (int)(nfo[k] & 0x7FFFFFFFu);
+      const uint32_t wi = k ? w2[2 * u] : w1[2 * u];
+      const int i = min((int)__fmul_rn(uniform(wi), (float)n), n - 1);
+      const int row = row0[k] + i;
+      if (put[u][k]) a.out_i[o[u][k]] = i;
+      deg[u][k] = __ldg(a.degrees + row);
+      pos[u][k] = __ldg(a.start + row);
+      if (kFull && a.fbits) fi[u][k] = a.fbits[row];
     }
-  }
 #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    const long long o = ((long long)tl[t] * a.R + r) * a.B;
-    att[t] = 0;
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-      if (k < ng)
-        att[t] += settle(a, d[t][k], o + gr[k].b, usage_r, hist[k], win[k],
-                         msgs[k]);
-  }
-  if (a.retx) {
-    // extra attempts of each hop slot m < hops_t, one word each; at even
-    // T a counter serves ticks t and t + T/2, the graphs' counters hashed
-    // in lockstep, two slots of each at a time
-    const long long size = TB * a.two_h;
-    const float scale = 0.693147182f / a.log_q;
-    int h[NT][2], hm[2];
-    long long base[2];
+  for (int u = 0; u < 2; ++u)
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-#pragma unroll
-      for (int t = 0; t < NT; ++t)
-        h[t][k] = k < ng && d[t][k].attempt ? min(d[t][k].cost, a.two_h) : 0;
-      hm[k] = NT == 2 ? max(h[0][k], h[NT - 1][k]) : h[0][k];
-      base[k] = ((long long)tl[0] * a.B + gr[k].b) * a.two_h;
+      const uint32_t wj = k ? w2[2 * u + 1] : w1[2 * u + 1];
+      pos[u][k] += min((int)__fmul_rn(uniform(wj), (float)deg[u][k]),
+                       max(deg[u][k] - 1, 0));
+      const int j = __ldg(a.nbr + pos[u][k]);
+      hp[u][k] = __ldg(a.hops + pos[u][k]);
+      if (put[u][k]) a.out_j[o[u][k]] = j;
+      if (kFull && a.fbits) fj[u][k] = a.fbits[b[k] * a.C + j];
     }
-    if (NT == 2) {
-      const int top = max(hm[0], hm[1]);
+  Fate f[2][2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      f[u][k] = fate<kMode>(a, run, deg[u][k] > 0 && !(nfo[k] >> 31),
+                            hp[u][k], k ? v2[2 * u] : v1[2 * u],
+                            k ? v2[2 * u + 1] : v1[2 * u + 1], fi[u][k],
+                            fj[u][k], kFull ? sh.now[e[u]] : 0);
+  const bool even = (a.T & 1) == 0;
+  const unsigned TB = (unsigned)a.T * (unsigned)B;
+  if (kFull && a.strag) {
+    // word (t, b) of the straggler stream; at even T it pairs with
+    // (t + T/2, b): one hash for both ticks
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const bool slow0 = f[0][k].slow, slow1 = two && f[1][k].slow;
+      if (!(slow0 || slow1)) continue;
+      const unsigned flat = (unsigned)t[0] * B + b[k];
+      uint32_t y1, y2;
+      if (even) {
+        threefry(sh.tag[0], sh.tag[1], flat, flat + TB / 2, y1, y2);
+      } else {
+        y1 = slow0 ? word(sh.tag, flat, TB) : 0u;
+        y2 = slow1 ? word(sh.tag, (unsigned)t[1] * B + b[k], TB) : 0u;
+      }
+      if (slow0) f[0][k].delivered = uniform(y1) < a.strag_success;
+      if (slow1) f[1][k].delivered = uniform(y2) < a.strag_success;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (!put[u][k]) continue;
+      const Fate& d = f[u][k];
+      a.out_ui[o[u][k]] = d.delivered && d.ui;
+      // on the main path upd_j is upd_i: the op returns one tensor for both
+      if (kFull) a.out_uj[o[u][k]] = d.delivered && d.uj;
+      if (!d.attempt) continue;
+      sum.msgs[k] += d.cost;
+      count_edge(a, run, k, pos[u][k]);
+      if (kFull) sum.att[k][u] |= 1u << s;
+    }
+  if (kFull && a.retx) {
+    // extra attempts of each hop slot m < hops_t, one word each
+    int hs[2][2];
+    int* rx = sum.retx;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        hs[u][k] = put[u][k] && f[u][k].attempt
+                       ? min(f[u][k].cost, a.two_h)
+                       : 0;
+    if (even) {
+      // word (t, b, m) pairs with (t + T/2, b, m): a counter serves both
+      // ticks, two hop slots of each graph hashed in lockstep
+      const unsigned size2 = TB * (unsigned)a.two_h / 2;
+      const unsigned base[2] = {((unsigned)t[0] * B + b[0]) * a.two_h,
+                                ((unsigned)t[0] * B + b[1]) * a.two_h};
+      const int top = max(max(hs[0][0], hs[1][0]), max(hs[0][1], hs[1][1]));
       for (int m = 0; m < top; m += 2) {
         uint32_t q1[4], q2[4], y1[4], y2[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const long long w = base[q >> 1] + m + (q & 1);
-          q1[q] = tk[2];
-          q2[q] = tk[3];
-          y1[q] = (uint32_t)w;
-          y2[q] = (uint32_t)(w + size / 2);
+          q1[q] = sh.tag[2];
+          q2[q] = sh.tag[3];
+          y1[q] = base[q >> 1] + m + (q & 1);
+          y2[q] = y1[q] + size2;
         }
         threefry_n<4>(q1, q2, y1, y2);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int k = q >> 1, mm = m + (q & 1);
-          if (mm < h[0][k]) retx[k] += retries(y1[q], a.log_q, scale);
-          if (mm < h[NT - 1][k]) retx[k] += retries(y2[q], a.log_q, scale);
+          if (mm < hs[0][k]) rx[k] += retries(y1[q], a.log_q, run.scale);
+          if (mm < hs[1][k]) rx[k] += retries(y2[q], a.log_q, run.scale);
         }
       }
     } else {
+      const long long size = (long long)TB * a.two_h;
 #pragma unroll
-      for (int k = 0; k < 2; ++k)
-        for (int m = 0; m < h[0][k]; ++m)
-          retx[k] += retries(word(tk + 2, base[k] + m, size), a.log_q, scale);
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const long long base = ((long long)t[u] * B + b[k]) * a.two_h;
+          for (int m = 0; m < hs[u][k]; ++m)
+            rx[k] += retries(word(sh.tag + 2, base + m, size), a.log_q,
+                             run.scale);
+        }
     }
   }
 }
 
-// A block's trial r and its counter pairs [c0, c1); run k is graphs
-// [c0 + k*half, min(c1 + k*half, B)).
-struct Block {
-  int r, c0, c1;
-};
-
-__device__ __forceinline__ Block block_of(const Args& a) {
-  Block blk;
-  blk.r = blockIdx.x / a.runs;
-  blk.c0 = (blockIdx.x - blk.r * a.runs) * a.G;
-  blk.c1 = min(blk.c0 + a.G, a.half);
-  return blk;
+// The attempts of each tick of the tile: the set bits of each column of
+// the block's attempt words (word (k, u) of pair p: bit s for tick
+// s0 + s + u*span), counted a warp of 32 words at a time by ballots;
+// lane s adds its columns' counts.
+template <bool kFull>
+__device__ __forceinline__ void count_attempts(const Run& run,
+                                               Shared<kFull>& sh, int ns) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_row = (run.np + 31) / 32, pieces = 4 * per_row;
+  int count[2] = {0, 0};
+  for (int pc = warp; pc < pieces; pc += blockDim.x >> 5) {
+    const int ku = pc / per_row, p = (pc - ku * per_row) * 32 + lane;
+    const uint32_t w = p < run.np ? sh.att[(kFull ? 1 : 0) * ku][p] : 0u;
+    for (int s = 0; s < ns; ++s) {
+      const unsigned m = __ballot_sync(0xFFFFFFFFu, (w >> s) & 1u);
+      if (lane == s) count[ku & 1] += __popc(m);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+    if (lane < ns && count[u]) atomicAdd(&sh.conc[u * ns + lane], count[u]);
 }
 
-// Thread k < 2 finds run k's window, from its first graph's row start to
-// the next graph's, at most cap edges.
-__device__ __forceinline__ void find_window(const Args& a, const Block& blk,
-                                            int k, int cap, int* win) {
-  const int first = blk.c0 + k * a.half, end = min(blk.c1 + k * a.half, a.B);
+// Run k of a block: graphs [c0 + k*half, min(c0 + np + k*half, B)); its
+// window runs from its first graph's row start to the next graph's, at
+// most a.window edges.
+__device__ __forceinline__ void find_window(const Args& a, int c0, int np,
+                                            int k, int* win) {
+  const int first = c0 + k * a.half, end = min(c0 + np + k * a.half, a.B);
   long long lo = 0, size = 0;
   if (first < end && a.C > 0) {
     lo = a.start[(long long)first * a.C];
     const long long hi =
         end < a.B ? a.start[(long long)end * a.C] : (long long)a.nflat;
-    size = max(0LL, min(hi - lo, (long long)cap));
+    size = max(0LL, min(hi - lo, (long long)a.window));
   }
   win[0] = (int)lo;
   win[1] = (int)size;
 }
 
-// The block alone owns its graphs' msgs (and retx): thread e < 2G reads
-// graph e's counts when the block starts, and adds the block's sums to
-// them at its end; then one atomic a usage counter the block touched.
-struct Flush {
-  long long o;  // (r, b) of the thread's graph, or -1
-  int msgs, retx;
-};
-
-__device__ __forceinline__ Flush flush_begin(const Args& a, const Block& blk) {
-  // every launch has at least two threads a counter pair
-  static_assert(kThreads >= 2 * kPairs, "a thread a graph of the block");
-  Flush f{-1, 0, 0};
-  const int e = threadIdx.x;
-  if (e >= 2 * a.G) return f;
-  const int k = e / a.G, gg = e - k * a.G;
-  const long long b = (long long)blk.c0 + gg + (long long)k * a.half;
-  if (blk.c0 + gg >= blk.c1 || b >= a.B) return f;
-  f.o = (long long)blk.r * a.B + b;
-  f.msgs = a.msgs[f.o];
-  if (a.retx) f.retx = a.retx[f.o];
-  return f;
+// Pair p of the block's run, from what the block read of it.
+template <bool kFull>
+__device__ __forceinline__ Pair pair_of(const Args& a, const Run& run,
+                                        const Shared<kFull>& sh, int p) {
+  Pair pr;
+  pr.c = run.c0 + p;
+  pr.has2 = pr.c + a.half < a.B;
+  pr.b[0] = pr.c;
+  pr.b[1] = pr.has2 ? pr.c + a.half : pr.c;
+  pr.x2 = pr.has2 ? (uint32_t)(pr.c + a.half) : 0u;
+  const uint4 info = sh.info[p];
+  pr.nfo[0] = info.x;
+  pr.nfo[1] = info.y;
+  pr.row0[0] = (int)info.z;
+  pr.row0[1] = (int)info.w;
+  return pr;
 }
 
-template <int kCap, int kP>
-__device__ __forceinline__ void flush(const Args& a, const Block& blk,
-                                      const Flush& f, int (*sums)[2][kP],
-                                      int (*hist)[kCap],
-                                      const int (*win)[2]) {
-  if (f.o >= 0) {
-    const int k = threadIdx.x / a.G, gg = threadIdx.x - k * a.G;
-    if (sums[0][k][gg]) a.msgs[f.o] = f.msgs + sums[0][k][gg];
-    if (a.retx && sums[1][k][gg]) a.retx[f.o] = f.retx + sums[1][k][gg];
-  }
+// Add a thread's sums for pair p into the block's, and clear them.
+template <bool kFull>
+__device__ __forceinline__ void add_sums(Shared<kFull>& sh, int p,
+                                         Sums& sum) {
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    int* u = a.usage + (long long)blk.r * a.nflat + win[k][0];
-    for (int e = threadIdx.x; e < win[k][1]; e += blockDim.x)
-      if (hist[k][e]) atomicAdd(u + e, hist[k][e]);
-  }
-}
-
-// The main path's draw of two ticks (t = 0, 1: ticks ts[0] and ts[1])
-// for a thread's NG graphs: the i and j hashes of both ticks in lockstep,
-// then the gathers of every draw together, then the stores and counts.
-template <int NG>
-__device__ __forceinline__ void plain_ticks(
-    const Args& a, const uint32_t (*skey)[4], const int* ts, bool two,
-    unsigned o0, uint32_t c, uint32_t x2, const float* fn, const int* n,
-    const int* row0, const bool* live, int half, int* usage_r,
-    int (*hist)[kPlainWindow], const int* lo, const int* size, int* msgs) {
-  uint32_t kk1[4], kk2[4], w1[4], w2[4];
+    if (sum.msgs[k]) atomicAdd(&sh.sum[k][p], sum.msgs[k]);
+    sum.msgs[k] = 0;
+    if (!kFull) continue;
+    if (sum.retx[k]) atomicAdd(&sh.sum[(kFull ? 2 : 0) + k][p], sum.retx[k]);
+    sum.retx[k] = 0;
 #pragma unroll
-  for (int h = 0; h < 4; ++h) {
-    kk1[h] = skey[ts[h / 2]][2 * (h % 2)];
-    kk2[h] = skey[ts[h / 2]][2 * (h % 2) + 1];
-    w1[h] = c;
-    w2[h] = x2;
-  }
-  threefry_n<4>(kk1, kk2, w1, w2);
-  int i[2][NG], deg[2][NG], first[2][NG], pos[2][NG], j[2][NG], hp[2][NG];
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      const uint32_t wi = k ? w2[2 * t] : w1[2 * t];
-      i[t][k] = min((int)__fmul_rn(uniform(wi), fn[k]), n[k] - 1);
-      deg[t][k] = __ldg(a.degrees + row0[k] + i[t][k]);
-      first[t][k] = __ldg(a.start + row0[k] + i[t][k]);
-    }
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      const uint32_t wj = k ? w2[2 * t + 1] : w1[2 * t + 1];
-      pos[t][k] = first[t][k] +
-                  min((int)__fmul_rn(uniform(wj), (float)deg[t][k]),
-                      max(deg[t][k] - 1, 0));
-      j[t][k] = __ldg(a.nbr + pos[t][k]);
-      hp[t][k] = __ldg(a.hops + pos[t][k]);
-    }
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    if (t == 1 && !two) break;
-#pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      const bool active = deg[t][k] > 0 && live[k];
-      const unsigned o = o0 + (t ? a.stride : 0u) + (unsigned)(k * half);
-      a.out_i[o] = i[t][k];
-      a.out_j[o] = j[t][k];
-      a.out_ui[o] = active;
-      a.out_uj[o] = active;
-      msgs[k] += active ? 2 * hp[t][k] : 0;
-      if (active) {
-        const int off = pos[t][k] - lo[k];
-        if ((unsigned)off < (unsigned)size[k])
-          atomicAdd(&hist[k][off], 1);
-        else
-          atomicAdd(usage_r + pos[t][k], 1);
-      }
+    for (int u = 0; u < 2; ++u) {
+      if (sum.att[k][u])
+        atomicOr(&sh.att[(kFull ? 2 : 0) * k + u][p], sum.att[k][u]);
+      sum.att[k][u] = 0;
     }
   }
 }
 
-// The main path: no loss, no scenario, no cost model, T*R*B < 2^31.
-// A thread draws two of its ticks at a time (plain_ticks); i, j and both
-// update bits (active) are stored at a 32-bit offset.
-__global__ void __launch_bounds__(kPlainThreads)
-    sample_chunk_plain(const Args a) {
-  __shared__ uint32_t skey[kTile][4];  // ki, kj of each tick of a tile
-  __shared__ int shist[2][kPlainWindow];
-  __shared__ int ssum[2][2][kPlainPairs];
-  __shared__ int swin[2][2];
+// kMode as `fate`; Off: the type of an offset into the (T, R*B) outputs.
+// A block has at least G * lanes threads, and at least 64.
+template <int kMode, typename Off>
+__global__ void __launch_bounds__(kMode ? kFullThreads : kMaxThreads, 1)
+    sample_chunk_kernel(const Args a) {
+  constexpr bool kFull = kMode > 0;
+  __shared__ Shared<kFull> sh;
+  extern __shared__ int shist[];  // 2 x a.window usage counters
 
-  const Block blk = block_of(a);
-  const int G = a.G, L = blockDim.x / G, half = a.half, C = a.C;
-  const int g = threadIdx.x % G, lane = threadIdx.x / G;
-  const uint32_t k1 = (uint32_t)__ldg(a.keys + 2 * blk.r);
-  const uint32_t k2 = (uint32_t)__ldg(a.keys + 2 * blk.r + 1);
-  // a small grid counts straight into device memory: no window, no
-  // block sums, no flush
-  if (threadIdx.x < 2) {
-    if (a.direct)
-      swin[threadIdx.x][0] = swin[threadIdx.x][1] = 0;
-    else
-      find_window(a, blk, threadIdx.x, kPlainWindow, swin[threadIdx.x]);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  Run run;
+  run.r = blockIdx.x / a.runs;
+  run.c0 = (blockIdx.x - run.r * a.runs) * a.G;
+  run.np = min(a.G, a.half - run.c0);
+  run.usage_r = a.usage + (long long)run.r * a.nflat;
+  run.hist = shist;
+  // on the device, as torch takes log(clamp_min(p, 1e-12)) there
+  run.log_p = kMode == 2 && a.lossy ? logf(fmaxf(a.p, 1e-12f)) : 0.0f;
+  run.scale = kFull && a.retx ? 0.693147182f / a.log_q : 0.0f;
+  const uint32_t k1 = (uint32_t)__ldg(a.keys + 2 * run.r);
+  const uint32_t k2 = (uint32_t)__ldg(a.keys + 2 * run.r + 1);
+  const long long rb = (long long)run.r * a.B;
+  // Thread p < np reads pair p's graphs and the counts it adds to at the
+  // end; threads 0 and 1 find the windows, 2 and 3 the tagged keys; the
+  // windows are zeroed; the first tile's keys are hashed meanwhile.
+  int before[2][2] = {{0, 0}, {0, 0}};  // msgs, retx of graph k
+  if (tid < run.np) {
+    const int c = run.c0 + tid;
+    const bool has2 = c + a.half < a.B;
+    const int c2 = has2 ? c + a.half : c;
+    const int n = a.n_nodes[c], n2 = a.n_nodes[c2];
+    sh.info[tid] = make_uint4(
+        (uint32_t)n | (a.done[rb + c] ? 0x80000000u : 0u),
+        (uint32_t)n2 | (a.done[rb + c2] ? 0x80000000u : 0u),
+        (uint32_t)(c * a.C + (n > 0 ? 0 : a.C)),
+        (uint32_t)(c2 * a.C + (n2 > 0 ? 0 : a.C)));
+    before[0][0] = a.msgs[rb + c];
+    before[1][0] = has2 ? a.msgs[rb + c2] : 0;
+    if (kFull && a.retx) {
+      before[0][1] = a.retx[rb + c];
+      before[1][1] = has2 ? a.retx[rb + c2] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < (kFull ? 4 : 2); ++k) sh.sum[k][tid] = 0;
+#pragma unroll
+    for (int k = 0; k < (kFull ? 4 : 1); ++k) sh.att[k][tid] = 0;
   }
-  if (!a.direct) {
-    for (int e = threadIdx.x; e < 4 * kPlainPairs; e += blockDim.x)
-      (&ssum[0][0][0])[e] = 0;
-    for (int e = threadIdx.x; e < 2 * kPlainWindow; e += blockDim.x)
-      (&shist[0][0])[e] = 0;
-  }
-  const Flush fl = a.direct ? Flush{-1, 0, 0} : flush_begin(a, blk);
-
-  const int c = blk.c0 + g;
-  const int ng = c >= blk.c1 ? 0 : (c + half < a.B ? 2 : 1);
-  int n[2], row0[2], msgs[2] = {0, 0};
-  float fn[2];
-  bool live[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int b = c + (k < ng ? k : 0) * half;
-    n[k] = ng > 0 ? a.n_nodes[b] : 1;
-    fn[k] = (float)n[k];
-    // i = -1 (a graph of 0 nodes) reads the graph's last slot
-    row0[k] = b * C + (n[k] > 0 ? 0 : C);
-    live[k] = ng > 0 && !a.done[(long long)blk.r * a.B + b];
-  }
-  const uint32_t x2 =
-      ((a.B & 1) && c == half - 1) ? 0u : (uint32_t)(c + half);
-  const unsigned RB = (unsigned)a.R * (unsigned)a.B;
-  const unsigned rb = (unsigned)blk.r * (unsigned)a.B + (unsigned)c;
-  int* usage_r = a.usage + (long long)blk.r * a.nflat;
-
-  for (int s0 = 0; s0 < a.T; s0 += kTile) {
-    const int nt = min(kTile, a.T - s0);
-    if (s0) __syncthreads();  // the last tile's keys are read
-    for (int e = threadIdx.x; e < nt; e += blockDim.x) {
-      // fold_in(key_r, t0 + t), then the y1 halves of split's 4 hashes
-      uint32_t kt1, kt2;
-      threefry(k1, k2, 0u, (uint32_t)(a.t0 + s0 + e), kt1, kt2);
-      const uint32_t q1[4] = {kt1, kt1, kt1, kt1}, q2[4] = {kt2, kt2, kt2, kt2};
-      uint32_t y1[4] = {0u, 1u, 2u, 3u}, y2[4] = {4u, 5u, 6u, 7u};
-      threefry_n<4>(q1, q2, y1, y2);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) skey[e][q] = y1[q];
-    }
-    // the keys, and at the first tile the zeroed counters and the
-    // windows, visible to the block
-    __syncthreads();
-    if (ng == 0) continue;
-    const int lo[2] = {swin[0][0], swin[1][0]};
-    const int size[2] = {swin[0][1], swin[1][1]};
-    for (int s = lane; s < nt; s += 2 * L) {
-      const bool two = s + L < nt;
-      const int ts[2] = {s, two ? s + L : s};
-      const unsigned o0 = (unsigned)(s0 + s) * RB + rb;
-      if (ng == 2)
-        plain_ticks<2>(a, skey, ts, two, o0, c, x2, fn, n, row0, live, half,
-                       usage_r, shist, lo, size, msgs);
-      else
-        plain_ticks<1>(a, skey, ts, two, o0, c, x2, fn, n, row0, live, half,
-                       usage_r, shist, lo, size, msgs);
-    }
-  }
-  if (a.direct) {
-    for (int k = 0; k < ng; ++k)
-      if (msgs[k])
-        atomicAdd(a.msgs + (long long)blk.r * a.B + c + k * half, msgs[k]);
-    return;
-  }
-  for (int k = 0; k < ng; ++k)
-    if (msgs[k]) atomicAdd(&ssum[0][k][g], msgs[k]);
-  __syncthreads();
-  flush(a, blk, fl, ssum, shist, swin);
-}
-
-// What a thread of the paired kernel keeps over its ticks.
-struct PairedThread {
-  uint32_t c, x2;      // counter pair (c, c + half) of the exchange draws
-  float fn[2];         // node counts of its graphs, as floats
-  int n[2], row0[2];   // node counts; row of i = 0 (graph of 0 nodes: C)
-  int b[2];            // its graphs (a missing second graph: the first)
-  bool live[2];        // not frozen by `done`
-  int lo[2], size[2];  // its runs' windows of usage counters
-  unsigned rb;         // r*B + c
-};
-
-// Ticks tl and tl + T/2 (keys key0, key1) of a thread's NG graphs with a
-// scenario and/or a cost model, no loss: the exchange hashes of both
-// ticks in lockstep, every gather together, one straggler and one
-// retransmission hash for each counter both ticks need, then the stores
-// and counts.  Adds the attempts of each tick into att.
-template <int NG>
-__device__ __forceinline__ void paired_ticks(
-    const Args& a, const PairedThread& p, const uint32_t* key0,
-    const uint32_t* key1, int tl, const uint32_t* tk, float scale,
-    int* usage_r, int (*hist)[kPlainWindow], int* msgs, int* retx,
-    int* att) {
-  const int half = a.half, T2 = a.T / 2;
-  uint32_t kk1[4] = {key0[0], key0[2], key1[0], key1[2]};
-  uint32_t kk2[4] = {key0[1], key0[3], key1[1], key1[3]};
-  uint32_t w1[4] = {p.c, p.c, p.c, p.c}, w2[4] = {p.x2, p.x2, p.x2, p.x2};
-  threefry_n<4>(kk1, kk2, w1, w2);
-  int i[2][NG], deg[2][NG], first[2][NG], pos[2][NG], j[2][NG], h[2][NG];
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      const uint32_t wi = k ? w2[2 * t] : w1[2 * t];
-      i[t][k] = min((int)__fmul_rn(uniform(wi), p.fn[k]), p.n[k] - 1);
-      deg[t][k] = __ldg(a.degrees + p.row0[k] + i[t][k]);
-      first[t][k] = __ldg(a.start + p.row0[k] + i[t][k]);
-    }
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      const uint32_t wj = k ? w2[2 * t + 1] : w1[2 * t + 1];
-      pos[t][k] = first[t][k] +
-                  min((int)__fmul_rn(uniform(wj), (float)deg[t][k]),
-                      max(deg[t][k] - 1, 0));
-      j[t][k] = __ldg(a.nbr + pos[t][k]);
-      h[t][k] = __ldg(a.hops + pos[t][k]);
-    }
-  // the scenario (gossip.py:287-310)
-  bool attempt[2][NG], delivered[2][NG], slow[2][NG], ui[2][NG], uj[2][NG];
-  int cost[2][NG];
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      attempt[t][k] = deg[t][k] > 0 && p.live[k];
-      delivered[t][k] = attempt[t][k];
-      slow[t][k] = false;
-      cost[t][k] = 2 * h[t][k];
-      ui[t][k] = uj[t][k] = true;
-      if (a.fbits) {
-        const uint8_t fi = __ldg(a.fbits + p.row0[k] + i[t][k]);
-        const uint8_t fj = __ldg(a.fbits + p.b[k] * a.C + j[t][k]);
-        const long long when = a.t0 + tl + t * T2;
-        const bool churn_now = when >= a.churn_tick;
-        const bool reg_now = when >= a.reg_t0 && when < a.reg_t1;
-        const bool down_i = ((fi & kChurned) && churn_now) ||
-                            ((fi & kRegional) && reg_now);
-        const bool down_j = ((fj & kChurned) && churn_now) ||
-                            ((fj & kRegional) && reg_now);
-        attempt[t][k] = attempt[t][k] && !down_i;
-        delivered[t][k] = attempt[t][k] && !down_j;
-        slow[t][k] = a.strag && delivered[t][k] && ((fi | fj) & kStraggler);
-        ui[t][k] = !(fi & kByz);
-        uj[t][k] = !(fj & kByz);
-        if (!delivered[t][k]) cost[t][k] = h[t][k];
-      }
-    }
-  const unsigned TB = (unsigned)a.T * (unsigned)a.B;
-  if (a.strag) {
-    // word (t, b) of the straggler stream pairs with (t + T/2, b)
-#pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      if (!(slow[0][k] || slow[1][k])) continue;
-      const unsigned flat = (unsigned)tl * a.B + p.b[k];
-      uint32_t y1, y2;
-      threefry(tk[0], tk[1], flat, flat + TB / 2, y1, y2);
-      if (slow[0][k]) delivered[0][k] = uniform(y1) < a.strag_success;
-      if (slow[1][k]) delivered[1][k] = uniform(y2) < a.strag_success;
-    }
-  }
-  const unsigned RB = (unsigned)a.R * (unsigned)a.B;
-  const unsigned o0 = (unsigned)tl * RB + p.rb;
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    att[t] = 0;
-#pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      const unsigned o = o0 + (t ? (unsigned)T2 * RB : 0u) + (unsigned)(k * half);
-      a.out_i[o] = i[t][k];
-      a.out_j[o] = j[t][k];
-      a.out_ui[o] = delivered[t][k] && ui[t][k];
-      a.out_uj[o] = delivered[t][k] && uj[t][k];
-      if (a.out_att) a.out_att[o] = attempt[t][k];
-      if (!attempt[t][k]) continue;
-      att[t] += 1;
-      msgs[k] += cost[t][k];
-      const int off = pos[t][k] - p.lo[k];
-      if ((unsigned)off < (unsigned)p.size[k])
-        atomicAdd(&hist[k][off], 1);
-      else
-        atomicAdd(usage_r + pos[t][k], 1);
-    }
-  }
-  if (a.retx) {
-    // word (t, b, m) of the retransmission stream pairs with
-    // (t + T/2, b, m): the graphs' counters hashed in lockstep, two hop
-    // slots of each at a time
-    const unsigned size2 = TB * (unsigned)a.two_h / 2;
-    int hs[2][2] = {{0, 0}, {0, 0}};
-    unsigned base[2] = {0u, 0u};
-#pragma unroll
-    for (int k = 0; k < NG; ++k) {
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-        hs[t][k] = attempt[t][k] ? min(cost[t][k], a.two_h) : 0;
-      base[k] = ((unsigned)tl * a.B + p.b[k]) * (unsigned)a.two_h;
-    }
-    // four counters in flight: kM hop slots of each of the NG graphs
-    constexpr int kM = 4 / NG;
-    int top = 0;
-#pragma unroll
-    for (int k = 0; k < NG; ++k) top = max(top, max(hs[0][k], hs[1][k]));
-    for (int m = 0; m < top; m += kM) {
-      uint32_t q1[4], q2[4], y1[4], y2[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        q1[q] = tk[2];
-        q2[q] = tk[3];
-        y1[q] = base[q / kM] + m + q % kM;
-        y2[q] = y1[q] + size2;
-      }
-      threefry_n<4>(q1, q2, y1, y2);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = q / kM, mm = m + q % kM;
-        if (mm < hs[0][k]) retx[k] += retries(y1[q], a.log_q, scale);
-        if (mm < hs[1][k]) retx[k] += retries(y2[q], a.log_q, scale);
-      }
-    }
-  }
-}
-
-// The scenario and cost path at even T without loss, T*R*B*2*hop_cap
-// < 2^31: a thread draws ticks t and t + T/2 of its graphs together
-// (paired_ticks), so each tagged counter serves both ticks' words.
-// kMax: the threads of its widest block (kThreads, six blocks an SM; a
-// draw too small to fill the card takes more tick lanes, up to 1024).
-template <int kMax, int kMinBlocks>
-__global__ void __launch_bounds__(kMax, kMinBlocks)
-    sample_chunk_paired(const Args a) {
-  __shared__ uint32_t skey[kTile][4];  // ki, kj of each tick of a tile
-  __shared__ uint32_t stag[4];         // straggler key, retransmission key
-  __shared__ int sconc[kTile];
-  __shared__ int shist[2][kPlainWindow];
-  __shared__ int ssum[2][2][kPairs];
-  __shared__ int swin[2][2];
-
-  const Block blk = block_of(a);
-  const int G = a.G, L = blockDim.x / G, half = a.half, C = a.C, r = blk.r;
-  const int g = threadIdx.x % G, lane = threadIdx.x / G;
-  const uint32_t k1 = (uint32_t)__ldg(a.keys + 2 * r);
-  const uint32_t k2 = (uint32_t)__ldg(a.keys + 2 * r + 1);
-  if (threadIdx.x < 2) {
-    find_window(a, blk, threadIdx.x, kPlainWindow, swin[threadIdx.x]);
-  } else if (threadIdx.x < 4) {
+  if (tid < 2) {
+    find_window(a, run.c0, run.np, tid, sh.win[tid]);
+  } else if (kFull && tid < 4 && (a.strag || a.retx)) {
     // fold_in(fold_in(key_r, tag), t0)
-    const int which = threadIdx.x - 2;  // 0: straggler, 1: retransmissions
+    const int which = tid - 2;  // 0: straggler, 1: retransmissions
     uint32_t y1, y2;
     threefry(k1, k2, 0u, which ? kTagRetx : kTagStraggler, y1, y2);
-    threefry(y1, y2, 0u, (uint32_t)a.t0, stag[2 * which],
-             stag[2 * which + 1]);
+    threefry(y1, y2, 0u, (uint32_t)a.t0, sh.tag[2 * which],
+             sh.tag[2 * which + 1]);
   }
-  for (int e = threadIdx.x; e < 4 * kPairs; e += blockDim.x)
-    (&ssum[0][0][0])[e] = 0;
-  for (int e = threadIdx.x; e < 2 * kPlainWindow; e += blockDim.x)
-    (&shist[0][0])[e] = 0;
-  const Flush fl = flush_begin(a, blk);
+  for (int e = tid; e < 2 * a.window; e += nth) shist[e] = 0;
 
-  PairedThread p;
-  const int c = blk.c0 + g;
-  const int ng = c >= blk.c1 ? 0 : (c + half < a.B ? 2 : 1);
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    p.b[k] = c + (k < ng ? k : 0) * half;
-    p.n[k] = ng > 0 ? a.n_nodes[p.b[k]] : 1;
-    p.fn[k] = (float)p.n[k];
-    p.row0[k] = p.b[k] * C + (p.n[k] > 0 ? 0 : C);
-    p.live[k] = ng > 0 && !a.done[(long long)r * a.B + p.b[k]];
-  }
-  p.c = (uint32_t)c;
-  p.x2 = ((a.B & 1) && c == half - 1) ? 0u : (uint32_t)(c + half);
-  p.rb = (unsigned)r * (unsigned)a.B + (unsigned)c;
-  int* usage_r = a.usage + (long long)r * a.nflat;
-  const float scale = a.retx ? 0.693147182f / a.log_q : 0.0f;
-  int msgs[2] = {0, 0}, retx[2] = {0, 0};
-
-  // slot s of a tile holds ticks s0 + s and s0 + s + T/2: key e is tick
-  // s0 + e for e < ns, else s0 + e - ns + T/2
-  const int span = a.T / 2;
-  for (int s0 = 0; s0 < span; s0 += kTile / 2) {
-    const int ns = min(kTile / 2, span - s0), nt = 2 * ns;
+  // the main path: thread tid draws for pair p = tid % G in lane tid / G
+  const int p = tid % a.G, lane = tid / a.G;
+  const bool busy = kMode == 0 && p < run.np && lane < a.lanes;
+  Pair pr;
+  Sums sum{{0, 0}, {0, 0}, {{0u, 0u}, {0u, 0u}}};
+  const int span = a.span;
+  for (int s0 = 0; s0 < span; s0 += kTileSlots) {
+    const int ns = min(kTileSlots, span - s0);
     if (s0) __syncthreads();  // the last tile's keys and counts are read
-    for (int e = threadIdx.x; e < nt; e += blockDim.x) {
+    // key e: tick s0 + e for e < ns, else s0 + e - ns + span; hashed by
+    // thread e + 32, past the threads that start the block
+    for (int e = (tid + nth - 32) % nth; e < 2 * ns; e += nth) {
       const int tl = e < ns ? s0 + e : s0 + e - ns + span;
+      if (kFull) sh.conc[e] = 0;
+      if (tl >= a.T) continue;  // the second tick of odd T's last slot
+      // fold_in(key_r, t0 + t), then split's 4 hashes, counters (q, q + 4)
+      const long long when = a.t0 + tl;
       uint32_t kt1, kt2;
-      threefry(k1, k2, 0u, (uint32_t)(a.t0 + tl), kt1, kt2);
+      threefry(k1, k2, 0u, (uint32_t)when, kt1, kt2);
       const uint32_t q1[4] = {kt1, kt1, kt1, kt1}, q2[4] = {kt2, kt2, kt2, kt2};
       uint32_t y1[4] = {0u, 1u, 2u, 3u}, y2[4] = {4u, 5u, 6u, 7u};
       threefry_n<4>(q1, q2, y1, y2);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) skey[e][q] = y1[q];
-      sconc[e] = 0;
+      for (int q = 0; q < 4; ++q) {
+        sh.key[e][q] = y1[q];
+        if (kFull) sh.key[e][(kFull ? 4 : 0) + q] = y2[q];
+      }
+      if (kFull)
+        sh.now[e] = (when >= a.churn_tick ? 1 : 0) |
+                    (when >= a.reg_t0 && when < a.reg_t1 ? 2 : 0);
     }
+    // the keys, and at the first tile the pairs, the windows and the
+    // zeroed counts, visible to the block
     __syncthreads();
-    if (ng > 0) {
+    if (s0 == 0) {
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
-        p.lo[k] = swin[ng < 2 ? 0 : k][0];
-        p.size[k] = swin[ng < 2 ? 0 : k][1];
+        run.lo[k] = sh.win[k][0];
+        run.size[k] = sh.win[k][1];
       }
-      for (int s = lane; s < ns; s += L) {
-        int att[2];
-        if (ng == 2)
-          paired_ticks<2>(a, p, skey[s], skey[s + ns], s0 + s, stag, scale,
-                          usage_r, shist, msgs, retx, att);
-        else
-          paired_ticks<1>(a, p, skey[s], skey[s + ns], s0 + s, stag, scale,
-                          usage_r, shist, msgs, retx, att);
-        if (a.conc && att[0]) atomicAdd(&sconc[s], att[0]);
-        if (a.conc && att[1]) atomicAdd(&sconc[s + ns], att[1]);
-      }
+      if (busy) pr = pair_of(a, run, sh, p);
     }
-    if (a.conc) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < nt; e += blockDim.x) {
-        if (!sconc[e]) continue;
-        const int tl = e < ns ? s0 + e : s0 + e - ns + span;
-        atomicAdd(a.conc + (long long)r * a.T + tl, sconc[e]);
-      }
-    }
-  }
-
-  for (int k = 0; k < ng; ++k) {
-    if (msgs[k]) atomicAdd(&ssum[0][k][g], msgs[k]);
-    if (retx[k]) atomicAdd(&ssum[1][k][g], retx[k]);
-  }
-  __syncthreads();
-  flush(a, blk, fl, ssum, shist, swin);
-}
-
-// Every mode: loss, a scenario (with the straggler stream), a cost model
-// (retransmissions and the attempts a tick), each as `a` says.
-__global__ void __launch_bounds__(kThreads, 6)
-    sample_chunk_kernel(const Args a) {
-  __shared__ uint32_t skey[kTile][8];
-  __shared__ uint32_t stag[4];  // straggler key, retransmission key
-  __shared__ int sconc[kTile];
-  __shared__ int shist[2][kWindow];
-  __shared__ int ssum[2][2][kPairs];  // msgs, retx of each graph
-  __shared__ int swin[2][2];          // each run's window: lo, size
-
-  const Block blk = block_of(a);
-  const int G = a.G, L = kThreads / G, half = a.half, r = blk.r;
-  const int g = threadIdx.x % G, lane = threadIdx.x / G;
-  const uint32_t k1 = (uint32_t)a.keys[2 * r], k2 = (uint32_t)a.keys[2 * r + 1];
-  const bool tagged = a.strag || a.retx;
-
-  if (threadIdx.x < 2) {
-    find_window(a, blk, threadIdx.x, kWindow, swin[threadIdx.x]);
-  } else if (tagged && threadIdx.x < 4) {
-    // fold_in(fold_in(key_r, tag), t0)
-    const int which = threadIdx.x - 2;  // 0: straggler, 1: retransmissions
-    uint32_t y1, y2;
-    threefry(k1, k2, 0u, which ? kTagRetx : kTagStraggler, y1, y2);
-    threefry(y1, y2, 0u, (uint32_t)a.t0, stag[2 * which],
-             stag[2 * which + 1]);
-  }
-  for (int e = threadIdx.x; e < 4 * kPairs; e += kThreads)
-    (&ssum[0][0][0])[e] = 0;
-  const Flush fl = flush_begin(a, blk);
-  __syncthreads();
-  for (int k = 0; k < 2; ++k)
-    for (int e = threadIdx.x; e < swin[k][1]; e += kThreads) shist[k][e] = 0;
-
-  const int c = blk.c0 + g;
-  const int ng = c >= blk.c1 ? 0 : (c + half < a.B ? 2 : 1);
-  Graph gr[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    gr[k].b = c + k * half;
-    gr[k].n = k < ng ? a.n_nodes[gr[k].b] : 0;
-    gr[k].live = k < ng && !a.done[(long long)r * a.B + gr[k].b];
-  }
-  // counter pair (c, c + half); the odd draw's last pair is (c, 0)
-  const uint32_t x2 =
-      ((a.B & 1) && c == half - 1) ? 0u : (uint32_t)(c + half);
-  // on the device, as torch takes log(clamp_min(p, 1e-12)) there
-  const float log_p = a.lossy ? logf(fmaxf(a.p, 1e-12f)) : 0.0f;
-  int* usage_r = a.usage + (long long)r * a.nflat;
-  int msgs[2] = {0, 0}, retx[2] = {0, 0};
-
-  // with tagged streams at even T slot s holds ticks s and s + T/2,
-  // else tick s
-  const bool paired = tagged && (a.T & 1) == 0;
-  const int span = paired ? a.T / 2 : a.T;
-  const int per_tile = paired ? kTile / 2 : kTile;
-  for (int s0 = 0; s0 < span; s0 += per_tile) {
-    const int ns = min(per_tile, span - s0);
-    const int nt = paired ? 2 * ns : ns;  // key e: tick s0 + e, or of the
-    // second half s0 + e - ns + T/2
-    __syncthreads();  // the last tile's keys and counts are read
-    for (int e = threadIdx.x; e < nt; e += kThreads) {
-      // fold_in(key_r, t0 + t), then split's 4 hashes, counters (q, q + 4)
-      const int tl = e < ns ? s0 + e : s0 + e - ns + a.T / 2;
-      uint32_t kt1, kt2;
-      threefry(k1, k2, 0u, (uint32_t)(a.t0 + tl), kt1, kt2);
-      const uint32_t q1[4] = {kt1, kt1, kt1, kt1}, q2[4] = {kt2, kt2, kt2, kt2};
-      uint32_t y1[4] = {0u, 1u, 2u, 3u}, y2[4] = {4u, 5u, 6u, 7u};
-      threefry_n<4>(q1, q2, y1, y2);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        skey[e][q] = y1[q];
-        skey[e][4 + q] = y2[q];
-      }
-      sconc[e] = 0;
-    }
-    __syncthreads();
-    if (ng > 0) {
-      for (int s = lane; s < ns; s += L) {
-        if (paired) {
-          const int tl[2] = {s0 + s, s0 + s + a.T / 2};
-          const uint32_t* kp[2] = {skey[s], skey[s + ns]};
-          int att[2];
-          ticks<2>(a, log_p, r, (uint32_t)c, x2, ng, gr, usage_r, shist, swin,
-                   kp, tl, stag, att, msgs, retx);
-          if (a.conc && att[0]) atomicAdd(&sconc[s], att[0]);
-          if (a.conc && att[1]) atomicAdd(&sconc[s + ns], att[1]);
-        } else {
-          const int tl[1] = {s0 + s};
-          const uint32_t* kp[1] = {skey[s]};
-          int att[1];
-          ticks<1>(a, log_p, r, (uint32_t)c, x2, ng, gr, usage_r, shist, swin,
-                   kp, tl, stag, att, msgs, retx);
-          if (a.conc && att[0]) atomicAdd(&sconc[s], att[0]);
+    if (kMode == 0) {
+      // thread (lane, p) draws slots lane, lane + lanes, ... of pair p,
+      // its sums kept in registers to the end
+      if (busy)
+        for (int s = lane; s < ns; s += a.lanes)
+          draw_item<kMode, Off>(a, run, sh, pr, s0, ns, s, sum);
+    } else {
+      // the other modes want more registers than a pair kept for the
+      // whole chunk leaves: threads take the tile's (slot, pair) items in
+      // turn, pairs fastest (item q: slot q / np, pair q % np), every
+      // thread as many, each item's sums added to the block's at once.
+      const int items = ns * run.np;
+      const int ds = nth / run.np, dp = nth - ds * run.np;
+      int s = tid / run.np, q_p = tid - s * run.np;
+      for (int q = tid; q < items; q += nth) {
+        const Pair item = pair_of(a, run, sh, q_p);
+        draw_item<kMode, Off>(a, run, sh, item, s0, ns, s, sum);
+        add_sums(sh, q_p, sum);
+        s += ds;
+        q_p += dp;
+        if (q_p >= run.np) {
+          q_p -= run.np;
+          ++s;
         }
       }
     }
-    if (a.conc) {
+    if (kFull && a.conc) {
       __syncthreads();
-      for (int e = threadIdx.x; e < nt; e += kThreads) {
-        if (!sconc[e]) continue;
-        const int tl = e < ns ? s0 + e : s0 + e - ns + a.T / 2;
-        atomicAdd(a.conc + (long long)r * a.T + tl, sconc[e]);
+      count_attempts(run, sh, ns);
+      __syncthreads();
+      for (int e = tid; e < 2 * ns; e += nth) {
+        const int tl = e < ns ? s0 + e : s0 + e - ns + span;
+        if (tl < a.T && sh.conc[e])
+          atomicAdd(a.conc + (long long)run.r * a.T + tl, sh.conc[e]);
       }
+      // each graph's attempt bits of this tile: word (2 * tile + u)
+      const int tile = s0 / kTileSlots;
+      if (tid < run.np)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int bk = run.c0 + tid + k * a.half;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            uint32_t& w = sh.att[(kFull ? 2 : 0) * k + u][tid];
+            if (bk < a.B)
+              a.out_att[((Off)(2 * tile + u) * a.R + run.r) * a.B + bk] = w;
+            w = 0;
+          }
+        }
     }
   }
 
-  for (int k = 0; k < ng; ++k) {
-    if (msgs[k]) atomicAdd(&ssum[0][k][g], msgs[k]);
-    if (retx[k]) atomicAdd(&ssum[1][k][g], retx[k]);
-  }
+  // the block's sums, each added once: it alone owns its (r, b); then
+  // one atomic a usage counter its windows touched
+  if (busy) add_sums(sh, p, sum);
   __syncthreads();
-  flush(a, blk, fl, ssum, shist, swin);
+  if (tid < run.np)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int bk = run.c0 + tid + k * a.half;
+      if (bk >= a.B) continue;
+      if (sh.sum[k][tid]) a.msgs[rb + bk] = before[k][0] + sh.sum[k][tid];
+      if (kFull && a.retx && sh.sum[(kFull ? 2 : 0) + k][tid])
+        a.retx[rb + bk] = before[k][1] + sh.sum[(kFull ? 2 : 0) + k][tid];
+    }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    int* u = run.usage_r + run.lo[k];
+    for (int e = tid; e < run.size[k]; e += nth) {
+      const int v = shist[k * a.window + e];
+      if (v) atomicAdd(u + e, v);
+    }
+  }
 }
 
-// congp[r*B + b] += f32(sum over t of att[t, r, b] * max(conc[r, t] - 1,
-// 0)), the sum in int32 as the plain version takes it; a thread a graph.
+// congp[r*B + b] += f32(sum over t of attempt[t, r, b] * max(conc[r, t]
+// - 1, 0)), the sum in int32 as the plain version takes it.  A block
+// holds graphs of one trial r (blocks_b blocks a trial), a thread a
+// graph; for each tile of slots the block stages the pairs' weights
+// max(conc - 1, 0) of the tile's ticks in shared memory, and each thread
+// adds the weights of its attempt words' set bits.
 __global__ void __launch_bounds__(256)
-    sample_chunk_congestion(const uint8_t* __restrict__ att,
+    sample_chunk_congestion(const uint32_t* __restrict__ att,
                             const int* __restrict__ conc,
-                            float* __restrict__ congp, int T, int R, int B) {
-  const long long RB = (long long)R * B;
-  const long long rb = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (rb >= RB) return;
-  const int* w = conc + rb / B * T;
+                            float* __restrict__ congp, int T, int R, int B,
+                            int span, int blocks_b) {
+  __shared__ int weight[2][kTileSlots];
+  const int r = blockIdx.x / blocks_b;
+  const int b = (blockIdx.x - r * blocks_b) * 256 + threadIdx.x;
+  const long long RB = (long long)R * B, rb = (long long)r * B + b;
+  const int* w = conc + (long long)r * T;
   uint32_t s = 0;
-#pragma unroll 8
-  for (int t = 0; t < T; ++t)
-    if (__ldg(att + t * RB + rb)) s += (uint32_t)max(__ldg(w + t) - 1, 0);
-  congp[rb] = __fadd_rn(congp[rb], __int2float_rn((int)s));
+  for (int s0 = 0; s0 < span; s0 += kTileSlots) {
+    __syncthreads();  // the last tile's weights are read
+    if (threadIdx.x < 2 * kTileSlots) {
+      const int u = threadIdx.x / kTileSlots, e = threadIdx.x % kTileSlots;
+      const int t = s0 + e + u * span;
+      weight[u][e] = s0 + e < span && t < T ? max(__ldg(w + t) - 1, 0) : 0;
+    }
+    __syncthreads();
+    if (b >= B) continue;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const uint32_t m = __ldg(att + (2 * (s0 / kTileSlots) + u) * RB + rb);
+#pragma unroll
+      for (int e = 0; e < kTileSlots; ++e)
+        if ((m >> e) & 1u) s += (uint32_t)weight[u][e];
+    }
+  }
+  if (b < B) congp[rb] = __fadd_rn(congp[rb], __int2float_rn((int)s));
+}
+
+// Launch one instance, letting it take `smem` bytes of dynamic shared
+// memory (set once for each device).
+template <int kMode, typename Off>
+cudaError_t launch_draw(int which, unsigned blocks, int threads, size_t smem,
+                        cudaStream_t s, const Args& a) {
+  static bool ready[4][kMaxDevices];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[which][dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sample_chunk_kernel<kMode, Off>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(2 * kMaxWindow * sizeof(int)));
+    if (err != cudaSuccess) return err;
+    ready[which][dev] = true;
+  }
+  sample_chunk_kernel<kMode, Off><<<blocks, threads, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream`; returns a CUDA error code (0 on success).
 // `lossy` is 0 without loss or for loss_p >= 1 (every hop delivered:
 // the same outputs as no loss), else 1 with p = loss_p in f32.  `fbits`
 // null runs no scenario; `strag` draws the straggler stream.  `retx`
 // null samples no retransmissions; `conc`, `out_att` and `congp` null
 // track no congestion (else conc, (R, T), must be zeroed by the caller,
-// and a second kernel adds the congestion pairs into congp).
+// out_att holds (2 * ceil(ceil(T/2) / 32), R*B) words, and a second
+// kernel adds the congestion pairs into congp).  On the main path (kernel
+// 0) upd_j equals upd_i and out_uj is not written.  The shape comes from
+// ops.py `launch_shape`: `kernel` 0 the main path (no loss, scenario or
+// cost model), 1 every mode but loss, 2 every mode, 3 every mode at
+// 64-bit offsets (the others need T*R*B < 2^31); G counter pairs a
+// block, `lanes` threads a pair, `threads` a block (at least G * lanes
+// and 64, at most kMaxThreads for kernel 0 and kFullThreads for the
+// others), and `window` usage counters of each graph run kept on chip.
 extern "C" int sample_chunk_launch(
     const long long* keys, const int* start, const int* nbr, const int* hops,
     const int* degrees, const int* n_nodes, const uint8_t* done, int* out_i,
@@ -1118,73 +879,49 @@ extern "C" int sample_chunk_launch(
     long long t0, int T, int R, int B, int C, int nflat, int lossy, float p,
     const uint8_t* fbits, long long churn_tick, long long reg_t0,
     long long reg_t1, int strag, float strag_success, int* retx, int two_h,
-    float log_q, int* conc, uint8_t* out_att, float* congp, void* stream) {
+    float log_q, int* conc, uint32_t* out_att, float* congp, int kernel,
+    int G, int lanes, int threads, int window, void* stream) {
   if (T == 0 || R == 0 || B == 0) return 0;
   const int half = (B + 1) / 2;
-  // the main path (no loss, scenario or cost model) and the scenario and
-  // cost path at even T without loss take kernels of their own
-  const long long words = (long long)T * R * B * (retx ? two_h : 1);
-  const bool plain = !lossy && !fbits && !retx && !conc && words <= 0x7FFFFFFFLL;
-  const bool paired = !plain && !lossy && T % 2 == 0 && words <= 0x7FFFFFFFLL;
-  // a block's counter pairs: its full width, or the fewest powers of two
-  // that cover a small draw (the top level has one pair)
-  int G = plain ? kPlainPairs : kPairs;
-  while (G > 1 && G / 2 >= half) G /= 2;
-  int threads = kThreads, direct = 0;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (plain) {
-    // narrower blocks until the grid covers the card twice
-    while (G > 8 && (long long)R * ((half + G - 1) / G) < 2LL * sms) G /= 2;
-    // a lane draws two of its ticks at a time: 4 or 5 lanes, whichever
-    // leaves fewer of its tick pairs empty; a small draw doubles them, up
-    // to a lane a tick, while the card has room
-    int lanes = (T + 9) / 10 * 10 - T < (T + 7) / 8 * 8 - T ? 5 : 4;
-    const long long blocks = (long long)R * ((half + G - 1) / G);
-    while (lanes < T && G * lanes * 2 <= kPlainThreads &&
-           blocks * G * lanes * 2 <= (long long)sms * 1024)
-      lanes *= 2;
-    threads = G * lanes;
-    direct = blocks < sms;
-  } else if (paired) {
-    // a small draw: more tick lanes, up to a lane a slot of T/2 ticks
-    int lanes = kThreads / G;
-    const long long blocks = (long long)R * ((half + G - 1) / G);
-    while (2 * lanes <= T / 2 && G * lanes * 2 <= 1024 &&
-           blocks * G * lanes * 2 <= (long long)sms * 1024)
-      lanes *= 2;
-    threads = G * lanes;
-  }
+  const bool modes = fbits || retx || conc;
+  const bool narrow = (long long)T * R * B <= 0x7FFFFFFFLL;
+  if (kernel < 0 || kernel > 3 || (kernel == 0 && (lossy || modes)) ||
+      (kernel == 1 && lossy) || (kernel < 3 && !narrow) || G < 1 ||
+      G > kMaxPairs || lanes < 1 || threads < 64 ||
+      (long long)G * lanes > threads ||
+      threads > (kernel ? kFullThreads : kMaxThreads) || threads % 32 != 0 ||
+      window < 0 || window > kMaxWindow)
+    return (int)cudaErrorInvalidValue;
   const int runs = (half + G - 1) / G;
-  Args a{keys,   start,   nbr,    hops,       degrees, n_nodes, done,
-         out_i,  out_j,   out_ui, out_uj,     usage,   msgs,    t0,
-         T,      R,       B,      C,          nflat,   half,    lossy,
-         p,      fbits,   churn_tick, reg_t0, reg_t1,  strag,
-         strag_success,   retx,   two_h,      log_q,   conc,    out_att,
-         G,      runs,    (unsigned)(threads / G) * (unsigned)R * (unsigned)B,
-         direct};
   const long long blocks = (long long)R * runs;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  // the congestion kernel's blocks: blocks_b a trial
+  const int blocks_b = (B + 255) / 256;
+  if (conc && (long long)R * blocks_b > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
   // the tagged streams' counters are uint32
   if ((strag || retx) && (long long)T * B * (retx ? two_h : 1) >= 0xFFFFFFFFLL)
     return (int)cudaErrorInvalidValue;
+  Args a{keys,   start,  nbr,    hops,       degrees, n_nodes, done,
+         out_i,  out_j,  out_ui, out_uj,     usage,   msgs,    t0,
+         T,      R,      B,      C,          nflat,   lossy,   p,
+         fbits,  churn_tick,     reg_t0,     reg_t1,  strag,   strag_success,
+         retx,   two_h,  log_q,  conc,       out_att, half,    (T + 1) / 2,
+         G,      lanes,  runs,   window};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (plain)
-    sample_chunk_plain<<<(unsigned)blocks, threads, 0, s>>>(a);
-  else if (paired && threads <= kThreads)
-    sample_chunk_paired<kThreads, 6><<<(unsigned)blocks, threads, 0, s>>>(a);
-  else if (paired)
-    sample_chunk_paired<1024, 1><<<(unsigned)blocks, threads, 0, s>>>(a);
+  const size_t smem = 2 * (size_t)window * sizeof(int);
+  const unsigned nb = (unsigned)blocks;
+  cudaError_t err;
+  if (kernel == 0)
+    err = launch_draw<0, unsigned>(0, nb, threads, smem, s, a);
+  else if (kernel == 1)
+    err = launch_draw<1, unsigned>(1, nb, threads, smem, s, a);
+  else if (kernel == 2)
+    err = launch_draw<2, unsigned>(2, nb, threads, smem, s, a);
   else
-    sample_chunk_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(a);
-  const cudaError_t err = cudaGetLastError();
+    err = launch_draw<2, long long>(3, nb, threads, smem, s, a);
   if (err != cudaSuccess || conc == nullptr) return (int)err;
-  const long long RB = (long long)R * B;
-  sample_chunk_congestion<<<(unsigned)((RB + 255) / 256), 256, 0, s>>>(
-      out_att, conc, congp, T, R, B);
+  sample_chunk_congestion<<<(unsigned)(R * blocks_b), 256, 0, s>>>(
+      out_att, conc, congp, T, R, B, (T + 1) / 2, blocks_b);
   return (int)cudaGetLastError();
 }

@@ -267,6 +267,8 @@ def _wide_csr(rng, B=3, C=130, D=60):
     ("wide", 3, 50, 2, "both", None),
     ("wide", 3, 49, 1, "plain", 0.9),
     ("wide", 3, 64, 3, "cost", 0.9),
+    ("wide", 3, 50, 140, "both", None),
+    ("wide", 3, 64, 140, "plain", None),
     ("long", 300, 64, 2, "both", None),
     ("long", 77, 49, 3, "plain", 0.9),
     ("control", 485, 64, 260, "plain", None),
@@ -280,10 +282,11 @@ def test_sample_chunk_kernel_layouts_on_card(cuda_device, layout, B, T, R,
     window of edges, [start[first, 0], start[end, 0]), and any other
     position in device memory.  Every output equals the plain version's
     bitwise where the graphs' edges are permuted (most outside the
-    window), where each graph has more edges than the window, at C=20,
-    at a control-plane shape (R=260, B=485 graphs of at most 7 nodes,
-    half the graphs frozen by `done`), and over T=130, more ticks than a
-    block holds keys for at once."""
+    window), where a graph run has more edges than its window (R=140
+    fills the card, so its blocks keep windows; at R <= 3 they keep
+    none), at C=20, at a control-plane shape (R=260, B=485 graphs of at
+    most 7 nodes, half the graphs frozen by `done`), and over T=130,
+    more ticks than a block holds keys for at once."""
     from repro_torch.core import CostModel, FailureCtx
 
     rng = np.random.default_rng(B * 100 + T + R)
@@ -294,6 +297,14 @@ def test_sample_chunk_kernel_layouts_on_card(cuda_device, layout, B, T, R,
     elif layout == "wide":
         csr = _wide_csr(rng)
         assert int(np.asarray(csr.degrees)[0].sum()) > 2048
+        if R > 100:  # the first run's edges overflow its window
+            from repro_torch.kernels.sample_chunk.ops import (_sms,
+                                                              launch_shape)
+            shape = launch_shape(T, R, B, 130, csr.nbr.shape[0],
+                                 _sms(cuda_device.index or 0),
+                                 0 if mode == "plain" else 1)
+            run0 = int(np.asarray(csr.degrees)[:shape.G].sum())
+            assert 0 < shape.window < run0
     elif layout in ("long", "tiles"):
         csr = _random_csr(rng, B, C=20 if layout == "long" else 9, D=6)
     else:

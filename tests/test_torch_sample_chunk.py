@@ -108,6 +108,76 @@ def test_sample_chunk_rejects_other_devices(plan500):
     assert sample_chunk.launches == 0
 
 
+# (T, R, B, C, nflat, sms, mode) -> (kernel, G, lanes, runs, threads,
+# window): the n=1e5 finest level without and with a scenario or loss;
+# its top level; one chunk of the R=1024 control round's finest level;
+# an odd T; a draw past 2^31 words
+_SHAPES = [
+    ((50, 1, 43250, 9, 199457, 132, 0), (0, 164, 5, 132, 832, 1664)),
+    ((50, 1, 43250, 9, 199457, 132, 1), (1, 164, 1, 132, 608, 1664)),
+    ((50, 1, 43250, 9, 199457, 132, 2), (2, 164, 1, 132, 608, 1664)),
+    ((64, 1, 1, 49, 169, 132, 0), (0, 1, 32, 1, 64, 0)),
+    ((64, 1, 1, 49, 169, 132, 1), (1, 1, 1, 1, 64, 0)),
+    ((64, 1028, 485, 7, 6311, 132, 0), (0, 243, 4, 1, 992, 6816)),
+    ((49, 4, 12539, 4, 75279, 132, 0), (0, 190, 5, 33, 960, 2688)),
+    ((64, 1028, 43250, 9, 199457, 132, 1), (3, 503, 1, 43, 640, 5056)),
+]
+
+
+@pytest.mark.parametrize("args,want", _SHAPES)
+def test_launch_shape(args, want):
+    """The host's choice of the kernel's launch at the shapes the card
+    draws (`ops.launch_shape`)."""
+    from repro_torch.kernels.sample_chunk.ops import launch_shape
+
+    assert tuple(launch_shape(*args)) == want
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("T", [1, 2, 49, 50, 64, 130])
+@pytest.mark.parametrize("R,B", [(1, 1), (1, 2), (3, 7), (1, 43250),
+                                 (2, 43250), (4, 12539), (260, 485),
+                                 (1028, 485), (300, 3136)])
+def test_launch_shape_limits(mode, T, R, B):
+    """Every launch stays inside what csrc/sample_chunk.cu accepts: the
+    runs cover the pairs, a block's pairs and threads within the caps, a
+    lane a pair's threads, and the grid at least the card."""
+    from repro_torch.kernels.sample_chunk.ops import launch_shape
+
+    C, nflat, sms = 9, 5 * B + 1, 132
+    kernel, G, lanes, runs, threads, window = launch_shape(
+        T, R, B, C, nflat, sms, mode)
+    half = (B + 1) // 2
+    assert kernel == (3 if T * R * B > 2**31 - 1 else mode)
+    assert 1 <= G <= 512 and runs * G >= half > (runs - 1) * G
+    assert threads % 32 == 0 and max(64, G * lanes) <= threads
+    assert threads <= (1024 if mode == 0 else 640)
+    assert lanes >= 1 and (mode == 0 or lanes == 1)
+    if mode == 0:  # the lanes' turns over a tile differ by one at most
+        slots = min(32, (T + 1) // 2)
+        assert -(-slots // lanes) == -(-slots // (1024 // G))
+    assert R * runs >= min(sms, R * half)
+    assert 0 <= window <= 8192 and window % 32 == 0
+    assert (window == 0) == (R * runs < sms)
+
+
+def test_launch_shape_matches_the_kernel_source():
+    """ops.py mirrors the kernel's caps (csrc/sample_chunk.cu)."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.sample_chunk import ops
+
+    src = (Path(ops.__file__).resolve().parents[2] / "csrc"
+           / "sample_chunk.cu").read_text()
+    got = {name: int(v) for name, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert (got["kMaxThreads"], got["kFullThreads"], got["kMaxPairs"],
+            got["kTileSlots"], got["kMaxWindow"]) == (
+        ops._MAX_THREADS, ops._FULL_THREADS, ops._MAX_PAIRS, ops._TILE,
+        ops._MAX_WINDOW)
+
+
 @pytest.fixture(scope="module")
 def port_plan500():
     import repro_torch.core as P
