@@ -2,7 +2,8 @@
 CUDA tensor to the one hand-written kernel of its dtype, anything else
 raises.  bf16 runs on ``csrc/flash_attention_sm90.cu`` (wgmma, TMA), f32
 on ``csrc/flash_attention.cu`` (f32 FMAs, which hold the reference
-tests' f32 tolerance that tensor-core products would not).
+tests' f32 tolerance of 2e-5; single-pass TF32 or bf16 tensor-core
+products would not, and a 3xTF32 split has not been tried).
 
 Unlike the reference op, nothing is padded to block multiples: the
 kernels handle the ragged query and key tails themselves.

@@ -557,12 +557,40 @@ _BF16, _F32 = torch.bfloat16, torch.float32
     (2, 16, 1, 700, 256, _F32, {"window": 256}),
     (1, 8, 4, 600, 128, _BF16, {"window": 200, "softcap": 50.0}),
     (1, 8, 4, 600, 128, _F32, {"window": 200, "softcap": 50.0}),
+    # the f32 kernel's tiles (`Tiles<D>` in csrc/flash_attention.cu):
+    # query tiles of 256 / 128 / 64 rows and key tiles of 64 / 128 / 256
+    # keys at D = 64 / 128 / 256, one row or key short of and past each;
+    # GQA groups 1, 3 and 8
+    (1, 2, 2, 255, 64, _F32, {}),
+    (1, 2, 2, 257, 64, _F32, {}),
+    (1, 2, 2, 63, 64, _F32, {}),
+    (1, 2, 2, 65, 64, _F32, {}),
+    (1, 3, 1, 127, 128, _F32, {}),
+    (1, 3, 1, 129, 128, _F32, {}),
+    (2, 8, 1, 257, 128, _F32, {}),
+    (1, 2, 1, 63, 256, _F32, {}),
+    (1, 2, 1, 65, 256, _F32, {}),
+    (1, 2, 1, 255, 256, _F32, {}),
+    (1, 6, 2, 257, 256, _F32, {}),
+    (1, 4, 2, 300, 128, _F32, {"window": 50}),
+    (1, 4, 2, 300, 128, _F32, {"window": 500}),
+    (1, 4, 2, 300, 128, _F32, {"causal": False, "window": 100}),
+    (1, 2, 1, 300, 256, _F32, {"causal": False, "window": 70}),
+    (1, 4, 2, 260, 128, _F32, {"softcap": 50.0}),
+    (1, 24, 8, 1000, 128, _F32, {}),
 ], ids=["gqa-bf16", "mqa-f32", "unaligned", "window64", "window128",
         "softcap", "noncausal", "d256", "llama-heads", "mqa-bf16",
         "unaligned-bf16", "window64-bf16", "window128-bf16", "softcap-bf16",
         "noncausal-bf16", "d64-bf16", "window-noncausal-bf16",
         "tile-tail-bf16", "short-bf16", "window-d256-mqa-bf16",
-        "window-d256-mqa-f32", "window-softcap-bf16", "window-softcap-f32"])
+        "window-d256-mqa-f32", "window-softcap-bf16", "window-softcap-f32",
+        "f32-d64-short-of-rows", "f32-d64-past-rows", "f32-d64-short-of-keys",
+        "f32-d64-past-keys", "f32-d128-gqa3-short", "f32-d128-gqa3-past",
+        "f32-d128-gqa8-past", "f32-d256-short-of-rows", "f32-d256-past-rows",
+        "f32-d256-short-of-keys", "f32-d256-gqa3-past-keys",
+        "f32-window-below-a-tile", "f32-window-past-sq",
+        "f32-noncausal-window", "f32-d256-noncausal-window", "f32-softcap-d128",
+        "f32-llama-heads"])
 def test_flash_attention_kernel_on_card(cuda_device, B, Hq, Hkv, S, D, dtype,
                                         opts):
     rng = np.random.default_rng(S + D)
@@ -583,18 +611,29 @@ def test_flash_attention_kernel_on_card(cuda_device, B, Hq, Hkv, S, D, dtype,
                                rtol=tol, atol=tol)
 
 
+_OTHER_LENGTHS = [(100, 300, {"causal": False}), (300, 100, {"causal": False}),
+                  (257, 129, {}), (129, 300, {"window": 50})]
+# the f32 kernel's tile edges with Sq != Sk: rows and keys one short of
+# and past a tile at each D
+_F32_EDGES = [(255, 65, 64, {}), (257, 63, 64, {"causal": False}),
+              (127, 129, 128, {}), (129, 127, 128, {"causal": False,
+                                                    "window": 60}),
+              (63, 257, 256, {"causal": False}), (65, 255, 256,
+                                                  {"window": 300})]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [_BF16, _F32])
-@pytest.mark.parametrize("Sq,Sk,opts", [
-    (100, 300, {"causal": False}), (300, 100, {"causal": False}),
-    (257, 129, {}), (129, 300, {"window": 50})])
+@pytest.mark.parametrize("Sq,Sk,D,opts,dtype", [
+    (Sq, Sk, 128, opts, dt) for dt in (_BF16, _F32)
+    for Sq, Sk, opts in _OTHER_LENGTHS] + [
+    (*edge, _F32) for edge in _F32_EDGES])
 def test_flash_attention_kernel_other_key_lengths_on_card(cuda_device, Sq,
-                                                          Sk, opts, dtype):
+                                                          Sk, D, opts, dtype):
     """Sq != Sk: query i sees key j by index, keys past Sk are masked."""
     rng = np.random.default_rng(Sq * Sk)
     q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
-        cuda_device, dtype) for s in ((2, 4, Sq, 128), (2, 2, Sk, 128),
-                                      (2, 2, Sk, 128)))
+        cuda_device, dtype) for s in ((2, 4, Sq, D), (2, 2, Sk, D),
+                                      (2, 2, Sk, D)))
     got = flash_attention(q, k, v, **opts)
     tol = _FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(),

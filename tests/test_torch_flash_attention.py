@@ -92,6 +92,17 @@ def test_scale_and_window_without_causal_match_reference():
            scale=0.05)
 
 
+@pytest.mark.parametrize("S,D", [(255, 64), (257, 64), (127, 128),
+                                 (129, 128), (63, 256), (65, 256),
+                                 (257, 256)])
+def test_f32_tile_edges_match_reference(S, D):
+    """One row or key short of and past the f32 kernel's query and key
+    tiles (`Tiles<D>` in csrc/flash_attention.cu: 256 / 128 / 64 rows,
+    64 / 128 / 256 keys at D = 64 / 128 / 256): the plain version that
+    the card tests hold the kernel to, against the reference there."""
+    _check(1, 2, 1, S, D, "f32", seed=S + D, causal=True)
+
+
 def test_attention_ref_is_the_plain_softmax():
     """The plain version by hand: one head, every row's softmax over the
     keys it may see."""
