@@ -55,8 +55,20 @@ copy on its forward route against decode, one local block past its
 window), gemma2-27b at full width and 8 layers (`forward` 1x8192, so the
 window bites) and grok-1-314b at full width and 4 layers (`forward`
 2x4096 through the MoE feed-forward), each with `Generator` and the
-per-block agreement of an f32 copy.  Any failed check raises, and the
-script exits non-zero.
+per-block agreement of an f32 copy.  Training also takes one
+`make_train_step` step of llama3.2-3b at full size over 1 x 4096 tokens
+(T1L), past `chunk_threshold`, where every layer trains through
+`chunked_attention` (no kernel).  Last, `chunked_attention` against
+`full_attention` on the card in f32, outputs and gradients (X1:
+llama3.2-3b causal self-attention and whisper-tiny's cross-attention
+over 4096 frames), whisper-tiny at full size (W1: `forward` on 4 x 4096
+decoder tokens over 1500 frames each, one bf16 flash launch a decoder
+layer; `Generator` with frames; an f32 copy's per-block agreement with
+each block cross-attending to the encoder's output), and qwen2-vl-72b
+at full width and 4 layers (Q1: prefill 1 x 4096 at M-RoPE positions
+through `chunked_attention`, no kernel launch, and one f32 block's
+attention there against `full_attention`).  Any failed check raises,
+and the script exits non-zero.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` (per kernel: its launches on each path that runs
@@ -272,10 +284,42 @@ ZOO_WINDOW_RATIO = 0.9
 # tokens every expert's capacity is 256 slots, more than the 128 tokens,
 # so no token is dropped on either path.
 ZOO_WRAP = 256
-ZOO_DEPTH = {"gemma2-27b": 8, "grok-1-314b": 4}
+ZOO_DEPTH = {"gemma2-27b": 8, "grok-1-314b": 4, "qwen2-vl-72b": 4}
 ZOO_PREFILL = {"recurrentgemma-9b": PREFILL, "gemma2-27b": (1, 8192),
                "grok-1-314b": (2, 4096)}
 ZOO_AGREE_DEPTH = {"gemma2-27b": 8, "grok-1-314b": 1}
+# the encoder-decoder and chunked_attention.  W1: whisper-tiny
+# (src/repro/configs/whisper_tiny.py) at full size (4 encoder and 4
+# decoder layers, d 384, 36.4 M parameters), frames (B, 1500, 384) from
+# default_rng(WHISPER_FRAMES_SEED) in place of the stubbed audio
+# frontend: prefill PREFILL decoder tokens (one bf16 flash launch a
+# decoder layer; the encoder's 1500 frames and the cross-attention over
+# them stay under chunk_threshold, on full_attention), Generator SERVE,
+# and an f32 copy's forward vs decode at AGREE held to AGREE_F32_TOL.
+WHISPER_FRAMES_SEED = 16
+# X1: chunked_attention against full_attention on the card, one
+# attention block at full width in f32 (TF32 off): llama3.2-3b causal
+# self-attention over 1 x 4096, and whisper-tiny's cross-attention of 1 x
+# 4096 queries over a memory of 4096 frames (past chunk_threshold, so
+# attention() takes chunked_attention).  Outputs at 2e-5; the gradients
+# of q, k and v within 1e-4 of their largest element.
+CHUNKED_CASES = (("llama3.2-3b self", "llama3.2-3b", (1, 4096), None),
+                 ("whisper-tiny cross", "whisper-tiny", (1, 4096), 4096))
+CHUNKED_TOL = {"out": 2e-5, "grad": 1e-4}
+# Q1: qwen2-vl-72b (src/repro/configs/qwen2_vl_72b.py) at full width, 4
+# of its 80 layers (ZOO_DEPTH; 12 GB of bf16 weights), prefill 1 x 4096
+# at M-RoPE positions: a text prefix of QWEN_LAYOUT["text"] tokens at t =
+# h = w = i, a grid x grid patch block at t = text, h = text + row, w =
+# text + col, then text again from the grid's largest id + 1.  Every
+# layer takes chunked_attention (the flash kernel masks by index), so no
+# kernel launches; block 0's attention in f32 at those positions is held
+# against full_attention at CHUNKED_TOL["out"].
+QWEN_PREFILL = (1, 4096)
+QWEN_LAYOUT = dict(text=256, grid=32)
+# T1L: one make_train_step step of llama3.2-3b at full size (AdamW as
+# T1) on train_4k's sequence of 4096 tokens, its global batch cut from
+# 256 to 1: every layer trains through chunked_attention
+TRAIN_LONG = dict(seq=4096, batch=1)
 # published H100 peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores; the
 # PCIe part is slower.  The int32 rate is the card's SMs x 64 int32
@@ -1512,10 +1556,11 @@ class Smoke:
         return model
 
     def prefill(self, model, cfg, kernel: str, want: int, symbol: str,
-                by_kernel=None, shape=PREFILL):
-        """`forward` on `shape` (4 prompts of 4096 tokens unless given):
-        `want` launches of `kernel` (one a layer that runs it) and none of
-        the others (for flash, exactly `by_kernel` of each of its CUDA
+                by_kernel=None, shape=PREFILL, extra=None):
+        """`forward` on `shape` (4 prompts of 4096 tokens unless given;
+        `extra` adds the batch's frames or M-RoPE positions): `want`
+        launches of `kernel` (one a layer that runs it) and none of the
+        others (for flash, exactly `by_kernel` of each of its CUDA
         kernels), finite logits, execute seconds, and one traced forward
         (`symbol` names the kernel in the trace)."""
         torch = self.torch
@@ -1524,7 +1569,7 @@ class Smoke:
         B, S = shape
         tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=self.gen(13),
                                device=self.dev)
-        batch = {"tokens": tokens}
+        batch = {"tokens": tokens, **(extra or {})}
         torch.cuda.reset_peak_memory_stats()
         self.zero_counts()
         logits = forward(model, cfg, batch)
@@ -1570,9 +1615,10 @@ class Smoke:
         self.report[f"prefill_{cfg.name}"] = row
         return launches
 
-    def serve(self, model, cfg, symbol: str):
+    def serve(self, model, cfg, symbol: str, frames=None):
         """`Generator` answers 8 requests (64-token prompts, 32 greedy
-        steps) through decode_step alone: no kernel launch."""
+        steps; with `frames`, an encoder-decoder's 8 requests' frames)
+        through decode_step alone: no kernel launch."""
         import numpy as np
         from repro_torch.models import decode_step, init_cache
         from repro_torch.serve import Generator
@@ -1585,7 +1631,7 @@ class Smoke:
         self.zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = gen.generate(prompts, steps)
+        out = gen.generate(prompts, steps, frames=frames)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
         counts = self.read_counts()
@@ -1597,7 +1643,7 @@ class Smoke:
               f"Generator output {out.shape} out of range")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        again = gen.generate(prompts, steps)
+        again = gen.generate(prompts, steps, frames=frames)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         check(np.array_equal(out, again), "greedy generate is not repeatable")
@@ -1614,7 +1660,7 @@ class Smoke:
             decode_tokens_per_s=step_tokens / warm_s,
             generated_tokens_per_s=stats["live_tokens"] / warm_s)
         # one decode step traced, against the warm run's mean step
-        cache = init_cache(model, cfg, B, P + steps)
+        cache = init_cache(model, cfg, B, P + steps, frames=frames)
         rows, traced_s = self.trace(
             lambda: decode_step(model, cfg, cache, prompts[:, 0]))
         row.update(self.busy(f"decode step {cfg.name} {B}", rows, traced_s,
@@ -1622,15 +1668,17 @@ class Smoke:
         self.report[f"serve_{cfg.name}"] = row
         return sum(counts.values())
 
-    def agreement(self, model, cfg, checked: bool):
+    def agreement(self, model, cfg, checked: bool, frames=None):
         """forward against decode_step fed token by token: the logits at
         every position, and every block alone on the same input, the
         sequence through the block's kernel (the wkv kernel, or the flash
         kernel forced onto its route with chunk_threshold=0; an rglru
         block runs none) against the same tokens one by one through
         decode (the wkv recurrence, decode_attention over the KV cache,
-        the rglru state update).  Held to AGREE_F32_TOL when `checked`,
-        else reported only."""
+        the rglru state update).  An encoder-decoder's blocks
+        cross-attend to the encoder's output over `frames` on both paths
+        (with chunk_threshold=0 the forward's takes chunked_attention).
+        Held to AGREE_F32_TOL when `checked`, else reported only."""
         torch = self.torch
         from repro_torch._tf32 import no_tf32
         from repro_torch.models import decode_step, forward, init_cache
@@ -1640,8 +1688,12 @@ class Smoke:
         B, S = AGREE
         tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=self.gen(15),
                                device=self.dev)
-        full = forward(model, cfg, {"tokens": tokens})
-        cache = init_cache(model, cfg, B, S)
+        batch = {"tokens": tokens}
+        if frames is not None:
+            batch["frames"] = frames
+        full = forward(model, cfg, batch)
+        cache = init_cache(model, cfg, B, S, frames=frames)
+        memory = cache["memory"]
         steps = []
         for t in range(S):
             logits, cache = decode_step(model, cfg, cache, tokens[:, t])
@@ -1660,7 +1712,7 @@ class Smoke:
             outs = []
             for t in range(S):
                 out, state = _block_decode(p, cfg, kind, x[:, t:t + 1],
-                                           state, t)
+                                           state, t, memory)
                 outs.append(out)
             return torch.cat(outs, 1)
 
@@ -1678,7 +1730,7 @@ class Smoke:
                 if name is not None:
                     want[name] += 1
                 by_kernel = dict(self.flash_kernels())
-                y = _block_forward(p, cfg, kind, x, None,
+                y = _block_forward(p, cfg, kind, x, None, memory=memory,
                                    chunk_threshold=0).float()
                 check(self.read_counts() == want,
                       f"{cfg.name} block {len(block_diff)} ({kind}) "
@@ -2097,6 +2149,218 @@ class Smoke:
         self.report[f"local_wrap_{cfg.name}"] = dict(
             layer=layer, seq=S, window=cfg.window, max_abs_diff=diff,
             tol=tol, seconds=secs)
+
+    # ------------------------------ whisper-tiny, chunked_attention, qwen
+    def frames(self, cfg, B: int, rng):
+        """B requests' frame embeddings (B, encoder_seq, d_model), drawn
+        from `rng` on the host in f32 (the stubbed audio frontend)."""
+        import numpy as np
+
+        return self.torch.as_tensor(
+            rng.normal(size=(B, cfg.encoder_seq, cfg.d_model)).astype(
+                np.float32), device=self.dev)
+
+    def whisper(self):
+        """W1: whisper-tiny at full size.  Prefill PREFILL (one bf16 flash
+        launch a decoder layer, none of any other kernel), Generator on
+        SERVE's requests with their frames (no launch), and an f32
+        copy's forward against decode, every decoder block's
+        self-attention on the kernel route, checked.  Returns the
+        launches of each path."""
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+
+        cfg = get_config("whisper-tiny")
+        rng = np.random.default_rng(WHISPER_FRAMES_SEED)
+        model = self.model(cfg)
+        L = cfg.num_layers
+        B, S = PREFILL
+        launches = {
+            f"forward whisper-tiny {B}x{S}, {cfg.encoder_seq} frames":
+            self.prefill(model, cfg, "flash_attention", L,
+                         "flash_kernel_sm90",
+                         {"flash_attention_sm90": L, "flash_attention": 0},
+                         shape=(B, S), extra={"frames": self.frames(cfg, B, rng)}),
+            f"Generator whisper-tiny {SERVE[0]}x({SERVE[1]}+{SERVE[2]}), "
+            f"{cfg.encoder_seq} frames":
+            self.serve(model, cfg, "flash_kernel_sm90",
+                       frames=self.frames(cfg, SERVE[0], rng))}
+        del model
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32 = self.model(cfg32)
+        self.agreement(model32, cfg32, checked=True,
+                       frames=self.frames(cfg, AGREE[0], rng))
+        del model32
+        torch.cuda.empty_cache()
+        return launches
+
+    def chunked(self):
+        """X1: `attention()` past chunk_threshold at explicit positions
+        (chunked_attention) against the same call forced onto
+        full_attention, one block of each CHUNKED_CASES in f32 with
+        parameters drawn on the card; then chunked_attention against
+        full_attention on that block's q, k and v, the gradients of both
+        against one cotangent.  No kernel launches.  Each route timed
+        (CUDA events), forward and forward + backward, with its peak
+        memory."""
+        torch = self.torch
+        from repro_torch._tf32 import no_tf32
+        from repro_torch.configs import get_config
+        from repro_torch.models.attention import (
+            _apply_rope, _heads, _mask_bias, _scale, attention, attn_params,
+            chunked_attention, full_attention)
+        from repro_torch.models.layers import dense
+
+        rows = []
+        for label, arch, (B, S), Sm in CHUNKED_CASES:
+            cfg = dataclasses.replace(get_config(arch), dtype="float32")
+            gen = self.gen(19)
+            params = {}
+            for name, d in attn_params(cfg, cross=Sm is not None).items():
+                params[name] = d.initialize_(
+                    torch.empty(d.shape, device=self.dev), gen)
+            x = torch.randn((B, S, cfg.d_model), generator=gen,
+                            device=self.dev)
+            memory = (None if Sm is None else
+                      torch.randn((B, Sm, cfg.d_model), generator=gen,
+                                  device=self.dev))
+            Sk = S if Sm is None else Sm
+            pos = torch.arange(S, device=self.dev)[None].expand(B, S)
+            k_pos = torch.arange(Sk, device=self.dev)[None].expand(B, Sk)
+            causal = memory is None
+            self.zero_counts()
+            with no_tf32(), torch.no_grad():
+                got = attention(params, cfg, x, pos, memory=memory)
+                want = attention(params, cfg, x, pos, memory=memory,
+                                 chunk_threshold=Sk)
+                src = x if memory is None else memory
+                H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
+                q = _heads(dense(x, params["wq"]), H, dh)
+                k = _heads(dense(src, params["wk"]), Hkv, dh)
+                v = _heads(dense(src, params["wv"]), Hkv, dh)
+                if memory is None:
+                    q, k = (_apply_rope(cfg, a, pos) for a in (q, k))
+            out_err = float((got - want).abs().max())
+            check(torch.allclose(got, want, rtol=CHUNKED_TOL["out"],
+                                 atol=CHUNKED_TOL["out"]),
+                  f"X1 {label}: chunked vs full attention max abs diff "
+                  f"{out_err} beyond {CHUNKED_TOL['out']}")
+            cot = torch.randn(q.shape, generator=gen, device=self.dev)
+            kw = dict(softcap=cfg.attn_logit_softcap, scale=_scale(cfg))
+            bias = _mask_bias(pos, k_pos, causal=causal, window=None)
+
+            def core(chunked, leaves):
+                if chunked:
+                    return chunked_attention(*leaves, pos, k_pos,
+                                             causal=causal, window=None,
+                                             chunk=min(1024, Sk), **kw)
+                return full_attention(*leaves, bias, **kw)
+
+            def grads(chunked):
+                leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+                o = core(chunked, leaves)
+                return torch.autograd.grad((o * cot).sum(), leaves)
+
+            times = {}
+            with no_tf32():
+                got_g, want_g = grads(True), grads(False)
+                for route, chunked in (("chunked", True), ("full", False)):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    with torch.no_grad():
+                        fwd = self.time_ms(lambda: core(chunked, (q, k, v)),
+                                           3, warmup=1)
+                    both = self.time_ms(lambda: grads(chunked), 3, warmup=1)
+                    times[route] = dict(
+                        forward_ms=fwd, forward_backward_ms=both,
+                        peak_gib=(torch.cuda.max_memory_allocated() - base)
+                        / 2**30)
+            grad_err = [float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(got_g, want_g)]
+            check(max(grad_err) <= CHUNKED_TOL["grad"],
+                  f"X1 {label}: gradient of q, k, v off by {grad_err} of "
+                  f"their largest element, beyond {CHUNKED_TOL['grad']}")
+            counts = self.read_counts()
+            self.check_idle(counts, None, f"X1 {label}")
+            check(not any(self.flash_kernels().values()),
+                  f"X1 {label} launched {self.flash_kernels()}")
+            log(f"[chunked X1 {label} {B}x{S} over {Sk} keys, f32] "
+                f"attention() chunked vs full max abs diff {out_err:.3e}; "
+                f"gradients q, k, v off by "
+                f"{', '.join(f'{e:.3e}' for e in grad_err)} of their "
+                f"largest element; chunked {times['chunked']}, full "
+                f"{times['full']}")
+            rows.append(dict(label=label, batch=B, seq=S, keys=Sk,
+                             max_abs_err=out_err, grad_rel_err=grad_err,
+                             tol=CHUNKED_TOL, **{f"{r}_{k}": v
+                                                 for r, t in times.items()
+                                                 for k, v in t.items()}))
+            del params, x, memory, q, k, v, cot, bias, got_g, want_g
+            torch.cuda.empty_cache()
+        self.report["chunked_attention"] = rows
+
+    def mrope_positions(self, B: int, S: int):
+        """Q1's (B, S, 3) M-RoPE ids: QWEN_LAYOUT's text prefix, patch
+        grid and text after it."""
+        torch = self.torch
+        text, grid = QWEN_LAYOUT["text"], QWEN_LAYOUT["grid"]
+        patches = grid * grid
+        pos = torch.empty((S, 3), dtype=torch.int64)
+        pos[:text] = torch.arange(text)[:, None]
+        row, col = torch.arange(patches) // grid, torch.arange(patches) % grid
+        pos[text:text + patches] = torch.stack(
+            [torch.full_like(row, text), text + row, text + col], -1)
+        rest = S - text - patches
+        pos[text + patches:] = (text + grid + torch.arange(rest))[:, None]
+        return pos[None].expand(B, S, 3).to(self.dev)
+
+    def qwen(self):
+        """Q1: qwen2-vl-72b at full width and ZOO_DEPTH's layers, prefill
+        at M-RoPE positions (no kernel launch: chunked_attention), then
+        block 0's attention in f32 at the same positions, chunked against
+        full_attention.  Returns the prefill's launches."""
+        torch = self.torch
+        from repro_torch._tf32 import no_tf32
+        from repro_torch.models.attention import attention
+        from repro_torch.models.model import _apply_norm, _embed
+
+        cfg = self.zoo_config("qwen2-vl-72b")
+        model = self.model(cfg)
+        B, S = QWEN_PREFILL
+        pos = self.mrope_positions(B, S)
+        launches = self.prefill(
+            model, cfg, "flash_attention", 0, "gemm",
+            {"flash_attention_sm90": 0, "flash_attention": 0},
+            shape=QWEN_PREFILL, extra={"positions": pos})
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p = model.blocks[0]
+        params32 = {k: v.float() for k, v in p["attn"].items()}
+        tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                               generator=self.gen(20), device=self.dev)
+        self.zero_counts()
+        with no_tf32(), torch.no_grad():
+            x = _apply_norm(p["ln1"], cfg32,
+                            _embed(model, cfg, tokens).float())
+            got = attention(params32, cfg32, x, pos)
+            want = attention(params32, cfg32, x, pos, chunk_threshold=S)
+        torch.cuda.synchronize()
+        self.check_idle(self.read_counts(), None, "Q1 block 0 in f32")
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=CHUNKED_TOL["out"],
+                             atol=CHUNKED_TOL["out"]),
+              f"Q1 block 0 attention at M-RoPE positions: chunked vs full "
+              f"max abs diff {err} beyond {CHUNKED_TOL['out']}")
+        log(f"[qwen Q1 block 0 f32 {B}x{S}, M-RoPE] chunked vs full "
+            f"attention max abs diff {err:.3e}, within "
+            f"{CHUNKED_TOL['out']}")
+        self.report[f"prefill_{cfg.name}"]["block0_f32_max_abs_err"] = err
+        del model, params32, x, got, want
+        torch.cuda.empty_cache()
+        return {f"forward qwen2-vl-72b {B}x{S}, {cfg.num_layers} layers, "
+                f"M-RoPE positions": launches}
 
     # ---------------------------------------------------------- training
     # ---------------------------------------------------- serving fleet
@@ -2656,6 +2920,48 @@ class Smoke:
                              traced["traced_s"], warm_ms / 1e3, "gemm"))
         self.report["train_llama3.2-3b"] = row
 
+    def train_long(self):
+        """T1L: one make_train_step step of llama3.2-3b at full size
+        (AdamW, T1's schedule) on TRAIN_LONG's 1 x 4096 tokens, past
+        chunk_threshold: finite loss, step ms (CUDA events) and peak
+        memory."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.data import SyntheticLM
+        from repro_torch.models import Transformer
+        from repro_torch.optim import adamw, cosine_schedule
+        from repro_torch.train import init_train_state, make_train_step
+
+        cfg = get_config("llama3.2-3b")
+        B, S = TRAIN_LONG["batch"], TRAIN_LONG["seq"]
+        opt = adamw(weight_decay=0.01)
+        step = make_train_step(cfg, opt, cosine_schedule(*TRAIN_LR),
+                               device=self.dev)
+        batch = SyntheticLM(cfg.vocab_size, S, B,
+                            seed=MODEL_SEED).batch_at(0)
+        state = init_train_state(
+            Transformer(cfg).init(seed=MODEL_SEED, device=self.dev), opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        loss = float(metrics["loss"])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(math.isfinite(loss), f"T1L loss {loss}")
+        log(f"[train T1L llama3.2-3b {B}x{S}] loss {loss}, grad norm "
+            f"{float(metrics['grad_norm']):.4f}; step {ms:.2f} ms "
+            f"({B * S / ms * 1e3:.0f} tokens/s); peak {peak:.2f} GiB")
+        self.report["train_long_llama3.2-3b"] = dict(
+            batch=B, seq=S, loss=loss, step_ms=ms,
+            tokens_per_s=B * S / ms * 1e3, peak_gib=peak)
+        del state
+        torch.cuda.empty_cache()
+
     def train_cpu(self):
         """T1b: one sgdm step of llama3.2-3b width at 2 layers in f32 (no
         TF32) on the card and on the CPU from the same weights."""
@@ -3087,6 +3393,13 @@ def main() -> int:
     for name, row in smoke.kernels.items():
         row["train_launches"] = counts[name]
     log(f"[train] kernel launches over T1-T3: {counts}")
+    # T1L: one step at train_4k's sequence, through chunked_attention
+    smoke.zero_counts()
+    smoke.train_long()
+    train_long = smoke.read_counts()
+    smoke.check_idle(train_long, None, "T1L")
+    check(not any(smoke.flash_kernels().values()),
+          f"T1L launched {smoke.flash_kernels()}")
 
     # the zoo's other block kinds, after training's state is freed: Z0 the
     # flash kernels at their prefill shapes; Z1 recurrentgemma-9b at full
@@ -3117,6 +3430,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         smoke.zoo_agree(arch)
     smoke.kernels["flash_attention"]["launches_by_path"].update(zoo_paths)
+
+    # chunked_attention (X1), whisper-tiny at full size (W1) and
+    # qwen2-vl-72b at M-RoPE positions (Q1)
+    smoke.chunked()
+    smoke.kernels["flash_attention"]["launches_by_path"].update(
+        {**smoke.whisper(), **smoke.qwen(),
+         f"make_train_step llama3.2-3b {TRAIN_LONG['batch']}x"
+         f"{TRAIN_LONG['seq']}, one step": train_long["flash_attention"]})
     smoke.kernels["flash_attention"]["zoo_shapes"] = [
         {k: row[k] for k in ("label", "shape", "window", "softcap", "ms",
                              "bound_ms", "bound_by", "plain_ms", "library_ms",

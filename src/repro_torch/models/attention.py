@@ -1,34 +1,34 @@
 """Attention for the serving and training paths: GQA/MQA, RoPE /
-M-RoPE, logit softcap, sliding windows ("local" layers), the
-full-sequence (prefill) attention and the KV-cache decode.
+M-RoPE, logit softcap, sliding windows ("local" layers),
+cross-attention over an encoder's memory (whisper), the full-sequence
+(prefill and training) attention and the KV-cache decode.
 
-Where the reference runs `chunked_attention` (keys beyond
-`chunk_threshold`) or, for a "local" layer, `banded_local_attention`
-(keys beyond the window), `attention` serves through the
-`flash_attention` op instead, with the layer's window: the CUDA kernel
-on the card, its plain version on the CPU.  That kernel masks by index
-(query i and key j from 0) where the reference masks by position, so
-the route takes only self-attention at index positions:
-`positions=None`, which means 0..S-1 in every row, as
-`models.model._hidden` passes it for every config without M-RoPE.
-Explicit positions or cross-attention there raise, without reading the
-device.  Below the threshold and the window, and in all of decode,
-attention is plain tensor code (`full_attention`), as the reference
-computes it outside any kernel.
+`attention` routes as the reference does, with the flash kernel where
+it applies:
 
-Training (`train=True`) takes differentiable routes only:
-`full_attention` up to `chunk_threshold` keys, and for a "local" layer
-beyond its window `banded_local_attention`, ported as plain tensor
-code.  The flash kernel is forward only.
+* a causal "local" self-attention over more keys than its window:
+  serving at `positions=None` runs the `flash_attention` op with the
+  window (the CUDA kernel on the card, its plain version on the CPU);
+  training, or serving at explicit positions, runs
+  `banded_local_attention`;
+* otherwise, over more than `chunk_threshold` keys: serving
+  self-attention at `positions=None` runs the flash op; everything else
+  (training, explicit or M-RoPE positions, cross-attention) runs
+  `chunked_attention`, the reference's online softmax over key chunks;
+* otherwise `full_attention`, the masks as an additive bias.
+
+The flash kernel masks by index (query i and key j from 0) where the
+reference masks by position, so it takes only `positions=None`, which
+means 0..S-1 in every row, as `models.model._hidden` passes it for
+every config without M-RoPE; it is forward only.  `chunked_attention`,
+`banded_local_attention` and `full_attention` are plain differentiable
+tensor code, as the reference computes them outside any kernel, and so
+is all of decode.
 
 The paged decode (`init_paged_kv_cache`, `paged_decode_attention`)
 serves continuous batching: each layer's KV lives in a pool of pages
 that a `serve.PageTable` hands to decode slots, and every slot decodes
 at its own position.  It is plain tensor code too, as in the reference.
-
-Not ported yet: `chunked_attention` and with it cross-attention,
-explicit or M-RoPE positions, and training beyond `chunk_threshold`
-(ROADMAP Queue A, whisper and `chunked_attention`).
 
 The functions take `params` as any mapping of name to tensor: a dict,
 or the `ParameterDict` of a `models.model.Transformer` block.
@@ -40,19 +40,22 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
 from .layers import DTYPES, P_, dense, mrope, rope
 
-__all__ = ["attn_params", "attention", "full_attention",
+__all__ = ["attn_params", "attention", "full_attention", "chunked_attention",
            "banded_local_attention", "decode_attention", "init_kv_cache",
            "init_paged_kv_cache", "paged_decode_attention"]
 
 _NEG_INF = -1e30
 
 
-def attn_params(cfg: ModelConfig) -> dict:
+def attn_params(cfg: ModelConfig, cross: bool = False) -> dict:
+    """q, k, v and output projections; a cross-attention (`cross`) has
+    the same shapes."""
     D, H, Hkv, dh = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.head_width
     return {
         "wq": P_((D, H * dh)),
@@ -113,6 +116,66 @@ def full_attention(q, k, v, bias, *, softcap, scale):
     return o.reshape(B, H, Sq, dh).to(q.dtype)
 
 
+def _chunk_step(m, l, acc, qf, kb, vb, kpb, q_pos, causal, window, softcap):
+    """One key chunk of the online softmax: the carry (m, l, acc) in f32
+    updated by keys kb, values vb (B,Hkv,c,dh) at positions kpb (B,c),
+    -1 for padding.  Masked scores take the finite `_NEG_INF`, so a row
+    with no kept key so far weighs its masked keys equally; the first
+    kept key's alpha = 0 wipes them."""
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qp = q_pos[:, None, None, :, None]          # (B,1,1,Sq,1)
+    kp = kpb[:, None, None, None, :]            # (B,1,1,1,c)
+    keep = kp >= 0
+    if causal:
+        keep = keep & (kp <= qp)
+    if window is not None:
+        keep = keep & (kp > qp - window)
+    s = torch.where(keep, s, _NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * alpha + p.sum(dim=-1)
+    acc_new = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                                    vb.float())
+    return m_new, l_new, acc_new
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, *, causal, window, softcap,
+                      scale, chunk: int = 1024):
+    """Online-softmax attention over key chunks of `chunk`, never the
+    whole score matrix.  q: (B,H,Sq,dh); k/v: (B,Hkv,Sk,dh); q_pos:
+    (B,Sq); k_pos: (B,Sk).  Masks by position: keys are padded to whole
+    chunks at position -1, which is masked.  With grad enabled each
+    chunk step runs under `checkpoint`, recomputed in backward, so
+    backward keeps no chunk's scores (the reference's
+    `jax.checkpoint(step)`).  Returns q's dtype; sums in f32."""
+    B, H, Sq, dh = q.shape
+    _, Hkv, Sk, dv = v.shape
+    g = H // Hkv
+    nchunks = -(-Sk // chunk)
+    pad = nchunks * chunk - Sk
+    if pad:
+        k, v = (F.pad(a, (0, 0, 0, pad)) for a in (k, v))
+        k_pos = F.pad(k_pos, (0, pad), value=-1)
+    qf = q.float().reshape(B, Hkv, g, Sq, dh) * scale
+    m = torch.full((B, Hkv, g, Sq), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Hkv, g, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hkv, g, Sq, dv), dtype=torch.float32,
+                      device=q.device)
+    for c in range(0, nchunks * chunk, chunk):
+        args = (m, l, acc, qf, k[:, :, c:c + chunk], v[:, :, c:c + chunk],
+                k_pos[:, c:c + chunk], q_pos, causal, window, softcap)
+        if torch.is_grad_enabled():
+            m, l, acc = checkpoint(_chunk_step, *args, use_reentrant=False)
+        else:
+            m, l, acc = _chunk_step(*args)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, Sq, dv).to(q.dtype)
+
+
 def banded_local_attention(q, k, v, q_pos, k_pos, *, window, softcap, scale,
                            block: int = 1024):
     """Causal sliding-window self-attention restricted to the diagonal
@@ -171,16 +234,18 @@ def attention(
     """Self- (or cross-) attention over a full sequence (prefill, or
     training when `train`).  `positions` is (B, S), or (B, S, 3) for
     M-RoPE; None means index positions 0..S-1, the only ones the flash
-    route takes.
+    route takes.  `memory` (B, Sm, D) makes it a cross-attention: no
+    rotary on the memory, no causal mask, keys at `memory_positions`
+    (0..Sm-1 unless given).
 
-    Routes, where the reference takes `banded_local_attention` (a
-    causal "local" self-attention beyond its window) or
-    `chunked_attention` (beyond `chunk_threshold` keys): serving runs
-    the flash op with the layer's window; training runs
-    `banded_local_attention` for the first, and refuses the second,
-    since the flash kernel is forward only and `chunked_attention` is
-    not ported yet.  Otherwise `full_attention` with the masks as
-    biases."""
+    Routes (the module docstring's table): a causal "local"
+    self-attention beyond its window takes the flash op with the window
+    when serving at `positions=None`, else `banded_local_attention`;
+    beyond `chunk_threshold` keys, serving self-attention at
+    `positions=None` takes the flash op, and training, explicit or
+    M-RoPE positions and cross-attention take `chunked_attention` over
+    chunks of min(1024, keys); otherwise `full_attention` with the masks
+    as biases."""
     H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
     index = positions is None
     if index:
@@ -208,28 +273,22 @@ def attention(
     Sk = src.shape[1]
     banded = (window is not None and causal and memory is None
               and Sk > window)
-    if train and banded:
+    # the flash kernel is forward only and masks by index: serving
+    # self-attention at 0..S-1
+    flash = not train and index and memory is None
+    if banded and not flash:
         o = banded_local_attention(q, k, v, q_pos, k_pos, window=window,
                                    softcap=softcap, scale=scale,
                                    block=min(1024, window))
-    elif train and Sk > chunk_threshold:
-        raise NotImplementedError(
-            f"training attention over {Sk} keys: beyond chunk_threshold "
-            f"({chunk_threshold}) the reference trains through "
-            f"chunked_attention, which is not ported yet (ROADMAP Queue A, "
-            f"chunked_attention), and the flash kernel is forward only")
-    elif banded or Sk > chunk_threshold:
-        # the flash kernel masks by index: self-attention at 0..S-1 only
-        if memory is not None or not index:
-            raise NotImplementedError(
-                "the flash route (beyond chunk_threshold, or a local "
-                "layer's window) masks by index and takes self-attention at "
-                "positions=None (0..S-1) only; cross-attention and explicit "
-                "or M-RoPE positions there are not ported yet (ROADMAP "
-                "Queue A, chunked_attention)")
+    elif flash and (banded or Sk > chunk_threshold):
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=causal, window=window, softcap=softcap,
                             scale=scale)
+    elif Sk > chunk_threshold:
+        o = chunked_attention(q, k, v, q_pos, k_pos,
+                              causal=causal and memory is None, window=window,
+                              softcap=softcap, scale=scale,
+                              chunk=min(1024, Sk))
     else:
         bias = _mask_bias(q_pos, k_pos, causal=causal and memory is None,
                           window=window)
@@ -279,11 +338,21 @@ def _decode_attend(params, cfg: ModelConfig, q, k, v, keep):
 
 
 def decode_attention(params, cfg: ModelConfig, x, cache: dict, step: int, *,
-                     kind: str = "attn"):
+                     kind: str = "attn", memory_kv=None):
     """x: (B, 1, D) at absolute position `step`.  Writes the token's K, V
     and position into slot ``step % L`` of the cache IN PLACE (the
     reference returns new arrays; the tensors of the returned cache are
-    the ones passed in) and attends over the valid slots."""
+    the ones passed in) and attends over the valid slots.
+
+    With `memory_kv`, a precomputed cross-attention's (k, v, k_pos) (k
+    and v (B, Hkv, Sm, dh)), the token attends over all of it instead,
+    without rotary, and the cache is returned untouched."""
+    if memory_kv is not None:
+        k, v, _ = memory_kv
+        q = _heads(dense(x, params["wq"]), cfg.num_heads, cfg.head_width)
+        keep = torch.ones((x.shape[0], k.shape[2]), dtype=torch.bool,
+                          device=x.device)
+        return _decode_attend(params, cfg, q, k, v, keep), cache
     pos_b = torch.full((x.shape[0],), int(step), dtype=torch.int32,
                        device=x.device)
     q, k_new, v_new = _decode_qkv(params, cfg, x, pos_b)

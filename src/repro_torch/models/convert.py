@@ -5,7 +5,9 @@ The reference stacks each scan group's layers on a leading `repeats`
 axis (``tree["groups"][g]["b{i}"]``); the port keeps one block per
 layer.  The converters split that axis layer by layer, in
 `ModelConfig.scan_groups` order (behind the replica axis R of a
-decentralized state).  They take nested dicts and lists of numpy arrays
+decentralized state); an encoder-decoder's encoder blocks, stacked on
+one axis of `encoder_layers` (``tree["encoder"]["blocks"]["b0"]``), are
+split the same way.  They take nested dicts and lists of numpy arrays
 (bfloat16 arrays included) and import nothing of the reference.
 """
 from __future__ import annotations
@@ -45,15 +47,26 @@ def _unstack(groups, cfg: ModelConfig, axis: int = 0) -> list:
     return layers
 
 
+def _per_layer(tree: dict, cfg: ModelConfig, axis: int = 0) -> dict:
+    """A reference tree with its stacked layers split into the port's
+    lists: "groups" into "blocks", and the encoder's stacked blocks."""
+    out = {k: v for k, v in tree.items() if k != "groups"} | {
+        "blocks": _unstack(tree["groups"], cfg, axis)}
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = enc | {"blocks": [
+            _layer(enc["blocks"]["b0"], r, axis)
+            for r in range(cfg.encoder_layers)]}
+    return out
+
+
 def params_from_reference(tree: dict, cfg: ModelConfig,
                           device="cuda") -> Transformer:
     """The port's `Transformer` holding the reference parameter tree
     `tree` (``Transformer(cfg).init(key)`` of the reference, as numpy),
     on `device` (the card unless "cpu" is asked for)."""
     dev = resolve_device(device)
-    tree = {k: v for k, v in tree.items() if k != "groups"} | {
-        "blocks": _unstack(tree["groups"], cfg)}
-    values = dict(flat_tree(tree))
+    values = dict(flat_tree(_per_layer(tree, cfg)))
     model = Transformer(cfg)
     names = dict(model.named_parameters())
     if set(values) != set(names):
@@ -73,20 +86,21 @@ def params_from_reference(tree: dict, cfg: ModelConfig,
 
 def cache_from_reference(cache: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The port's decode cache (`models.init_cache` layout) holding the
-    reference's `init_cache` / `decode_step` cache, on `device`."""
+    reference's `init_cache` / `decode_step` cache, on `device`: the
+    layers' state, the step and an encoder-decoder's memory."""
     dev = resolve_device(device)
     layers = [{k: _tensor(v).to(dev) for k, v in layer.items()}
               for layer in _unstack(cache["groups"], cfg)]
-    return {"layers": layers, "step": int(np.asarray(cache["step"]))}
+    memory = cache.get("memory")
+    return {"layers": layers, "step": int(np.asarray(cache["step"])),
+            "memory": None if memory is None else _tensor(memory).to(dev)}
 
 
 def _params_like(tree: dict, cfg: ModelConfig, names, axis: int,
                  dev) -> dict:
     """A reference tree shaped like the parameters (the parameters, an
     optimizer moment, residuals) as the port's flat dict of tensors."""
-    tree = {k: v for k, v in tree.items() if k != "groups"} | {
-        "blocks": _unstack(tree["groups"], cfg, axis)}
-    values = dict(flat_tree(tree))
+    values = dict(flat_tree(_per_layer(tree, cfg, axis)))
     if set(values) != set(names):
         raise ValueError(
             f"parameter trees differ: missing "

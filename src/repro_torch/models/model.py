@@ -1,23 +1,25 @@
-"""The decoder stack of the reference's unified transformer: rwkv blocks
-(rwkv6-3b), RG-LRU blocks and sliding-window "local" attention blocks
-(recurrentgemma-9b, gemma2-27b), dense attention blocks (llama3.2-3b,
-yi-6b, gemma-7b, qwen2-vl-72b below the flash route's threshold), and
-attention blocks whose feed-forward is a mixture of experts
-(grok-1-314b, llama4-maverick-400b-a17b).
+"""The reference's unified transformer: rwkv blocks (rwkv6-3b), RG-LRU
+blocks and sliding-window "local" attention blocks (recurrentgemma-9b,
+gemma2-27b), dense attention blocks (llama3.2-3b, yi-6b, gemma-7b,
+qwen2-vl-72b with M-RoPE), attention blocks whose feed-forward is a
+mixture of experts (grok-1-314b, llama4-maverick-400b-a17b), and the
+encoder-decoder of whisper-tiny: an encoder over precomputed frame
+embeddings (the audio frontend is a stub, as in the reference) with
+sinusoidal positions and non-causal blocks, and decoder blocks that
+cross-attend to its output (`memory`) after their self-attention.
 
 The reference stacks each homogeneous group of layers and scans over
 it; here `Transformer` is an `nn.Module` holding one block per layer in
-a `ModuleList`, and the stack is a Python loop.  Remat and sharding
-constraints have no role when serving.  The encoder of an
-encoder-decoder model (whisper) is not ported yet and raises.
+a `ModuleList` ("blocks", and "encoder.blocks"), and the stack is a
+Python loop.  Remat and sharding constraints have no role when serving.
 
 Training (`loss_fn`) runs the same blocks with gradients on, each
 block recomputed in backward when `cfg.remat`, through differentiable
 routes only: `full_attention`, `banded_local_attention` for local
-layers beyond their window (and a refusal beyond `chunk_threshold`,
-where the reference's `chunked_attention` is not ported yet), the
-chunked plain wkv recurrence, the RG-LRU's doubling scan and the MoE
-dispatch.  The forward-only kernels raise under autograd.
+layers beyond their window, `chunked_attention` beyond
+`chunk_threshold` keys, the chunked plain wkv recurrence, the RG-LRU's
+doubling scan and the MoE dispatch.  The forward-only kernels raise
+under autograd.
 
 `params` is a `Transformer`, or the same parameters as a flat dict of
 tensors under their `named_parameters` names (`param_dict`), as the
@@ -26,9 +28,11 @@ train state holds them, or that dict nested.
 Entry points:
   Transformer(cfg)                    — parameters on the meta device,
                                         `num_params`, `.init(seed, device)`
-  forward(params, cfg, batch)         — logits (prefill)
+  forward(params, cfg, batch)         — logits (prefill); batch carries
+                                        "frames" for whisper
   loss_fn(params, cfg, batch)         — mean next-token CE (training)
-  init_cache / decode_step            — single-token serving
+  init_cache / decode_step            — single-token serving (whisper:
+                                        `init_cache(frames=)` encodes)
   init_paged_cache / paged_decode_step — continuous batching over a
                                         paged KV cache
 """
@@ -77,10 +81,15 @@ def _apply_norm(p, cfg: ModelConfig, x):
     return rms_norm(x, p["scale"], cfg.norm_eps)
 
 
-def block_params(cfg: ModelConfig, kind: str) -> dict:
+def block_params(cfg: ModelConfig, kind: str, *, cross: bool = False) -> dict:
+    """One block's descriptors; `cross` adds an attention block's
+    cross-attention ("xattn") and its norm ("lnx")."""
     d: dict = {"ln1": _norm_params(cfg, kind), "ln2": _norm_params(cfg, kind)}
     if kind in ("attn", "local"):
         d["attn"] = attn_params(cfg)
+        if cross:
+            d["xattn"] = attn_params(cfg, cross=True)
+            d["lnx"] = _norm_params(cfg, kind)
         if cfg.num_experts:
             d["moe"] = moe_params(cfg)
         else:
@@ -99,12 +108,10 @@ def block_params(cfg: ModelConfig, kind: str) -> dict:
 
 
 def model_params(cfg: ModelConfig) -> dict:
-    """The descriptor tree: embed, final_norm, unembed (untied only) and
-    one block per layer under "blocks"."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder of an encoder-decoder model is not "
-            f"ported yet")
+    """The descriptor tree: embed, final_norm, unembed (untied only),
+    one block per layer under "blocks" (with cross-attention in an
+    encoder-decoder) and, for an encoder-decoder, "encoder": its blocks
+    and final norm."""
     V, D = cfg.vocab_size, cfg.d_model
     tree: dict = {
         "embed": P_((V, D), init="embed"),
@@ -112,7 +119,14 @@ def model_params(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         tree["unembed"] = P_((D, V))
-    tree["blocks"] = [block_params(cfg, kind) for kind in cfg.layer_kinds()]
+    cross = cfg.encoder_layers > 0
+    tree["blocks"] = [block_params(cfg, kind, cross=cross)
+                      for kind in cfg.layer_kinds()]
+    if cross:
+        tree["encoder"] = {
+            "blocks": [block_params(cfg, "attn")
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": _norm_params(cfg, "attn")}
     return tree
 
 
@@ -150,7 +164,7 @@ def param_dict(params) -> dict:
 
 def _nest(flat: dict) -> dict:
     """A flat dict of dotted names as the nested tree the model reads:
-    dicts, with a list under "blocks"."""
+    dicts, with a list under "blocks" and "encoder.blocks"."""
     tree: dict = {}
     for name, value in flat.items():
         node = tree
@@ -158,9 +172,10 @@ def _nest(flat: dict) -> dict:
         for key in path:
             node = node.setdefault(key, {})
         node[leaf] = value
-    if "blocks" in tree:
-        blocks = tree["blocks"]
-        tree["blocks"] = [blocks[str(i)] for i in range(len(blocks))]
+    for node in (tree, tree.get("encoder", {})):
+        if "blocks" in node:
+            blocks = node["blocks"]
+            node["blocks"] = [blocks[str(i)] for i in range(len(blocks))]
     return tree
 
 
@@ -176,10 +191,12 @@ def _tree(params):
 
 
 def _block_forward(p, cfg: ModelConfig, kind: str, x, positions, *,
+                   memory=None, causal: bool = True,
                    chunk_threshold: int = 2047, train: bool = False):
     """One block over a full sequence.  `chunk_threshold` is the
-    attention's (keys beyond it take the flash route, or raise when
-    `train`)."""
+    attention's, self and cross (keys beyond it take the flash route or
+    `chunked_attention`); `memory` (B, Se, D) feeds the block's
+    cross-attention where it has one."""
     if kind == "rwkv":
         x = x + rwkv_time_mix(p["time"], cfg, _apply_norm(p["ln1"], cfg, x),
                               train=train)
@@ -189,17 +206,25 @@ def _block_forward(p, cfg: ModelConfig, kind: str, x, positions, *,
         x = x + rglru_block(p["rglru"], cfg, _apply_norm(p["ln1"], cfg, x))
         return x + mlp(_apply_norm(p["ln2"], cfg, x), p["mlp"], cfg.mlp_kind)
     h = attention(p["attn"], cfg, _apply_norm(p["ln1"], cfg, x), positions,
-                  kind=kind, chunk_threshold=chunk_threshold, train=train)
-    return _attn_block_rest(p, cfg, x, h)
+                  kind=kind, causal=causal, chunk_threshold=chunk_threshold,
+                  train=train)
+    return _attn_block_rest(p, cfg, x, h, memory, positions,
+                            chunk_threshold=chunk_threshold, train=train)
 
 
-def _attn_block_rest(p, cfg: ModelConfig, x, h):
-    """An attention block after its attention output `h`: the residual,
-    then the feed-forward's (the MLP, or the MoE), each with its
-    post-norm where the config has them."""
+def _attn_block_rest(p, cfg: ModelConfig, x, h, memory=None, positions=None,
+                     **cross):
+    """An attention block after its attention output `h`: the residual;
+    where the block has a cross-attention and `memory` is given, that
+    attention's residual (queries at `positions`, `attention`'s keywords
+    `cross`); then the feed-forward's (the MLP, or the MoE), each with
+    its post-norm where the config has them."""
     if cfg.post_norms:
         h = _apply_norm(p["post1"], cfg, h)
     x = x + h
+    if memory is not None and "xattn" in p:
+        x = x + attention(p["xattn"], cfg, _apply_norm(p["lnx"], cfg, x),
+                          positions, memory=memory, **cross)
     z = _apply_norm(p["ln2"], cfg, x)
     h = (moe_ffn(p["moe"], cfg, z) if cfg.num_experts
          else mlp(z, p["mlp"], cfg.mlp_kind))
@@ -241,29 +266,69 @@ def _positions(cfg: ModelConfig, batch: dict, tokens):
     return None
 
 
+def _blocks(blocks, kinds, cfg: ModelConfig, x, positions, *, memory=None,
+            causal: bool = True, train: bool = False):
+    """A stack of blocks, each recomputed in backward when `train` and
+    `cfg.remat`."""
+    for p, kind in zip(blocks, kinds):
+        if train and cfg.remat:
+            x = checkpoint(_train_block, p, cfg, kind, x, positions, memory,
+                           causal, use_reentrant=False)
+        else:
+            x = _block_forward(p, cfg, kind, x, positions, memory=memory,
+                               causal=causal, train=train)
+    return x
+
+
+def _train_block(p, cfg, kind, x, positions, memory, causal):
+    return _block_forward(p, cfg, kind, x, positions, memory=memory,
+                          causal=causal, train=True)
+
+
+def _encode(params, cfg: ModelConfig, frames, *, train: bool = False):
+    """The whisper encoder over precomputed frame embeddings (B, Se, D)
+    (the stub frontend): sinusoidal positions added in f32, then the
+    non-causal self-attention blocks (rotary at 0..Se-1, as the
+    reference applies it) and the encoder's final norm.  None for a
+    decoder-only config."""
+    if not cfg.encoder_layers:
+        return None
+    if frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: it needs "
+                         f"frames (B, {cfg.encoder_seq}, {cfg.d_model})")
+    enc = params["encoder"]
+    frames = torch.as_tensor(frames, device=params["embed"].device)
+    S, D = frames.shape[1:]
+    half = D // 2
+    freq = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                   device=frames.device)
+                     * (9.21 / max(half - 1, 1)))
+    ang = torch.arange(S, dtype=torch.float32,
+                       device=frames.device)[:, None] * freq[None]
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    x = (frames.float() + pe[None]).to(DTYPES[cfg.dtype])
+    x = _blocks(enc["blocks"], ("attn",) * len(enc["blocks"]), cfg, x, None,
+                causal=False, train=train)
+    return _apply_norm(enc["final_norm"], cfg, x)
+
+
 def _hidden(params, cfg: ModelConfig, batch: dict, *, train: bool = False):
-    """Backbone through the final norm (pre-unembed).  With `train`,
-    the blocks take the differentiable routes, each recomputed in
-    backward when `cfg.remat`."""
+    """Backbone through the final norm (pre-unembed), the encoder first
+    for an encoder-decoder.  With `train`, the blocks take the
+    differentiable routes, each recomputed in backward when
+    `cfg.remat`."""
     tokens = _tokens(params, batch["tokens"])
     positions = _positions(cfg, batch, tokens)
+    memory = _encode(params, cfg, batch.get("frames"), train=train)
     x = _embed(params, cfg, tokens)
-    for p, kind in zip(params["blocks"], cfg.layer_kinds()):
-        if train and cfg.remat:
-            x = checkpoint(_train_block, p, cfg, kind, x, positions,
-                           use_reentrant=False)
-        else:
-            x = _block_forward(p, cfg, kind, x, positions, train=train)
+    x = _blocks(params["blocks"], cfg.layer_kinds(), cfg, x, positions,
+                memory=memory, train=train)
     return _apply_norm(params["final_norm"], cfg, x)
 
 
-def _train_block(p, cfg, kind, x, positions):
-    return _block_forward(p, cfg, kind, x, positions, train=True)
-
-
 def forward(params, cfg: ModelConfig, batch: dict):
-    """batch: tokens (B,S) [+ positions (B,S,3) for M-RoPE].  Returns
-    fp32 logits (B,S,V)."""
+    """batch: tokens (B,S) [+ positions (B,S,3) for M-RoPE, + frames
+    (B,Se,D) for an encoder-decoder].  Returns fp32 logits (B,S,V)."""
     params = _tree(params)
     with no_tf32(), torch.no_grad():
         return _unembed(params, cfg, _hidden(params, cfg, batch))
@@ -312,14 +377,22 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_chunk: int = 512):
 # ------------------------------ serving -------------------------------
 
 
-def init_cache(params, cfg: ModelConfig, batch: int, max_len: int) -> dict:
+def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
+               frames=None) -> dict:
     """Per-layer decode state on the parameters' device.  `max_len` is
-    the attention cache length; recurrent layers keep O(1) state."""
+    the attention cache length; recurrent layers keep O(1) state.  An
+    encoder-decoder encodes `frames` (B, Se, D) once here: its output is
+    the cache's "memory", which every decode step cross-attends to
+    (None for a decoder-only config)."""
+    params = _tree(params)
     device = params["embed"].device
+    with no_tf32(), torch.no_grad():
+        memory = _encode(params, cfg, frames)
     return {
         "layers": [layer_state(cfg, kind, batch, max_len, device)
                    for kind in cfg.layer_kinds()],
         "step": 0,
+        "memory": memory,
     }
 
 
@@ -335,7 +408,8 @@ def layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     return init_kv_cache(cfg, kind, batch, max_len, device)
 
 
-def _block_decode(p, cfg: ModelConfig, kind: str, x, state, step: int):
+def _block_decode(p, cfg: ModelConfig, kind: str, x, state, step: int,
+                  memory=None):
     if kind == "rwkv":
         h, new_t = rwkv_time_mix_decode(
             p["time"], cfg, _apply_norm(p["ln1"], cfg, x), state)
@@ -351,24 +425,27 @@ def _block_decode(p, cfg: ModelConfig, kind: str, x, state, step: int):
                         cfg.mlp_kind), new)
     h, new = decode_attention(p["attn"], cfg, _apply_norm(p["ln1"], cfg, x),
                               state, step, kind=kind)
-    return _attn_block_rest(p, cfg, x, h), new
+    at = (None if memory is None  # the token's position, for its cross
+          else torch.full((x.shape[0], 1), int(step), device=x.device))
+    return _attn_block_rest(p, cfg, x, h, memory, at), new
 
 
 def decode_step(params, cfg: ModelConfig, cache: dict, tokens):
     """One serving step: tokens (B,) -> logits (B, V), updated cache.
-    Attention layers write their KV cache in place."""
-    step = cache["step"]
+    Attention layers write their KV cache in place; an encoder-decoder's
+    blocks cross-attend to the cache's memory."""
+    step, memory = cache["step"], cache.get("memory")
     params = _tree(params)
     with no_tf32(), torch.no_grad():
         x = _embed(params, cfg, _tokens(params, tokens)[:, None])
         layers = []
         for p, kind, state in zip(params["blocks"], cfg.layer_kinds(),
                                   cache["layers"]):
-            x, new = _block_decode(p, cfg, kind, x, state, step)
+            x, new = _block_decode(p, cfg, kind, x, state, step, memory)
             layers.append(new)
         x = _apply_norm(params["final_norm"], cfg, x)
         logits = _unembed(params, cfg, x)[:, 0]
-    return logits, {"layers": layers, "step": step + 1}
+    return logits, {"layers": layers, "step": step + 1, "memory": memory}
 
 
 # --------------------------- paged serving ----------------------------

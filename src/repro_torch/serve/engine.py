@@ -7,7 +7,9 @@ token, as in the reference, so serving launches neither the wkv nor the
 flash kernel: recurrent layers (rwkv, rglru) run their O(1) state
 update, attention layers attend over a `max_len` KV cache ("local"
 layers over a rotating one of their window) in plain tensor code, and
-MoE feed-forwards route each step's tokens alone.
+MoE feed-forwards route each step's tokens alone.  An encoder-decoder
+(whisper) takes each request's frames: `generate` encodes them once
+into the cache's memory, which every step cross-attends to.
 """
 from __future__ import annotations
 
@@ -71,10 +73,11 @@ class Generator:
         prompts: np.ndarray,          # (B, P) int32 prompt tokens
         steps: int,
         seed: int = 0,
+        frames=None,                  # (B, Se, D) for an encoder-decoder
     ) -> np.ndarray:
         B, P = prompts.shape
         cache = init_cache(self.params, self.cfg, batch=B,
-                           max_len=self.max_len)
+                           max_len=self.max_len, frames=frames)
         gen = torch.Generator(device=self.params.embed.device)
         gen.manual_seed(seed)
         prompts_tb = torch.as_tensor(np.asarray(prompts).T,

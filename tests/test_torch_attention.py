@@ -2,14 +2,22 @@
 MLPs) against the reference package on the CPU, on the same inputs and
 the reference's initialised parameters, at `reduce_config` sizes.
 
-`attention()` is held on both of its routes with the reference's own
-`chunk_threshold`: above it the reference runs `chunked_attention` and
-the port its flash op (the plain version on CPU tensors); at the default
-both run the direct softmax.  A "local" layer over more keys than its
-window takes the reference's `banded_local_attention`, and the port
-its flash op with the window (serving) or its own
-`banded_local_attention` (training).  All in f32 at 1e-5 (rtol and atol): the
-two frameworks sum in other orders.  RoPE is held at 1e-5 up to
+`attention()` is held on each of its routes with the reference's own
+`chunk_threshold`: above it the reference runs `chunked_attention`, and
+the port its flash op (the plain version on CPU tensors) for serving
+self-attention at `positions=None`, else its own `chunked_attention`
+(explicit and M-RoPE positions, cross-attention, training); at the
+default both run the direct softmax.  A "local" layer over more keys
+than its window takes the reference's `banded_local_attention`, and the
+port its flash op with the window (serving at `positions=None`) or its
+own `banded_local_attention` (training, explicit positions).
+`chunked_attention` alone is held against the reference's over
+causal and full masks, windows, softcaps, GQA groups, ragged chunks,
+cross shapes and a query row with no kept key, its gradients against
+`jax.grad`.  All in f32 at 1e-5 (rtol and atol): the two frameworks sum
+in other orders; bf16 by the bf16 rule of `tests/test_torch_models.py`
+(mean and largest error 1.5x, each row 2.5x the reference's own
+bf16-vs-f32 error).  RoPE is held at 1e-5 up to
 position 4200: the port takes theta ** (-i / half) correctly rounded,
 the value XLA gives (torch's own f32 pow is an ulp off at some i).
 """
@@ -41,6 +49,19 @@ def _close(got, want, tol=TOL):
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture
+def flash_calls(monkeypatch):
+    """Calls of the flash op from `attention()` (on CPU tensors it runs
+    its plain version, so the op's launch count stays 0)."""
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return flash_attention(*args, **kw)
+    monkeypatch.setattr(attn, "flash_attention", spy)
+    return calls
 
 
 def _cfgs(arch, **changes):
@@ -134,32 +155,73 @@ def test_attention_routes_match_reference(arch, changes, threshold, causal):
     _close(got, want)
 
 
-def test_flash_route_takes_only_index_positions():
-    """Above the threshold the kernel masks by index: it takes
-    positions=None (0..S-1) only.  Explicit positions, even 0..S-1,
-    M-RoPE positions and cross-attention raise there, and the direct
-    route below it still takes them."""
-    _, cfg = _cfgs("llama3.2-3b")
-    _, params = _attn_params(_cfgs("llama3.2-3b")[0], seed=1)
-    x = torch.randn((1, 12, cfg.d_model))
-    shifted = torch.arange(12)[None] + 5
-    for pos in (shifted, torch.arange(12)[None]):
-        with pytest.raises(NotImplementedError, match="Queue A, chunked_attention"):
-            attn.attention(params, cfg, x, pos, chunk_threshold=4)
-        attn.attention(params, cfg, x, pos)
-    attn.attention(params, cfg, x, None, chunk_threshold=4)
-    with pytest.raises(NotImplementedError, match="Queue A, chunked_attention"):
-        attn.attention(params, cfg, x, None,
-                       memory=torch.randn((1, 9, cfg.d_model)),
+def _past_threshold_case(case):
+    """(reference config, port config, reference params, port params,
+    x, positions or None, memory or None) of one `attention()` input
+    past a threshold of 4 keys."""
+    arch = "qwen2-vl-72b" if case == "mrope" else "llama3.2-3b"
+    ref_cfg, cfg = _cfgs(arch)
+    tree, params = _attn_params(ref_cfg, seed=11)
+    rng = np.random.default_rng(12)
+    B, S = 2, 13
+    x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    memory = None
+    if case == "shifted":
+        pos = np.broadcast_to(np.arange(S)[None] + 5, (B, S))
+    elif case == "mrope":
+        pos = np.sort(rng.integers(0, 40, size=(B, S, 3)), axis=1)
+    else:   # "index": 0..S-1 given explicitly; "cross": the queries' own
+        pos = np.broadcast_to(np.arange(S)[None], (B, S))
+    if case == "cross":
+        memory = rng.normal(size=(B, 19, cfg.d_model)).astype(np.float32)
+    return ref_cfg, cfg, tree, params, x, pos.astype(np.int32), memory
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", ["shifted", "index", "mrope", "cross"])
+def test_flash_route_takes_only_index_positions(case, causal, flash_calls):
+    """Past the threshold the flash op (which masks by index) serves only
+    self-attention at positions=None; explicit positions (shifted, or
+    0..S-1 given), M-RoPE positions and cross-attention (19 memory
+    keys, not causal) take `chunked_attention` and match the
+    reference's `attention(chunk_threshold=4)` at 1e-5, serving and
+    training alike.  The direct route below the threshold takes them
+    too."""
+    ref_cfg, cfg, tree, params, x, pos, memory = _past_threshold_case(case)
+    mem = None if memory is None else jnp.asarray(memory)
+    for threshold in (4, 2047):
+        want = ref_attn.attention(tree, ref_cfg, jnp.asarray(x),
+                                  jnp.asarray(pos), causal=causal,
+                                  memory=mem, chunk_threshold=threshold)
+        for train in (False, True):
+            got = attn.attention(
+                params, cfg, _t(x), _t(pos), causal=causal,
+                memory=None if memory is None else _t(memory),
+                chunk_threshold=threshold, train=train)
+            _close(got, want)
+    assert flash_calls == []
+    if case == "index":
+        attn.attention(params, cfg, _t(x), None, causal=causal,
                        chunk_threshold=4)
-    _, vl = _cfgs("qwen2-vl-72b")
-    _, vl_params = _attn_params(_cfgs("qwen2-vl-72b")[0], seed=1)
-    pos3 = torch.arange(12)[None, :, None].expand(1, 12, 3)
-    with pytest.raises(NotImplementedError, match="Queue A, chunked_attention"):
-        attn.attention(vl_params, vl, torch.randn((1, 12, vl.d_model)), pos3,
-                       chunk_threshold=4)
-    with pytest.raises(ValueError, match="M-RoPE"):
-        attn.attention(vl_params, vl, torch.randn((1, 12, vl.d_model)))
+        assert len(flash_calls) == 1
+    if case == "mrope":
+        with pytest.raises(ValueError, match="M-RoPE"):
+            attn.attention(params, cfg, _t(x))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_index_route_past_threshold_matches_chunked(causal, flash_calls):
+    """At positions=None past the threshold, serving takes the flash op
+    and training `chunked_attention`: both equal the reference's
+    chunked route at 1e-5."""
+    ref_cfg, cfg, tree, params, x, pos, _ = _past_threshold_case("index")
+    want = ref_attn.attention(tree, ref_cfg, jnp.asarray(x), jnp.asarray(pos),
+                              causal=causal, chunk_threshold=4)
+    for train, flashed in ((False, 1), (True, 1)):
+        got = attn.attention(params, cfg, _t(x), None, causal=causal,
+                             chunk_threshold=4, train=train)
+        _close(got, want)
+        assert len(flash_calls) == flashed
 
 
 def test_mrope_attention_matches_reference_on_the_direct_route():
@@ -224,21 +286,133 @@ def test_banded_local_attention_matches_reference(S, window, block, softcap):
     torch.testing.assert_close(got, full, rtol=1e-5, atol=1e-5)
 
 
-def test_local_flash_route_takes_only_index_positions():
+@pytest.mark.parametrize("arch", ["gemma2-27b", "recurrentgemma-9b"])
+def test_local_flash_route_takes_only_index_positions(arch, flash_calls):
     """Beyond the window the serving route is the flash kernel, which
-    masks by index: explicit positions raise there, and training (the
-    banded route, which masks by position) takes them."""
-    _, cfg = _cfgs("gemma2-27b")
-    _, params = _attn_params(_cfgs("gemma2-27b")[0], seed=1)
-    x = torch.randn((1, cfg.window + 4, cfg.d_model))
-    pos = torch.arange(x.shape[1])[None] + 3
-    with pytest.raises(NotImplementedError, match="Queue A, chunked_attention"):
-        attn.attention(params, cfg, x, pos, kind="local")
-    attn.attention(params, cfg, x, pos, kind="local", train=True)
-    attn.attention(params, cfg, x, None, kind="local")
-    # at or under the window the direct route takes any positions
-    attn.attention(params, cfg, x[:, :cfg.window], pos[:, :cfg.window],
-                   kind="local")
+    masks by index: it takes positions=None only.  Explicit positions
+    (shifted by 3) take `banded_local_attention` when serving and when
+    training, and match the reference (its banded route) at 1e-5; at or
+    under the window the direct route takes them."""
+    ref_cfg, cfg = _cfgs(arch)
+    tree, params = _attn_params(ref_cfg, seed=1)
+    S = cfg.window + 4
+    x = np.random.default_rng(2).normal(size=(1, S, cfg.d_model)).astype(
+        np.float32)
+    pos = (np.arange(S)[None] + 3).astype(np.int32)
+    for n in (S, cfg.window):
+        want = ref_attn.attention(tree, ref_cfg, jnp.asarray(x[:, :n]),
+                                  jnp.asarray(pos[:, :n]), kind="local")
+        for train in (False, True):
+            got = attn.attention(params, cfg, _t(x[:, :n]), _t(pos[:, :n]),
+                                 kind="local", train=train)
+            _close(got, want)
+    assert flash_calls == []
+    attn.attention(params, cfg, _t(x), None, kind="local")
+    assert len(flash_calls) == 1 and flash_calls[0]["window"] == cfg.window
+
+
+# ------------------------- chunked_attention --------------------------
+
+
+def _chunked_inputs(B, H, Hkv, Sq, Sk, dh, q_shift, k_shift, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, Sq, dh)).astype(np.float32)
+    k, v = (rng.normal(size=(B, Hkv, Sk, dh)).astype(np.float32)
+            for _ in range(2))
+    q_pos = np.broadcast_to(np.arange(Sq)[None] + q_shift, (B, Sq))
+    k_pos = np.broadcast_to(np.arange(Sk)[None] + k_shift, (B, Sk))
+    cot = rng.normal(size=(B, H, Sq, dh)).astype(np.float32)
+    return q, k, v, q_pos.astype(np.int32), k_pos.astype(np.int32), cot
+
+
+def _chunked_both(inputs, kw):
+    """(port output, port grads of q, k, v) and the reference's, for the
+    loss sum(out * cot)."""
+    q, k, v, q_pos, k_pos, cot = inputs
+
+    def ref_loss(q, k, v):
+        out = ref_attn.chunked_attention(q, k, v, jnp.asarray(q_pos),
+                                         jnp.asarray(k_pos), **kw)
+        return jnp.sum(out * cot), out
+    (_, want), want_g = jax.value_and_grad(ref_loss, argnums=(0, 1, 2),
+                                           has_aux=True)(q, k, v)
+    ts = [_t(a).requires_grad_() for a in (q, k, v)]
+    got = attn.chunked_attention(*ts, _t(q_pos), _t(k_pos), **kw)
+    got_g = torch.autograd.grad((got * _t(cot)).sum(), ts)
+    return (got.detach(), got_g), (want, want_g)
+
+
+@pytest.mark.parametrize("chunk", [4, 8])
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("softcap", [None, 20.0], ids=["plain", "softcap"])
+@pytest.mark.parametrize("window", [None, 3], ids=["nowin", "win3"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_chunked_attention_matches_reference(causal, window, softcap, groups,
+                                             chunk):
+    """13 keys in chunks of 4 or 8 (the last padded), queries at positions
+    2..14 and keys at 5..17: causal, queries 2..4 keep no key, so their
+    rows end as the mean of every masked and padded value, as the
+    reference's finite -1e30 makes them.  Output and the gradients of
+    q, k and v at 1e-5."""
+    inputs = _chunked_inputs(2, 2 * groups, 2, 13, 13, 8, 2, 5, seed=chunk)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=0.4,
+              chunk=chunk)
+    (got, got_g), (want, want_g) = _chunked_both(inputs, kw)
+    assert got.shape == inputs[0].shape and got.dtype == torch.float32
+    _close(got, want)
+    for g, w in zip(got_g, want_g):
+        _close(g, w)
+    if causal:
+        # the rows with no kept key: the mean over all 16 padded keys
+        v = np.pad(inputs[2], ((0, 0), (0, 0), (0, 16 - 13), (0, 0)))
+        mean = np.repeat(v.mean(2, keepdims=True), groups, axis=1)
+        want_rows = np.broadcast_to(mean, got[:, :, :3].shape)
+        _close(got[:, :, :3], want_rows)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("Sq,Sk,chunk", [(5, 19, 4), (30, 9, 8), (1, 12, 8)])
+def test_chunked_cross_attention_matches_reference(Sq, Sk, chunk, causal):
+    """Queries and keys of other lengths (cross-attention shapes, and
+    the decode step's one query), GQA 3, at 1e-5 with gradients."""
+    inputs = _chunked_inputs(2, 6, 2, Sq, Sk, 8, 0, 0, seed=Sq + Sk)
+    kw = dict(causal=causal, window=None, softcap=None, scale=0.35,
+              chunk=chunk)
+    (got, got_g), (want, want_g) = _chunked_both(inputs, kw)
+    _close(got, want)
+    for g, w in zip(got_g, want_g):
+        _close(g, w)
+
+
+def _bf16(a):
+    return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_chunked_attention_bf16_by_the_bf16_rule(causal, groups):
+    """bf16 q, k, v: upcast to f32, summed in f32, rounded to bf16 once.
+    Held to the reference's own bf16 error against its f32 run on the
+    same bf16 values (mean and largest 1.5x, each row 2.5x)."""
+    q, k, v, q_pos, k_pos, _ = _chunked_inputs(2, 4 * groups, 4, 40, 40, 16,
+                                               0, 0, seed=groups)
+    q, k, v = (_bf16(a) for a in (q, k, v))
+    kw = dict(causal=causal, window=None, softcap=None, scale=0.25, chunk=16)
+    pos = (jnp.asarray(q_pos), jnp.asarray(k_pos))
+    ref16 = ref_attn.chunked_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), *pos, **kw)
+    ref32 = ref_attn.chunked_attention(*map(jnp.asarray, (q, k, v)), *pos,
+                                       **kw)
+    port = attn.chunked_attention(*(_t(a).to(torch.bfloat16)
+                                    for a in (q, k, v)),
+                                  _t(q_pos), _t(k_pos), **kw)
+    assert port.dtype == torch.bfloat16
+    port, ref16, ref32 = (np.asarray(a, np.float32).reshape(-1, 16)
+                          for a in (port.float(), ref16, ref32))
+    port_err, ref_err = np.abs(port - ref32), np.abs(ref16 - ref32)
+    assert port_err.mean() <= 1.5 * ref_err.mean()
+    assert port_err.max() <= 1.5 * ref_err.max()
+    assert (port_err.mean(1) <= 2.5 * ref_err.mean(1)).all()
 
 
 # ------------------------------- decode -------------------------------
@@ -287,6 +461,32 @@ def test_decode_attention_and_cache_match_reference(arch, max_len, kind,
         _close(got, want)
     for key in ("k", "v", "pos"):
         _close(port_c[key], ref_c[key])
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "whisper-tiny"])
+def test_decode_attention_over_memory_kv_matches_reference(arch):
+    """`decode_attention(memory_kv=)`: the token attends over precomputed
+    cross keys and values (GQA 4 / 2 for llama, 4 / 4 for whisper at
+    this size), no rotary, no mask; the cache comes back untouched."""
+    ref_cfg, cfg = _cfgs(arch)
+    tree, params = _attn_params(ref_cfg, seed=13)
+    rng = np.random.default_rng(14)
+    B, Sm = 2, 11
+    x = rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32)
+    k, v = (rng.normal(size=(B, cfg.kv_heads, Sm, cfg.head_width)).astype(
+        np.float32) for _ in range(2))
+    k_pos = np.broadcast_to(np.arange(Sm)[None], (B, Sm)).astype(np.int32)
+    ref_c = ref_attn.init_kv_cache(ref_cfg, "attn", B, 4)
+    port_c = attn.init_kv_cache(cfg, "attn", B, 4, "cpu")
+    want, _ = ref_attn.decode_attention(
+        tree, ref_cfg, jnp.asarray(x), ref_c, jnp.asarray(3, jnp.int32),
+        memory_kv=tuple(map(jnp.asarray, (k, v, k_pos))))
+    got, cache = attn.decode_attention(params, cfg, _t(x), port_c, 3,
+                                       memory_kv=tuple(map(_t, (k, v, k_pos))))
+    assert got.shape == (B, 1, cfg.d_model)
+    _close(got, want)
+    assert cache is port_c and bool((cache["pos"] == -1).all())
+    assert attn.attn_params(cfg, cross=True) == attn.attn_params(cfg)
 
 
 def test_decode_attention_matches_prefill_attention():

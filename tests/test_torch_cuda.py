@@ -937,3 +937,44 @@ def test_recurrentgemma_paged_decode_bitwise_to_dense_on_card(cuda_device):
                                        page_map, steps, live)
         assert torch.equal(got, want), t
     assert flash_attention.launches == before
+
+
+# chunked_attention on the card (plain tensor code, no kernel): against
+# full_attention with the same masks as a bias, f32 with TF32 off, at
+# 2e-5; the gradients of q, k and v within 1e-4 of their largest element
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,H,Hkv,causal,window,shift", [
+    (300, 300, 6, 2, True, None, 5),        # self, shifted positions
+    (300, 300, 4, 4, True, 64, 0),          # a window inside the chunks
+    (70, 513, 6, 6, False, None, 0),        # cross over ragged chunks
+])
+def test_chunked_attention_on_card_matches_full(cuda_device, Sq, Sk, H, Hkv,
+                                                causal, window, shift):
+    from repro_torch._tf32 import no_tf32
+    from repro_torch.models.attention import (
+        _mask_bias, chunked_attention, full_attention)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + Sk)
+    q = torch.randn((2, H, Sq, 64), generator=gen, device=cuda_device)
+    k, v = (torch.randn((2, Hkv, Sk, 64), generator=gen, device=cuda_device)
+            for _ in range(2))
+    cot = torch.randn((2, H, Sq, 64), generator=gen, device=cuda_device)
+    q_pos = (torch.arange(Sq, device=cuda_device) + shift)[None].expand(2, Sq)
+    k_pos = torch.arange(Sk, device=cuda_device)[None].expand(2, Sk)
+    kw = dict(softcap=None, scale=0.125)
+    outs = []
+    with no_tf32():
+        for chunked in (True, False):
+            leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+            if chunked:
+                o = chunked_attention(*leaves, q_pos, k_pos, causal=causal,
+                                      window=window, chunk=128, **kw)
+            else:
+                bias = _mask_bias(q_pos, k_pos, causal=causal, window=window)
+                o = full_attention(*leaves, bias, **kw)
+            outs.append((o.detach(), torch.autograd.grad((o * cot).sum(),
+                                                         leaves)))
+    (got, got_g), (want, want_g) = outs
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    for g, w in zip(got_g, want_g):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())

@@ -398,3 +398,30 @@ def test_zoo_entry_points_raise_without_cuda(no_cuda, arch):
         ModelBackend(cfg, model, num_slots=2, num_pages=4, page_size=4,
                      max_prompt_len=4)
     Generator(cfg, model, device="cpu")
+
+
+def test_whisper_entry_points_raise_without_cuda(no_cuda):
+    """whisper's model, forward, cache and Generator run on the card
+    unless the CPU is asked for, like the other models' entry points."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import (
+        Transformer, forward, init_cache, params_from_reference)
+    from repro_torch.serve import Generator
+
+    full = get_config("whisper-tiny")
+    cfg = reduce_config(full)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Transformer(full).init(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_reference({"groups": [], "encoder": {}}, cfg)
+    model = Transformer(cfg).init(seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Generator(cfg, model)
+    frames = np.zeros((1, cfg.encoder_seq, cfg.d_model), np.float32)
+    tokens = np.zeros((1, 3), np.int32)
+    logits = forward(model, cfg, {"tokens": tokens, "frames": frames})
+    cache = init_cache(model, cfg, 1, 4, frames=frames)
+    assert logits.device.type == cache["memory"].device.type == "cpu"
+    out = Generator(cfg, model, device="cpu").generate(tokens, 2,
+                                                        frames=frames)
+    assert out.shape[0] == 1

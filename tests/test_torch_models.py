@@ -2,10 +2,14 @@
 at `reduce_config` size (2 layers, d 64, heads of 16, vocab 512) on the
 reference's initialised parameters (`params_from_reference`): rwkv6-3b,
 and the dense attention models llama3.2-3b (tied, GQA), yi-6b (untied)
-and gemma-7b (GeGLU, scaled embeddings, MHA).  One forward runs 2100
-tokens, past the reference's `chunk_threshold`, so the model itself
-takes the flash route (the op's plain version on CPU tensors) where the
-reference runs `chunked_attention`.
+and gemma-7b (GeGLU, scaled embeddings, MHA), the encoder-decoder
+whisper-tiny (2 encoder layers over 24 frames at this size) and
+qwen2-vl-72b (M-RoPE).  One forward runs 2100 tokens, past the
+reference's `chunk_threshold`, so the model itself takes the flash
+route (the op's plain version on CPU tensors) where the reference runs
+`chunked_attention`; whisper's decoder does the same at 2100 tokens, and
+qwen2-vl-72b's M-RoPE positions take the port's `chunked_attention`
+there.
 
 Tolerances:
 
@@ -52,6 +56,7 @@ from repro_torch.models import (  # noqa: E402
     decode_step,
     forward,
     init_cache,
+    init_paged_cache,
     params_from_reference,
 )
 from repro_torch.serve import Generator  # noqa: E402
@@ -136,8 +141,26 @@ def test_num_params_match_reference(reduced):
 
 @pytest.mark.parametrize("arch", ["whisper-tiny"])
 def test_unported_block_kinds_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Transformer(reduce_config(get_config(arch)))
+    """whisper's encoder and cross-attention are ported: the model builds
+    with the reference's parameter names and shapes.  What it still
+    refuses is what the reference refuses: the paged cache, and a
+    forward or cache without frames."""
+    ref_cfg, cfg = _cfgs("float32", arch)
+    model = Transformer(cfg)
+    want = ref_models.Transformer(ref_cfg, model_axis=1).abstract()
+    names = dict(model.named_parameters())
+    assert names["blocks.0.xattn.wq"].shape == want["groups"][0]["b0"][
+        "xattn"]["wq"].shape[1:]
+    assert names["encoder.blocks.1.attn.wo"].shape == want["encoder"][
+        "blocks"]["b0"]["attn"]["wo"].shape[1:]
+    assert len(model.encoder.blocks) == cfg.encoder_layers == 2
+    port = model.init(seed=0, device="cpu")
+    with pytest.raises(ValueError, match="decoder-only"):
+        init_paged_cache(port, cfg, 2, 4, 4)
+    with pytest.raises(ValueError, match="needs frames"):
+        forward(port, cfg, {"tokens": _tokens(cfg, 1, 4, seed=0)})
+    with pytest.raises(ValueError, match="needs frames"):
+        init_cache(port, cfg, 1, 4)
 
 
 # the reference's counts at full size (`Transformer(cfg, model_axis=1)`)
@@ -481,3 +504,177 @@ def test_dense_generator_greedy_matches_reference(arch):
     got = gen.generate(prompts, steps=8)
     np.testing.assert_array_equal(got, want)
     assert gen.last_stats == ref_gen.last_stats
+
+
+# ------------------------------- whisper -------------------------------
+
+
+def _frames(cfg, B, seed):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(B, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)
+
+
+def _whisper_batch(cfg, B, S, seed):
+    return {"tokens": _tokens(cfg, B, S, seed),
+            "frames": _frames(cfg, B, seed + 1)}
+
+
+def _jnp(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("reduced", [True, False])
+def test_whisper_num_params_match_reference(reduced):
+    cfg, ref_cfg = get_config("whisper-tiny"), ref_configs.get_config(
+        "whisper-tiny")
+    if reduced:
+        cfg, ref_cfg = reduce_config(cfg), ref_configs.reduce_config(ref_cfg)
+    model = Transformer(cfg)
+    want = ref_models.Transformer(ref_cfg, model_axis=1).num_params
+    assert model.num_params == want == sum(p.numel() for p in model.parameters())
+    if not reduced:
+        assert want == 36_439_680
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_whisper_forward_matches_reference_f32(seed):
+    """The encoder over 24 frames, then 2 x 16 decoder tokens through
+    self- and cross-attention, at 1e-5."""
+    ref_cfg, cfg = _cfgs("float32", "whisper-tiny")
+    ref_p, port_p = _params(ref_cfg, cfg, seed=seed)
+    batch = _whisper_batch(cfg, 2, 16, seed=seed + 2)
+    want = ref_models.forward(ref_p, ref_cfg, _jnp(batch))
+    got = forward(port_p, cfg, batch)
+    assert got.dtype == torch.float32 and got.shape == (2, 16, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+def test_whisper_forward_matches_reference_bf16():
+    ref_cfg, cfg = _cfgs("bfloat16", "whisper-tiny")
+    ref_p, port_p = _params(ref_cfg, cfg, seed=3)
+    batch = _jnp(_whisper_batch(cfg, 2, 16, seed=4))
+    want16 = ref_models.forward(ref_p, ref_cfg, batch)
+    want32 = ref_models.forward(*reversed(_f32_twin(ref_cfg, ref_p)), batch)
+    got = port_p({k: np.asarray(v) for k, v in batch.items()})
+    _assert_bf16_close(got, want16, want32)
+
+
+def test_whisper_forward_past_chunk_threshold_matches_reference():
+    """2100 decoder tokens: the decoder's self-attention takes the flash
+    route (the plain version here; the reference: chunked_attention),
+    its cross-attention over 24 frames the direct one; f32 at 1e-5."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    ref_cfg, cfg = _cfgs("float32", "whisper-tiny")
+    ref_p, port_p = _params(ref_cfg, cfg, seed=6)
+    batch = _whisper_batch(cfg, 1, 2100, seed=7)
+    want = ref_models.forward(ref_p, ref_cfg, _jnp(batch))
+    before = flash_attention.launches
+    got = forward(port_p, cfg, batch)
+    assert flash_attention.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+def test_whisper_decode_step_and_cache_match_reference():
+    """`init_cache(frames=)` encodes the frames into the cache's memory
+    (equal to the reference's, carried by `cache_from_reference`), and
+    each decode step cross-attends to it: logits and caches at 1e-5."""
+    ref_cfg, cfg = _cfgs("float32", "whisper-tiny")
+    ref_p, port_p = _params(ref_cfg, cfg, seed=2)
+    B, steps = 2, 8
+    toks = _tokens(cfg, B, steps, seed=3)
+    frames = _frames(cfg, B, seed=4)
+    ref_c = ref_models.init_cache(ref_p, ref_cfg, batch=B, max_len=16,
+                                  frames=jnp.asarray(frames))
+    port_c = init_cache(port_p, cfg, B, 16, frames=frames)
+    carried = cache_from_reference(jax.tree.map(np.asarray, ref_c), cfg,
+                                   device="cpu")
+    assert port_c["memory"].shape == (B, cfg.encoder_seq, cfg.d_model)
+    np.testing.assert_allclose(port_c["memory"].numpy(),
+                               carried["memory"].numpy(), rtol=F32_TOL,
+                               atol=F32_TOL)
+    for t in range(steps):
+        want, ref_c = ref_models.decode_step(ref_p, ref_cfg, ref_c,
+                                             jnp.asarray(toks[:, t]))
+        got, port_c = decode_step(port_p, cfg, port_c, toks[:, t])
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=F32_TOL, atol=F32_TOL)
+    want_c = cache_from_reference(jax.tree.map(np.asarray, ref_c), cfg,
+                                  device="cpu")
+    _cache_close(port_c, want_c, lambda a, b: np.testing.assert_allclose(
+        a, b, rtol=F32_TOL, atol=F32_TOL))
+    # the reference's cache, carried over, decodes on in the port alike
+    got, _ = decode_step(port_p, cfg, want_c, toks[:, 0])
+    want, _ = ref_models.decode_step(ref_p, ref_cfg, ref_c,
+                                     jnp.asarray(toks[:, 0]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+def test_whisper_decode_matches_forward():
+    """Teacher-forced decode logits equal the forward's at every
+    position (f32 at 1e-4, as the other configs)."""
+    cfg = dataclasses.replace(reduce_config(get_config("whisper-tiny")),
+                              dtype="float32")
+    model = Transformer(cfg).init(seed=4, device="cpu")
+    batch = _whisper_batch(cfg, 2, 10, seed=6)
+    full = forward(model, cfg, batch)
+    cache = init_cache(model, cfg, 2, 10, frames=batch["frames"])
+    outs = []
+    for t in range(10):
+        logits, cache = decode_step(model, cfg, cache, batch["tokens"][:, t])
+        outs.append(logits)
+    torch.testing.assert_close(torch.stack(outs, 1), full, rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_whisper_generator_greedy_matches_reference():
+    ref_cfg, cfg = _cfgs("float32", "whisper-tiny")
+    ref_p, port_p = _params(ref_cfg, cfg, seed=5)
+    prompts = _tokens(cfg, 3, 6, seed=7)
+    frames = _frames(cfg, 3, seed=8)
+    ref_gen = RefGenerator(ref_cfg, ref_p, max_len=32)
+    gen = Generator(cfg, port_p, max_len=32, device="cpu")
+    want = ref_gen.generate(prompts, steps=8, frames=jnp.asarray(frames))
+    got = gen.generate(prompts, steps=8, frames=frames)
+    np.testing.assert_array_equal(got, want)
+    assert gen.last_stats == ref_gen.last_stats
+
+
+# ---------------------------- qwen2-vl-72b -----------------------------
+
+
+def _mrope_positions(B, S, grid):
+    """M-RoPE ids as the vision stub lays them out: a text prefix at
+    t = h = w = i, a grid x grid patch block at one t with h and w its
+    row and column, then text again from the grid's largest id + 1."""
+    text = S // 8
+    pos = np.zeros((B, S, 3), np.int32)
+    pos[:, :text] = np.arange(text)[None, :, None]
+    r, c = np.divmod(np.arange(grid * grid), grid)
+    pos[:, text:text + grid * grid] = np.stack(
+        [np.full_like(r, text), text + r, text + c], -1)
+    rest = S - text - grid * grid
+    pos[:, text + grid * grid:] = (text + grid + np.arange(rest))[None, :,
+                                                                   None]
+    return pos
+
+
+def test_qwen2_vl_forward_past_chunk_threshold_matches_reference():
+    """2100 tokens at M-RoPE positions: every layer's attention takes
+    `chunked_attention` in the port and in the reference (the flash
+    kernel masks by index, so it is not reached); f32 at 1e-5."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    ref_cfg, cfg = _cfgs("float32", "qwen2-vl-72b")
+    ref_p, port_p = _params(ref_cfg, cfg, seed=8)
+    toks = _tokens(cfg, 1, 2100, seed=9)
+    pos = _mrope_positions(1, 2100, grid=16)
+    want = ref_models.forward(ref_p, ref_cfg, {"tokens": jnp.asarray(toks),
+                                               "positions": jnp.asarray(pos)})
+    before = flash_attention.launches
+    got = forward(port_p, cfg, {"tokens": toks, "positions": pos})
+    assert flash_attention.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)

@@ -180,17 +180,19 @@ def test_bf16_grads_held_to_reference_rounding():
         _assert_bf16_close(pg[k].float(), g16[k].float(), g32[k])
 
 
-def test_training_route_launches_no_kernel_op(monkeypatch):
-    """loss_fn and its backward, llama and rwkv, reach none of the four
-    kernel ops: every module reference to an op is spied on."""
+@pytest.fixture
+def kernel_calls(monkeypatch):
+    """The names of the kernel ops called: every module reference to one
+    of the five ops is spied on."""
     from repro_torch.kernels.cell_mixing import cell_mixing
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.pair_apply import pair_apply
     from repro_torch.kernels.rwkv6 import rwkv6_wkv
+    from repro_torch.kernels.sample_chunk import sample_chunk
 
     calls = []
     ops = {id(op): op for op in (cell_mixing, flash_attention, pair_apply,
-                                 rwkv6_wkv)}
+                                 rwkv6_wkv, sample_chunk)}
     spied = 0
     for name, mod in list(sys.modules.items()):
         if not name.startswith("repro_torch"):
@@ -202,7 +204,14 @@ def test_training_route_launches_no_kernel_op(monkeypatch):
                     return _op(*a, **kw)
                 monkeypatch.setattr(mod, attr, spy)
                 spied += 1
-    assert spied >= 4
+    assert spied >= 5
+    return calls
+
+
+def test_training_route_launches_no_kernel_op(kernel_calls):
+    """loss_fn and its backward, llama and rwkv, reach none of the
+    kernel ops."""
+    calls = kernel_calls
     for arch in ("llama3.2-3b", "rwkv6-3b"):
         _, pcfg = _cfgs(arch)
         params = _flat(_ref_params(_cfgs(arch)[0]), pcfg)
@@ -214,14 +223,79 @@ def test_training_route_launches_no_kernel_op(monkeypatch):
     assert calls == ["rwkv6_wkv"] * pcfg.num_layers
 
 
-def test_training_refuses_the_flash_route():
-    """Beyond chunk_threshold the reference trains through
-    chunked_attention, not ported yet: the training route raises where
-    serving would take the forward-only flash kernel."""
-    rcfg, pcfg = _cfgs("llama3.2-3b")
-    params = _flat(_ref_params(rcfg), pcfg)
-    with pytest.raises(NotImplementedError, match="chunked_attention"):
-        loss_fn(params, pcfg, _batch(1, 2100, seed=5))
+@pytest.mark.parametrize("remat", [True, False])
+def test_training_refuses_the_flash_route(remat, kernel_calls):
+    """Beyond chunk_threshold (2100 tokens) training takes
+    `chunked_attention`, as the reference does, and never the
+    forward-only flash op (nor any kernel op): the loss and every
+    gradient at 1e-5, each chunk step recomputed in backward inside the
+    block's own recompute when `remat`."""
+    rcfg, pcfg = _cfgs("llama3.2-3b", remat=remat)
+    rp = _ref_params(rcfg)
+    batch = _batch(1, 2100, seed=5)
+    rl, rg = _ref_value_and_grad(rp, rcfg, batch)
+    pl, pg = _port_value_and_grad(_flat(rp, pcfg), pcfg, batch)
+    assert kernel_calls == []
+    np.testing.assert_allclose(float(pl), float(rl), rtol=F32_TOL)
+    want = _flat(rg, pcfg)
+    for k in want:
+        np.testing.assert_allclose(pg[k].numpy(), want[k].numpy(),
+                                   rtol=F32_TOL, atol=F32_TOL, err_msg=k)
+
+
+def _whisper_batch(rcfg, B, S, seed):
+    batch = _batch(B, S, seed)
+    batch["frames"] = np.random.default_rng(seed + 1).normal(
+        size=(B, rcfg.encoder_seq, rcfg.d_model)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_whisper_loss_and_grads_match_reference(remat, kernel_calls):
+    """whisper-tiny's batch carries frames: the loss through the encoder
+    and the decoder's cross-attention, and every gradient (the encoder's
+    blocks and final norm, each decoder block's xattn and lnx), at
+    1e-5."""
+    rcfg, pcfg = _cfgs("whisper-tiny", remat=remat)
+    rp = _ref_params(rcfg)
+    batch = _whisper_batch(rcfg, 2, 20, seed=8)
+    rl, rg = _ref_value_and_grad(rp, rcfg, batch, loss_chunk=8)
+    pl, pg = _port_value_and_grad(_flat(rp, pcfg), pcfg, batch, loss_chunk=8)
+    assert kernel_calls == []
+    np.testing.assert_allclose(float(pl), float(rl), rtol=F32_TOL)
+    want = _flat(rg, pcfg)
+    assert pg.keys() == want.keys()
+    assert {"encoder.final_norm.scale", "blocks.1.xattn.wv",
+            "encoder.blocks.1.mlp.wo"} <= set(want)
+    for k in want:
+        np.testing.assert_allclose(pg[k].numpy(), want[k].numpy(),
+                                   rtol=F32_TOL, atol=F32_TOL, err_msg=k)
+
+
+def test_whisper_train_step_matches_reference():
+    """Three sgdm steps of `make_train_step` on whisper batches that
+    carry frames: losses, grad norms and the parameters at 1e-5."""
+    rcfg, pcfg = _cfgs("whisper-tiny")
+    ropt, popt = RO.make_optimizer("sgdm"), TO.make_optimizer("sgdm")
+    rs = RT.init_train_state(_ref_params(rcfg), ropt)
+    ps = state_from_reference(jax.tree.map(np.asarray, rs), pcfg,
+                              device="cpu")
+    rstep = jax.jit(RT.make_train_step(rcfg, ropt, lambda s: 1e-2))
+    pstep = TT.make_train_step(pcfg, popt, lambda s: 1e-2, device="cpu")
+    for s in range(3):
+        batch = _whisper_batch(rcfg, 2, 16, seed=20 + s)
+        rs, rm = rstep(rs, {k: jnp.asarray(v) for k, v in batch.items()})
+        ps, pm = pstep(ps, batch)
+        np.testing.assert_allclose(float(pm["loss"]), float(rm["loss"]),
+                                   rtol=F32_TOL)
+        np.testing.assert_allclose(float(pm["grad_norm"]),
+                                   float(rm["grad_norm"]), rtol=GNORM_TOL)
+    want = state_from_reference(jax.tree.map(np.asarray, rs), pcfg,
+                                device="cpu")
+    for k in want["params"]:
+        np.testing.assert_allclose(ps["params"][k].numpy(),
+                                   want["params"][k].numpy(), rtol=F32_TOL,
+                                   atol=F32_TOL, err_msg=k)
 
 
 # ---------------------------- train steps -----------------------------
@@ -390,3 +464,28 @@ def test_trainer_resume_matches_uninterrupted(tmp_path):
     lines = [json.loads(x) for x in open(log)]
     assert [x["step"] for x in lines] == [1, 2, 3]
     assert all(x["sec_per_step"] > 0 for x in lines)
+
+
+def test_whisper_state_from_reference_splits_encoder_layers():
+    """A decentralized whisper state (replica axis R=3 first, each
+    replica's values shifted by its index): the encoder's stacked blocks
+    split on their layer axis behind R, as the decoder's groups do."""
+    rcfg, pcfg = _cfgs("whisper-tiny")
+    rp = jax.tree.map(np.asarray, _ref_params(rcfg))
+    stacked = jax.tree.map(
+        lambda a: np.stack([a + r for r in range(3)]).astype(a.dtype), rp)
+    ps = state_from_reference({"params": stacked, "opt": {}, "step": 4},
+                              pcfg, device="cpu")
+    enc = rp["encoder"]
+    for r in range(3):
+        for layer in range(rcfg.encoder_layers):
+            np.testing.assert_array_equal(
+                ps["params"][f"encoder.blocks.{layer}.attn.wq"][r].numpy(),
+                enc["blocks"]["b0"]["attn"]["wq"][layer] + r)
+        np.testing.assert_array_equal(
+            ps["params"]["encoder.final_norm.scale"][r].numpy(),
+            enc["final_norm"]["scale"] + r)
+        np.testing.assert_array_equal(
+            ps["params"]["blocks.1.xattn.wk"][r].numpy(),
+            rp["groups"][0]["b0"]["xattn"]["wk"][1] + r)
+    assert ps["step"] == 4
