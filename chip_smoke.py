@@ -67,8 +67,18 @@ layer; `Generator` with frames; an f32 copy's per-block agreement with
 each block cross-attending to the encoder's output), and qwen2-vl-72b
 at full width and 4 layers (Q1: prefill 1 x 4096 at M-RoPE positions
 through `chunked_attention`, no kernel launch, and one f32 block's
-attention there against `full_attention`).  Any failed check raises,
-and the script exits non-zero.
+attention there against `full_attention`).  The sharded executors run
+right after the per-tick phase, as processes of one gloo group sharing
+the card (NCCL takes one rank a card; started with `spawn`, meeting
+through a file store, each group under a timeout; they load the kernels
+the script built): M1 the n=10^5 FI configuration's 6 trials on a
+4-rank trial mesh and M2 3 of them on a 2 x 2 ("trials", "nodes")
+mesh, bitwise to the unsharded run with 33 launches of `sample_chunk`
+and `pair_apply` in each rank; M4 `make_decentralized_step` on a
+4-rank replica mesh at llama3.2-3b width against the dense step at
+R=4 (in the same group); M3 `execute_sync_sharded` on 8 ranks in eight
+sync modes against `execute_sync` on the card.  None of them times a
+collective.  Any failed check raises, and the script exits non-zero.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` (per kernel: its launches on each path that runs
@@ -205,6 +215,27 @@ TRAIN_CPU_TOL = {"loss": 1e-5, "grad_norm": 1e-4}
 # multiscale on suggest_levels(8) = (2, 4), rotation period 4, top-k 1%
 DEC = dict(R=8, layers=1, seq=256, steps=3, topk=0.01, rotation=4)
 DEC_BF16_RTOL = 2.0**-8  # a bf16 rounding, relative
+# M1-M4, the sharded executors on the one card: the ranks are processes
+# of one gloo group (NCCL takes one rank a card), all on cuda:0, started
+# with `spawn` and meeting through a file store (dist.ranks.run_ranks),
+# so none of these phases times the collectives.  M1: the large-n FI
+# configuration at n=10^5 (FI above), 6 trials (seeds 0-5) on a 4-rank
+# trial mesh (padded to 8); M2: its first 3 trials on the 2 x 2
+# ("trials", "nodes") mesh; each rank launches sample_chunk and
+# pair_apply once a chunk, 33 times.  M3: execute_sync_sharded at R=8,
+# each rank one f32 leaf of llama3.2-3b's wq shape (3072 x 3072), row r
+# drawn from MESH_SEED + r, 8 cases at steps 0 and 2 against the dense
+# execute_sync on the card, bitwise where no pmean enters, else at 2e-6.
+# M4: T2's model (llama3.2-3b width, 1 layer, bf16) with sgdm, 2 steps
+# on a 4-rank replica mesh against the dense make_decentralized_step at
+# R=4: step-0 losses bitwise, later losses and the parameters (norm of
+# the difference over the norm, a leaf) within 1e-5 relative.  Each
+# group of ranks has MESH["timeout"] seconds.
+MESH = dict(ranks=4, trials=6, node_trials=3, sync_ranks=8, timeout=600)
+MESH_SEED = 0
+MESH_SYNC_SHAPE = (3072, 3072)
+MESH_SYNC_TOL = 2e-6
+MESH_TRAIN = dict(R=4, steps=2, rtol=1e-5)
 # the serving fleet.  P1: the legacy per-tick schedule on the n=10^5 FI
 # plan, backend "ref" (the plain tick scan) and "cuda" (each chunk's
 # mixing matrix built tick by tick from the identity's rows, one
@@ -343,6 +374,35 @@ def fail(msg: str):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def fingerprint(torch, tree) -> dict:
+    """Each tensor leaf of a state as (dtype, shape, two int64 sums: of
+    its bit patterns as integers and of their squares), every other
+    leaf as it is.  Two states with equal fingerprints hold the same
+    bits unless a change cancels in both sums, and no second copy of
+    a 38 GB state is needed to tell."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{prefix}{k}/")
+            return
+        if not torch.is_tensor(t):
+            out[prefix] = t
+            return
+        words = t.detach().contiguous().view(-1).view(
+            ints[t.element_size()])
+        s1 = s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+        for piece in words.split(1 << 26):
+            w = piece.long()
+            s1 = s1 + w.sum()
+            s2 = s2 + (w * w).sum()
+        out[prefix] = (str(t.dtype), tuple(t.shape), int(s1), int(s2))
+    walk(tree, "")
+    return out
 
 
 class Smoke:
@@ -2762,34 +2822,7 @@ class Smoke:
         return row
 
     def fingerprint(self, tree) -> dict:
-        """Each tensor leaf of a state as (dtype, shape, two int64 sums: of
-        its bit patterns as integers and of their squares), every other
-        leaf as it is.  Two states with equal fingerprints hold the same
-        bits unless a change cancels in both sums, and no second copy of
-        a 38 GB state is needed to tell."""
-        torch = self.torch
-        ints = {1: torch.int8, 2: torch.int16, 4: torch.int32,
-                8: torch.int64}
-        out = {}
-
-        def walk(t, prefix):
-            if isinstance(t, dict):
-                for k, v in t.items():
-                    walk(v, f"{prefix}{k}/")
-                return
-            if not torch.is_tensor(t):
-                out[prefix] = t
-                return
-            words = t.detach().contiguous().view(-1).view(
-                ints[t.element_size()])
-            s1 = s2 = torch.zeros((), dtype=torch.int64, device=t.device)
-            for piece in words.split(1 << 26):
-                w = piece.long()
-                s1 = s1 + w.sum()
-                s2 = s2 + (w * w).sum()
-            out[prefix] = (str(t.dtype), tuple(t.shape), int(s1), int(s2))
-        walk(tree, "")
-        return out
+        return fingerprint(self.torch, tree)
 
     def train(self):
         """T1: llama3.2-3b at full size through the port's Trainer: 3
@@ -3226,6 +3259,485 @@ class Smoke:
                 ms_per_step_wall=wall / DEC["steps"] * 1e3, peak_gib=peak)
         self.report["train_scenarios"] = rows
 
+    # ------------------------------------------------------ M1-M4 meshes
+    def meshes(self, plan, x0) -> dict:
+        """M1-M4 (module docstring of the constants): the parent's
+        references first (the unsharded 6-trial run, the dense R=4
+        training run), then one group of 4 ranks for M1, M2 and M4 and
+        one of 8 for M3.  Returns each path's launches of each kernel in
+        one rank."""
+        torch = self.torch
+        from repro_torch.dist.ranks import run_ranks
+
+        t_all = time.perf_counter()
+        row = {}
+        want, row["m1_reference_s"] = self.mesh_reference(plan, x0)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_m4_") as ref_dir:
+            dense, row["m4_reference_s"] = self.mesh_train_reference(ref_dir)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = run_ranks(_mesh_rank, MESH["ranks"], plan, x0, ref_dir,
+                              backend="gloo", timeout=MESH["timeout"],
+                              threads=_rank_threads(MESH["ranks"]))
+            row["group_4_s"] = time.perf_counter() - t0
+        paths = self.mesh_check_engine(want, ranks, row)
+        paths["m4"] = self.mesh_check_train(dense, ranks, row)
+        self.mesh_sync(row)
+        row["total_s"] = time.perf_counter() - t_all
+        log(f"[mesh] M1-M4 took {row['total_s']:.1f} s: parent references "
+            f"{row['m1_reference_s']:.1f} + {row['m4_reference_s']:.1f} s, "
+            f"the 4-rank group {row['group_4_s']:.1f} s, the 8-rank group "
+            f"{row['group_8_s']:.1f} s")
+        self.report["mesh"] = row
+        return paths
+
+    def mesh_reference(self, plan, x0):
+        """M1's reference: the 6 trials unsharded on the card."""
+        torch = self.torch
+        import repro_torch.core as P
+
+        fi = {k: v for k, v in FI.items() if k != "seed"}
+        self.zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = P.execute_plan(plan, x0, seeds=tuple(range(MESH["trials"])),
+                             options=P.ExecOptions(backend="cuda"), **fi)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = self.read_counts()
+        check(counts["pair_apply"] == counts["sample_chunk"]
+              == MAIN_PATH_LAUNCHES[100_000],
+              f"M1 reference launched {counts}")
+        check(int(res.messages[0]) == LARGE_N[100_000][0],
+              f"M1 reference trial 0: {res.messages[0]} messages, recorded "
+              f"{LARGE_N[100_000][0]}")
+        log(f"[mesh M1] unsharded {MESH['trials']} trials on the card: "
+            f"{dt:.2f} s, messages {res.messages.tolist()}")
+        return _mesh_fields(res), dt
+
+    def mesh_check_engine(self, want, ranks, row) -> dict:
+        """M1 and M2 in every rank: bitwise to the unsharded run, 33
+        launches of sample_chunk and pair_apply, no other kernel."""
+        import numpy as np
+
+        paths = {}
+        for name, T in (("M1", MESH["trials"]), ("M2", MESH["node_trials"])):
+            launches = set()
+            for rank, out in enumerate(ranks):
+                got = out[name]
+                for k, a in want.items():
+                    b = got["result"][k]
+                    a = a[:T]
+                    if a.dtype.kind == "f":
+                        a, b = a.view(np.int32), b.view(np.int32)
+                    check(a.shape == b.shape and np.array_equal(a, b),
+                          f"{name} rank {rank}: {k} differs from the "
+                          f"unsharded run")
+                counts = got["counts"]
+                self.check_idle(counts, ("pair_apply", "sample_chunk"),
+                                f"{name} rank {rank}")
+                check(counts["pair_apply"] == counts["sample_chunk"]
+                      == MAIN_PATH_LAUNCHES[100_000],
+                      f"{name} rank {rank} launched {counts}")
+                check(not any(got["flash"].values()),
+                      f"{name} rank {rank} launched {got['flash']}")
+                launches.add(counts["pair_apply"])
+            acct = ranks[0][name]["account"]
+            secs = [out[name]["seconds"] for out in ranks]
+            row[name] = dict(seconds=secs, account=acct,
+                             launches_per_rank=launches.pop())
+            log(f"[mesh {name}] {len(ranks)} ranks bitwise to the unsharded "
+                f"run, {row[name]['launches_per_rank']} launches of "
+                f"sample_chunk and pair_apply a rank; execute_plan "
+                f"{max(secs):.2f} s; rank 0's collectives {acct}")
+            paths[name.lower()] = row[name]["launches_per_rank"]
+        row["M2"]["halo_bytes"] = row["M2"]["account"]["psum"]["bytes"]
+        return paths
+
+    def mesh_train_reference(self, ref_dir):
+        """M4's reference: the dense step at R=4 on the card, 2 steps in
+        each mode; each replica's loss before each step, and each
+        replica's final parameters written to `ref_dir` for its rank."""
+        torch = self.torch
+        from repro_torch.optim import cosine_schedule, sgdm
+        from repro_torch.train import (
+            init_decentralized_state, make_decentralized_step, replica_grads,
+            replicate,
+        )
+
+        R = MESH_TRAIN["R"]
+        t0 = time.perf_counter()
+        cfg, base, data = _mesh_train_setup(torch, self.dev)
+        opt, lr = sgdm(), cosine_schedule(*TRAIN_LR)
+        out = {}
+        for mode, sync in _mesh_train_modes().items():
+            state = init_decentralized_state(replicate(base, R), opt,
+                                             sync=sync)
+            step = make_decentralized_step(cfg, opt, lr, sync, R,
+                                           device=self.dev)
+            losses = []
+            for s in range(MESH_TRAIN["steps"]):
+                batch = _mesh_batch(data, s, R)
+                losses.append(replica_grads(cfg, state["params"], {
+                    k: torch.as_tensor(v, device=self.dev)
+                    for k, v in batch.items()})[0].tolist())
+                state, _ = step(state, batch)
+            for r in range(R):
+                torch.save({k: p[r].cpu() for k, p in state["params"].items()},
+                           Path(ref_dir) / f"{mode}_{r}.pt")
+            out[mode] = losses
+            del state, step
+        del base
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"[mesh M4] dense R={R} reference: {dt:.1f} s, losses {out}")
+        return out, dt
+
+    def mesh_check_train(self, dense, ranks, row) -> dict:
+        """M4 in every rank against the dense step; returns the kernels'
+        launches in rank 0 (0 each)."""
+        R, rtol = MESH_TRAIN["R"], MESH_TRAIN["rtol"]
+        m4 = {}
+        for mode, losses in dense.items():
+            worst_loss = worst_param = 0.0
+            for rank, out in enumerate(ranks):
+                got = out["M4"][mode]
+                check(got["losses"][0] == losses[0][rank],
+                      f"M4 {mode} rank {rank}: step-0 loss "
+                      f"{got['losses'][0]!r} != dense {losses[0][rank]!r}")
+                for s in range(1, MESH_TRAIN["steps"]):
+                    err = abs(got["losses"][s] - losses[s][rank]) / abs(
+                        losses[s][rank])
+                    worst_loss = max(worst_loss, err)
+                    check(err <= rtol, f"M4 {mode} rank {rank} step {s}: "
+                          f"loss {got['losses'][s]} vs {losses[s][rank]}")
+                for k, err in got["rel"].items():
+                    worst_param = max(worst_param, err)
+                    check(err <= rtol, f"M4 {mode} rank {rank}: {k} "
+                          f"differs by {err} relative")
+                self.check_idle(got["counts"], None, f"M4 {mode} rank {rank}")
+                check(not any(got["flash"].values()),
+                      f"M4 {mode} rank {rank} launched {got['flash']}")
+            if mode == "allreduce":
+                prints = [out["M4"][mode]["fingerprint"] for out in ranks]
+                check(all(p == prints[0] for p in prints),
+                      "M4 allreduce: the ranks' parameters differ")
+            secs = [out["M4"][mode]["seconds"] for out in ranks]
+            m4[mode] = dict(worst_loss_rel=worst_loss,
+                            worst_param_rel=worst_param, seconds=secs,
+                            account=ranks[0]["M4"][mode]["account"])
+            log(f"[mesh M4 {mode}] {R} ranks: step-0 losses bitwise, later "
+                f"losses within {worst_loss:.3g}, parameters within "
+                f"{worst_param:.3g} relative; {max(secs):.1f} s; rank 0's "
+                f"collectives {m4[mode]['account']}")
+        row["M4"] = m4
+        return ranks[0]["M4"]["allreduce"]["counts"]
+
+    def mesh_sync(self, row):
+        """M3: 8 ranks; the parent draws the same rows, and each rank's
+        dense row must carry the parent's fingerprint."""
+        torch = self.torch
+        from repro_torch.dist import build_sync_plan, execute_sync, init_residual
+        from repro_torch.dist.ranks import run_ranks
+
+        R = MESH["sync_ranks"]
+        full = {"wq": torch.cat(_mesh_sync_rows(torch, self.dev, R))}
+        want = {}
+        for name, (sync, _) in _mesh_sync_cases().items():
+            plan = build_sync_plan(sync, R)
+            res = (init_residual(full)
+                   if plan.compression.scheme != "none" else None)
+            for step in (0, 2):
+                mixed = execute_sync(plan, full, res, step)[0]["wq"]
+                want[name, step] = [fingerprint(torch, {"wq": mixed[r:r + 1]})
+                                    for r in range(R)]
+                del mixed
+        del full
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_ranks(_mesh_sync_rank, R, backend="gloo",
+                          timeout=MESH["timeout"], threads=_rank_threads(R))
+        row["group_8_s"] = time.perf_counter() - t0
+        m3 = {}
+        for name, (sync, bitwise) in _mesh_sync_cases().items():
+            case = dict(bitwise_gate=bitwise, bytes=0, calls=0, seconds=[])
+            for step in (0, 2):
+                for rank, out in enumerate(ranks):
+                    got = out[name, step]
+                    check(got["dense_fingerprint"] == want[name, step][rank],
+                          f"M3 {name} step {step} rank {rank}: its dense "
+                          f"row differs from the parent's")
+                    for part in ("mixed", "residual"):
+                        if f"{part}_bitwise" not in got:
+                            continue
+                        if bitwise:
+                            check(got[f"{part}_bitwise"],
+                                  f"M3 {name} step {step} rank {rank}: "
+                                  f"{part} not bitwise to the dense executor "
+                                  f"({got[f'{part}_max_abs_err']})")
+                        check(got[f"{part}_over_tol"] == 0,
+                              f"M3 {name} step {step} rank {rank}: {part} "
+                              f"{got[f'{part}_over_tol']} entries beyond "
+                              f"{MESH_SYNC_TOL}")
+                    check(got["dropped_zero"] is not False,
+                          f"M3 {name} step {step} rank {rank}: a dropped "
+                          f"row is not 0")
+                    calls = sum(v["calls"] for v in got["account"].values())
+                    check(calls > 0, f"M3 {name} step {step} rank {rank}: "
+                          f"no collective")
+                r0 = ranks[0][name, step]
+                case["calls"] += sum(v["calls"] for v in
+                                     r0["account"].values())
+                case["bytes"] += sum(v["bytes"] for k, v in
+                                     r0["account"].items()
+                                     if k != "host_copy")
+                case["seconds"].append(max(out[name, step]["seconds"]
+                                           for out in ranks))
+                case[f"step{step}"] = dict(
+                    account=r0["account"],
+                    max_abs_err=max(out[name, step]["mixed_max_abs_err"]
+                                    for out in ranks),
+                    all_bitwise=all(out[name, step]["mixed_bitwise"]
+                                    for out in ranks))
+            m3[name] = case
+            log(f"[mesh M3 {name}] {R} ranks x steps 0 and 2: bitwise "
+                f"{[case[f'step{s}']['all_bitwise'] for s in (0, 2)]}, "
+                f"largest error "
+                f"{max(case[f'step{s}']['max_abs_err'] for s in (0, 2)):.3g}"
+                f"; rank 0: {case['calls']} collective calls, "
+                f"{case['bytes']} bytes; {sum(case['seconds']):.2f} s")
+        row["M3"] = m3
+
+
+# ------------------------------------------------ M1-M4: the rank bodies
+# Module-level, so that the ranks (spawned, importing this file without
+# running main) can unpickle them.
+
+def _rank_threads(ranks: int) -> int:
+    """CPU threads a rank: the host's cores shared out (more threads
+    than cores make torch's CPU ops spin against each other)."""
+    import os
+
+    return max(1, (os.cpu_count() or 1) // ranks)
+
+
+def _mesh_fields(res) -> dict:
+    return {k: getattr(res, k) for k in (
+        "x_final", "messages", "node_sends", "level_messages", "level_ticks",
+        "level_converged")}
+
+
+def _mesh_rank(rank, world, plan, x0, ref_dir):
+    """M1, M2 and M4 in one rank of the 4-rank group."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import repro_torch.core as P
+    from repro_torch.dist import collectives as C
+
+    torch.cuda.set_device(0)
+    smoke = Smoke(torch)
+    ranks = torch.arange(world)
+    meshes = {
+        "M1": (DeviceMesh("cuda", ranks, mesh_dim_names=("trials",)),
+               MESH["trials"]),
+        "M2": (DeviceMesh("cuda", ranks.reshape(2, 2),
+                          mesh_dim_names=("trials", "nodes")),
+               MESH["node_trials"]),
+    }
+    fi = {k: v for k, v in FI.items() if k != "seed"}
+    out = {}
+    for name, (mesh, T) in meshes.items():
+        smoke.zero_counts()
+        C.reset_account()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = P.execute_plan(plan, x0, seeds=tuple(range(T)),
+                             options=P.ExecOptions(backend="cuda", mesh=mesh),
+                             **fi)
+        torch.cuda.synchronize()
+        out[name] = dict(result=_mesh_fields(res), counts=smoke.read_counts(),
+                         flash=dict(smoke.flash_kernels()),
+                         account=C.account(),
+                         seconds=time.perf_counter() - t0)
+    out["M4"] = _mesh_train(torch, smoke, rank, world, ref_dir)
+    return out
+
+
+def _mesh_train_modes() -> dict:
+    from repro_torch.dist import SyncConfig
+
+    return {"allreduce": SyncConfig("allreduce"),
+            "hierarchical_overlap": SyncConfig(
+                "hierarchical", levels=(2, 2), overlap="one_step")}
+
+
+def _mesh_train_setup(torch, dev):
+    """T2's model (llama3.2-3b width, 1 layer, bf16) drawn on the card
+    from MODEL_SEED, and a stream of one row of T2's length a replica."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Transformer, param_dict
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              num_layers=DEC["layers"])
+    base = param_dict(Transformer(cfg).init(seed=MODEL_SEED, device=dev))
+    data = SyntheticLM(cfg.vocab_size, DEC["seq"], MESH_TRAIN["R"],
+                       seed=MODEL_SEED)
+    return cfg, base, data
+
+
+def _mesh_batch(data, s: int, R: int) -> dict:
+    return {k: v.reshape(R, -1, *v.shape[1:])
+            for k, v in data.batch_at(s).items()}
+
+
+def _mesh_train(torch, smoke, rank, world, ref_dir) -> dict:
+    """M4 in one rank: its replica's rows, 2 steps in each mode, against
+    the dense run's final rows of this replica."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.data import shard_batch
+    from repro_torch.dist import collectives as C
+    from repro_torch.optim import cosine_schedule, sgdm
+    from repro_torch.train import (
+        init_decentralized_state, make_decentralized_step,
+    )
+
+    dev = torch.device("cuda", 0)
+    R = MESH_TRAIN["R"]
+    cfg, base, data = _mesh_train_setup(torch, dev)
+    mesh = DeviceMesh("cuda", torch.arange(world),
+                      mesh_dim_names=("replica",))
+    opt, lr = sgdm(), cosine_schedule(*TRAIN_LR)
+    out = {}
+    for mode, sync in _mesh_train_modes().items():
+        smoke.zero_counts()
+        C.reset_account()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the R rows as a view: the state copies only this rank's
+        rows = {k: p.unsqueeze(0).expand((R,) + p.shape)
+                for k, p in base.items()}
+        state = init_decentralized_state(rows, opt, sync=sync, mesh=mesh)
+        step = make_decentralized_step(cfg, opt, lr, sync, R, mesh=mesh,
+                                       device=dev)
+        losses = []
+        for s in range(MESH_TRAIN["steps"]):
+            batch = shard_batch(_mesh_batch(data, s, R), mesh, ("replica",))
+            state, m = step(state, batch)
+            losses.append(float(m["replica_loss"]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ref = torch.load(Path(ref_dir) / f"{mode}_{rank}.pt",
+                         map_location=dev)
+        rel = {}
+        for k, p in state["params"].items():
+            want = ref[k].float()
+            rel[k] = float((p[0].float() - want).norm()
+                           / want.norm().clamp_min(1e-30))
+        out[mode] = dict(losses=losses, rel=rel, seconds=dt,
+                         fingerprint=fingerprint(torch, state["params"]),
+                         counts=smoke.read_counts(),
+                         flash=dict(smoke.flash_kernels()),
+                         account=C.account())
+        del state, step, ref, rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_sync_cases() -> dict:
+    """M3's cases: name -> (config, bitwise to the dense executor)."""
+    from repro_torch.dist import (
+        CompressionConfig, SyncConfig, SyncFailureModel,
+    )
+
+    faults = SyncFailureModel(churn_fraction=0.25, byzantine_fraction=0.125,
+                              seed=11)
+    ms = dict(levels=(2, 4))
+    return {
+        "allreduce": (SyncConfig("allreduce"), False),
+        "hierarchical": (SyncConfig("hierarchical", **ms), False),
+        "ring": (SyncConfig("ring"), True),
+        "multiscale": (SyncConfig("multiscale", **ms), True),
+        "multiscale_exact": (SyncConfig("multiscale", exact_fusion=True,
+                                        **ms), False),
+        "multiscale_rotated": (SyncConfig("multiscale", rotation_period=3,
+                                          rotation_seed=5, **ms), True),
+        "multiscale_topk": (SyncConfig(
+            "multiscale", compression=CompressionConfig("topk", 0.25), **ms),
+            False),
+        "allreduce_trimmed": (SyncConfig(
+            "allreduce", aggregation="trimmed_mean", failures=faults), True),
+    }
+
+
+def _mesh_sync_rows(torch, dev, R: int) -> list:
+    """Row r of M3, (1, 3072, 3072) f32, drawn on the card from
+    MESH_SEED + r."""
+    return [torch.randn((1, *MESH_SYNC_SHAPE), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            MESH_SEED + r)) for r in range(R)]
+
+
+def _mesh_compare(torch, got, want, label: str) -> dict:
+    diff = (got - want).abs()
+    over = diff > MESH_SYNC_TOL + MESH_SYNC_TOL * want.abs()
+    return {f"{label}_bitwise": torch.equal(got.view(torch.int32),
+                                            want.view(torch.int32)),
+            f"{label}_max_abs_err": float(diff.max()),
+            f"{label}_over_tol": int(over.sum())}
+
+
+def _mesh_sync_rank(rank, world) -> dict:
+    """M3 in one rank: its row through execute_sync_sharded, against its
+    row of the dense execute_sync over all 8 rows, drawn here too."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist import (
+        build_sync_plan, execute_sync, execute_sync_sharded, init_residual,
+        replica_fault_masks,
+    )
+    from repro_torch.dist import collectives as C
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = DeviceMesh("cuda", torch.arange(world),
+                      mesh_dim_names=("replica",))
+    rows = _mesh_sync_rows(torch, dev, world)
+    full = {"wq": torch.cat(rows)}
+    mine = {"wq": rows[rank]}
+    out = {}
+    for name, (sync, _) in _mesh_sync_cases().items():
+        plan = build_sync_plan(sync, world)
+        compressed = plan.compression.scheme != "none"
+        for step in (0, 2):
+            dense, dres = execute_sync(
+                plan, full, init_residual(full) if compressed else None, step)
+            want = dense["wq"][rank:rank + 1]
+            C.reset_account()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, gres = execute_sync_sharded(
+                plan, mine, init_residual(mine) if compressed else None, step,
+                mesh=mesh)
+            torch.cuda.synchronize()
+            row = dict(seconds=time.perf_counter() - t0, account=C.account(),
+                       dense_fingerprint=fingerprint(torch, {"wq": want}),
+                       dropped_zero=None)
+            row.update(_mesh_compare(torch, got["wq"], want, "mixed"))
+            if compressed:
+                row.update(_mesh_compare(torch, gres["wq"],
+                                         dres["wq"][rank:rank + 1],
+                                         "residual"))
+            if plan.faulty and bool(replica_fault_masks(
+                    plan.failures, world, step, dev).dropped[rank]):
+                row["dropped_zero"] = bool((got["wq"] == 0).all())
+            out[name, step] = row
+            del dense, dres, got, gres
+    return out
+
 
 def main() -> int:
     try:
@@ -3262,6 +3774,15 @@ def main() -> int:
     main5 = smoke.large_n(100_000, g5, plan5, x05, graph5, pl5)
     scen = smoke.scenarios(g5, plan5, x05)
     per_tick = smoke.per_tick(g5, plan5, x05)
+    # M1-M4: the sharded executors, ranks of one gloo group on this card
+    mesh = smoke.meshes(plan5, x05)
+    mesh_paths = {
+        f"execute_plan FI n=100000, {MESH['trials']} trials on a "
+        f"{MESH['ranks']}-rank trial mesh (gloo, one card), backend cuda, "
+        f"each rank": mesh["m1"],
+        f"execute_plan FI n=100000, {MESH['node_trials']} trials on a 2 x 2 "
+        f"(trials, nodes) mesh (gloo, one card), backend cuda, each rank":
+            mesh["m2"]}
     del g5, plan5
     g6, plan6, x06, graph6, pl6 = smoke.setup(1_000_000)
     main6 = smoke.large_n(1_000_000, g6, plan6, x06, graph6, pl6)
@@ -3287,11 +3808,12 @@ def main() -> int:
            f"cuda": n for R, n in fleet.items()}}
     smoke.kernels["pair_apply"].update(
         launches=main5, path="multiscale_gossip FI n=100000, backend cuda",
-        launches_by_path={**main_paths, **baseline_paths, **fleet_paths})
+        launches_by_path={**main_paths, **mesh_paths, **baseline_paths,
+                          **fleet_paths})
     smoke.kernels["sample_chunk"].update(
         launches=main5, path="multiscale_gossip FI n=100000, backend cuda",
         launches_by_path={
-            **main_paths,
+            **main_paths, **mesh_paths,
             "multiscale_gossip FI n=20000, backend matmul": mm,
             "execute_plan FI n=20000 churn / byzantine, priced, backend "
             "matmul (each)": mm_scen, **baseline_paths, **fleet_paths})
@@ -3443,6 +3965,12 @@ def main() -> int:
                              "bound_ms", "bound_by", "plain_ms", "library_ms",
                              "max_abs_err")}
         for row in smoke.report["flash_zoo"]]
+
+    m4_path = (f"make_decentralized_step llama3.2-3b width, 1 layer, sgdm, "
+               f"{MESH_TRAIN['R']}-rank replica mesh (gloo, one card), each "
+               f"rank")
+    for name, row in smoke.kernels.items():
+        row["launches_by_path"][m4_path] = mesh["m4"][name]
 
     total = time.perf_counter() - t_start
     smoke.report["total_s"] = total

@@ -2,8 +2,10 @@
 2010) on PyTorch and CUDA: the host-side plan (numpy) and its
 content-addressed cache, the bit-exact threefry exchange schedule, and
 the batched executor whose value pass runs in the hand-written
-`pair_apply` / `cell_mixing` kernels, the wireless failure and cost
-models, and the baselines the paper compares against.
+`pair_apply` / `cell_mixing` kernels (its Monte-Carlo trials and each
+level's graphs shardable over a `torch.distributed` process mesh,
+`ExecOptions(mesh=)`), the wireless failure and cost models, and the
+baselines the paper compares against.
 """
 from .baselines import (
     BaselineResult,

@@ -22,6 +22,23 @@ Backends (`ExecOptions.backend`): ``"ref"`` runs the plain tick loop,
 of `core.gossip` with backend ``"ref"`` or ``"cuda"``, without failure
 scenarios or pricing.
 
+Process meshes (`ExecOptions.mesh`, a `torch.distributed` `DeviceMesh`;
+every rank calls `execute_plan` with the same arguments and gets the
+whole result, each trial bitwise the unsharded run's):
+
+* trial sharding (a 1-dim mesh): T is padded up to a multiple of the
+  mesh size with copies of the first trial, each rank runs its
+  contiguous block of trials through the unsharded path (its trials
+  still fold into one graph batch, one launch of each kernel a chunk),
+  and every output is gathered to every rank with the padding dropped;
+* node sharding (the ``("trials", "nodes")`` mesh): within its trial
+  block a rank owns ``ceil(B / nd)`` contiguous graphs of each level
+  (`gossip_core`'s ``node_shard``; the draw stays global), promotion
+  and the final assembly scatter into a trash-rowed global buffer
+  summed over ``"nodes"``, node sends are summed, level ticks maximised,
+  and per-graph messages and convergence gathered by column before the
+  host's int64 sums.
+
 `failures` (`FailureModel`) carries the paper's message loss and the
 scenarios (churn, stragglers, regional outage, Byzantine drops): each
 level gets a `FailureCtx` of its slots' flags, drawn on the host from
@@ -38,6 +55,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..dist import collectives as C
 from . import prng
 from .gossip import GOSSIP_BACKENDS, gossip_core
 from .medium import (
@@ -272,33 +290,40 @@ def execute_plan(
     x0 may be (n,) — shared across trials — or (T, n) per-trial.  Each
     seed drives one trial's exchange randomness; the plan (partition,
     election, routes) is shared, so trials differ only in gossip noise.
-    `options` (`ExecOptions`) selects backend / device / check cadence /
-    tick budget; `failures` carries the paper's `loss_p` message-loss
-    model plus the scenario fields (churn, stragglers, regional outage,
-    Byzantine drops) that perturb the presampled schedule — their event
-    times are fractions of the finest level's tick budget, so scenarios
-    run in fixed-iterations mode.  `cost` prices the schedule (energy,
-    retransmissions, congestion) into `EngineResult.cost` without
-    perturbing the trajectory.  `options.collect_usage` also returns the
-    per-level flat exchange counters.
+    `options` (`ExecOptions`) selects backend / device / mesh / check
+    cadence / tick budget; `failures` carries the paper's `loss_p`
+    message-loss model plus the scenario fields (churn, stragglers,
+    regional outage, Byzantine drops) that perturb the presampled
+    schedule — their event times are fractions of the finest level's
+    tick budget, so scenarios run in fixed-iterations mode.  `cost`
+    prices the schedule (energy, retransmissions, congestion) into
+    `EngineResult.cost` without perturbing the trajectory.
+    `options.collect_usage` also returns the per-level flat exchange
+    counters.
+
+    With `options.mesh` every rank of the mesh calls this with the same
+    arguments and gets the whole result (module docstring); each
+    trial's outputs are bitwise those of the unsharded run.
     """
     options = options if options is not None else ExecOptions()
     dev = resolve_device(options.device)
     _check_models(failures, cost, fixed_ticks_scale)
-    backend, schedule = options.backend, options.schedule
+    backend, schedule, mesh = options.backend, options.schedule, options.mesh
     if backend not in GOSSIP_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
-    loss_p = failures.loss_p if failures is not None else None
     scenario = failures is not None and failures.has_scenario
     if (scenario or cost is not None) and schedule != "presampled":
         raise ValueError(
             "failure scenarios / cost pricing require schedule='presampled'")
+    if options.node_mesh and (scenario or cost is not None):
+        raise ValueError(
+            "failure scenarios / cost pricing are not supported on the "
+            "(trials, nodes) mesh (their reductions are batch-global)")
     n = plan.graph.n
     x0 = np.asarray(x0, np.float32)
     T = len(seeds)
     if x0.ndim == 2 and x0.shape[0] != T:
         raise ValueError(f"x0 leading dim {x0.shape[0]} != trials {T}")
-    V = 2 if weighted else 1
 
     # per-level loop config: fixed-iterations levels run a host-known
     # number of whole chunks with the oracle off (eps < 0)
@@ -315,6 +340,76 @@ def execute_plan(
             level_cfg.append((float(eps), int(options.max_ticks_per_level),
                               int(options.check_every)))
 
+    # trial sharding: padding trials (copies of the first) bring T up to
+    # a multiple of the trial dim; each rank runs its contiguous block
+    trial_dims = ("trials",) if options.node_mesh else (0,)
+    nt = C.axis_size(mesh, trial_dims) if mesh is not None else 1
+    Tl = -(-T // nt)  # trials a rank
+    first = C.axis_index(mesh, trial_dims) * Tl if mesh is not None else 0
+    padded = tuple(seeds) + tuple(seeds[:1]) * (Tl * nt - T)
+    if x0.ndim == 2:
+        x0 = np.concatenate([x0, np.repeat(x0[:1], Tl * nt - T, axis=0)])
+        x0 = x0[first:first + Tl]
+    out = _run_trials(plan, x0, padded[first:first + Tl], weighted,
+                      level_cfg, options, dev, failures, cost, scenario)
+    if mesh is not None:
+        out = {k: ([C.all_gather(t, mesh, trial_dims)[:T] for t in v]
+                   if isinstance(v, list)
+                   else C.all_gather(v, mesh, trial_dims)[:T])
+               for k, v in out.items()}
+
+    # host-side int64 reduction of the per-graph int32 counters
+    level_messages = np.stack(
+        [m.cpu().numpy().astype(np.int64).sum(axis=1) for m in out["msgs"]],
+        axis=1)
+    messages = level_messages.sum(axis=1)
+    if plan.disseminate:
+        messages = messages + n
+    return EngineResult(
+        x_final=out["x_final"].cpu().numpy(),
+        messages=messages,
+        node_sends=out["node_sends"].cpu().numpy().astype(np.int64),
+        level_messages=level_messages,
+        level_ticks=out["ticks"].cpu().numpy().astype(np.int64),
+        level_converged=out["conv"].cpu().numpy().astype(np.float64),
+        edge_usage=[u.cpu().numpy() for u in out["usage"]],
+        backend=backend,
+        cost=_price_levels(
+            cost, plan, n, level_messages, messages,
+            [r.cpu().numpy() for r in out["retx"]],
+            [cg.cpu().numpy() for cg in out["cong"]]),
+    )
+
+
+def _node_block(mesh, B: int, dev):
+    """This rank's block of a level's B graphs on the nodes dim: the
+    clipped column ids, the realness mask and the unclipped ids."""
+    nd = C.axis_size(mesh, "nodes")
+    Bs = -(-B // nd)
+    sidx = C.axis_index(mesh, "nodes") * Bs + torch.arange(Bs, device=dev)
+    return torch.clamp_max(sidx, B - 1), sidx < B, sidx
+
+
+def _node_cols(t, mesh, B: int):
+    """(T, Bs, ...) per-column values of each node block gathered into
+    the (T, B, ...) columns of the whole level."""
+    full = C.all_gather(t, mesh, "nodes", tiled=False)   # (nd, T, Bs, ...)
+    full = full.movedim(0, 1)
+    return full.reshape(full.shape[0], -1, *full.shape[3:])[:, :B]
+
+
+def _run_trials(plan, x0, seeds, weighted, level_cfg, options, dev,
+                failures, cost, scenario) -> dict:
+    """All levels for the trials `seeds` (x0 (n,) or (len(seeds), n)):
+    the per-trial outputs as device tensors with a leading trial axis
+    (lists: one a level).  On the node mesh each rank runs its block of
+    every level's graphs, and the results are summed or gathered over
+    the nodes dim."""
+    mesh = options.mesh if options.node_mesh else None
+    n = plan.graph.n
+    T = len(seeds)
+    V = 2 if weighted else 1
+    loss_p = failures.loss_p if failures is not None else None
     ctxs, freeze = [None] * len(plan.levels), None
     if scenario:
         ctxs, freeze = _failure_consts(
@@ -323,40 +418,57 @@ def execute_plan(
     keys = torch.stack([prng.PRNGKey(s) for s in seeds]).to(dev)
     x0_rows = torch.as_tensor(x0, device=dev).expand(T, n)
     node_sends = torch.zeros((T, n + 1), dtype=torch.int32, device=dev)
-    lvl_msgs, lvl_ticks, lvl_conv, usages = [], [], [], []
-    lvl_retx, lvl_cong = [], []
+    out = dict(msgs=[], usage=[], retx=[], cong=[])
+    lvl_ticks, lvl_conv = [], []
     xb = frozen_vals = None
     for li, (lp, (eps_l, maxt, chk)) in enumerate(zip(plan.levels, level_cfg)):
         c = _level_consts(lp, dev)
         B = lp.num_graphs
+        cols, ok, shard = slice(None), None, None
         mask = c["node_mask"]
+        if mesh is not None:
+            cols, ok, _ = _node_block(mesh, B, dev)
+            mask = mask[cols] & ok[:, None]
+            shard = (cols, ok)
         if lp.kind == "cells":
             vals = torch.where(
-                mask, x0_rows[:, torch.clamp_min(c["slot_node"], 0)], 0.0)
+                mask, x0_rows[:, torch.clamp_min(c["slot_node"][cols], 0)],
+                0.0)
             if weighted:
                 w = mask.to(torch.float32).expand_as(vals)
                 xb = torch.stack([vals * w, w], dim=-1)
             else:
                 xb = vals[..., None]
+        elif mesh is not None:
+            xb = xb[:, cols]  # promotion left xb global; take our block
         x, usage, msgs, done, ticks, *priced = gossip_core(
             xb.contiguous(), c["adj"], mask, eps_l, prng.fold_in(keys, li),
-            max_ticks=maxt, check_every=chk, loss_p=loss_p, backend=backend,
-            schedule=schedule, failure_ctx=ctxs[li], cost_model=cost,
-            hop_cap=max(1, int(lp.max_hops)),
+            max_ticks=maxt, check_every=chk, loss_p=loss_p,
+            backend=options.backend, schedule=options.schedule,
+            failure_ctx=ctxs[li], cost_model=cost,
+            hop_cap=max(1, int(lp.max_hops)), node_shard=shard,
         )
         if priced:
-            lvl_retx.append(priced[0])
-            lvl_cong.append(priced[1])
-        lvl_msgs.append(msgs)
-        lvl_ticks.append(ticks.max(dim=1).values)
-        lvl_conv.append(done.to(torch.float32).mean(dim=1))
+            out["retx"].append(priced[0])
+            out["cong"].append(priced[1])
+        if mesh is None:
+            out["msgs"].append(msgs)
+            lvl_ticks.append(ticks.max(dim=1).values)
+            lvl_conv.append(done.to(torch.float32).mean(dim=1))
+        else:
+            out["msgs"].append(_node_cols(msgs, mesh, B))
+            lvl_ticks.append(C.pmax(
+                torch.where(ok, ticks, 0).max(dim=1).values, mesh, "nodes"))
+            done_all = _node_cols(done.to(torch.uint8), mesh, B)
+            lvl_conv.append(done_all.to(torch.float32).mean(dim=1))
         if options.collect_usage:
-            usages.append(usage)
+            out["usage"].append(usage)
         # a frozen node's own post-gossip value at the finest level is its
         # value for the rest of the run: snapshot it before promotion
         if li == 0 and freeze is not None:
             frozen_vals = _estimate(x)[:, freeze["graph0"], freeze["slot0"]]
-        # attribution: gathers through the plan CSR + scatter-adds
+        # attribution: gathers through the plan CSR + scatter-adds (on
+        # the node mesh each rank adds its own graphs' exchanges)
         if lp.kind == "cells":
             node_sends.index_add_(1, c["row_node"], usage)
             node_sends.index_add_(1, c["partner_flat"], usage)
@@ -366,18 +478,39 @@ def execute_plan(
                 1, c["inc_node"], usage_e[:, c["inc_edge"]] * c["inc_count"])
         # promotion (gathers; Alg.1 line 16 on the finest level)
         if lp.rep_slot is not None:
-            v = x[:, torch.arange(B, device=dev), c["rep_slot"]]  # (T, B, V)
+            Bl = x.shape[1]
+            v = x[:, torch.arange(Bl, device=dev), c["rep_slot"][cols]]
             if weighted:
-                v = v * c["adj"].n_nodes[:, None].to(torch.float32)
+                v = v * c["adj"].n_nodes[cols, None].to(torch.float32)
             else:
-                v = v * c["line16"][:, None]
+                v = v * c["line16"][cols, None]
             B2, C2 = plan.levels[li + 1].node_mask.shape
-            xb = torch.zeros((T, B2, C2, V), dtype=torch.float32, device=dev)
-            xb[:, c["next_graph"], c["next_slot"]] = v
+            if mesh is None:
+                xb = torch.zeros((T, B2, C2, V), dtype=torch.float32,
+                                 device=dev)
+                xb[:, c["next_graph"], c["next_slot"]] = v
+            else:
+                # representatives hop node blocks here: scatter into a
+                # trash-rowed global buffer and sum the halo over blocks
+                tg = torch.where(ok, c["next_graph"][cols], B2)
+                full = torch.zeros((T, B2 + 1, C2, V), dtype=torch.float32,
+                                   device=dev)
+                full[:, tg, c["next_slot"][cols]] = torch.where(
+                    ok[:, None], v, 0.0)
+                xb = C.psum(full, mesh, "nodes")[:, :B2]
     # final estimate + dissemination down-pass
+    est = _estimate(x)
+    if mesh is not None:
+        BL, CL = plan.levels[-1].node_mask.shape
+        _, ok, sidx = _node_block(mesh, BL, dev)
+        full = torch.zeros((T, BL + 1, CL), dtype=torch.float32, device=dev)
+        full[:, torch.where(ok, sidx, BL)] = torch.where(ok[:, None], est,
+                                                         0.0)
+        est = C.psum(full, mesh, "nodes")[:, :BL]
+        node_sends = C.psum(node_sends, mesh, "nodes")
     fg = torch.as_tensor(plan.final_graph, device=dev).long()
     fs = torch.as_tensor(plan.final_slot, device=dev).long()
-    x_final = _estimate(x)[:, fg, fs]
+    x_final = est[:, fg, fs]
     # Byzantine nodes discard the down-pass; churned / permanently
     # regional-out nodes never hear it — they keep their frozen value
     if frozen_vals is not None:
@@ -385,26 +518,6 @@ def execute_plan(
     node_sends = node_sends[:, :n]
     if plan.disseminate:
         node_sends = node_sends + 1  # the n-message down-pass
-
-    # host-side int64 reduction of the per-graph int32 counters
-    level_messages = np.stack(
-        [m.cpu().numpy().astype(np.int64).sum(axis=1) for m in lvl_msgs],
-        axis=1)
-    messages = level_messages.sum(axis=1)
-    if plan.disseminate:
-        messages = messages + n
-    return EngineResult(
-        x_final=x_final.cpu().numpy(),
-        messages=messages,
-        node_sends=node_sends.cpu().numpy().astype(np.int64),
-        level_messages=level_messages,
-        level_ticks=torch.stack(lvl_ticks, 1).cpu().numpy().astype(np.int64),
-        level_converged=torch.stack(lvl_conv, 1).cpu().numpy().astype(
-            np.float64),
-        edge_usage=[u.cpu().numpy() for u in usages],
-        backend=backend,
-        cost=_price_levels(
-            cost, plan, n, level_messages, messages,
-            [r.cpu().numpy() for r in lvl_retx],
-            [cg.cpu().numpy() for cg in lvl_cong]),
-    )
+    out.update(x_final=x_final, node_sends=node_sends,
+               ticks=torch.stack(lvl_ticks, 1), conv=torch.stack(lvl_conv, 1))
+    return out

@@ -49,6 +49,17 @@ tagged uniform stream, Byzantine slots drop their updates — and a
 stream) and its concurrency pairs.  Both live in the chunk draw, so a
 scenario or priced chunk is still one `sample_chunk` launch.
 
+Node sharding (``node_shard=(cols, ok)``): a rank of the engine's
+``("trials", "nodes")`` mesh owns columns `cols` of the level's global
+batch (clipped duplicates masked by `ok`); `x0` and `node_mask` are
+its ``(R, Bs, ...)`` slices.  The draw stays global, as in the
+reference: threefry streams have no prefix property, so a local draw
+would diverge from the unsharded run.  The foreign columns enter the
+draw as done, so it counts nothing for them, and its ``(T, R*B)``
+schedule is sliced to the owned columns for the value pass; per-graph
+results are bitwise those of the unsharded run.  Each rank's eps-mode
+loop stops when its own graphs have converged.
+
 Monte-Carlo trials are a batch axis written out: ``x0`` is
 ``(R, B, C, V)`` and ``keys`` ``(R, 2)``, one key per trial over the same
 graphs.  The trials fold into the graph batch of the value pass, so one
@@ -175,6 +186,7 @@ def gossip_core(
     failure_ctx: Optional[FailureCtx] = None,
     cost_model: Optional[CostModel] = None,
     hop_cap: int = 1,
+    node_shard=None,
 ):
     """Batched gossip loop over R trials of the same B graphs.
 
@@ -188,6 +200,11 @@ def gossip_core(
     schedule (module docstring); `hop_cap` is the level's longest route
     in hops, the width of the retransmission draw.  `schedule` is
     "presampled" or "per_tick" (module docstring).
+
+    `node_shard=(cols, ok)` runs only the global batch columns `cols`
+    (int64, ``(Bs,)``) with realness mask `ok` (module docstring): x,
+    msgs, done and ticks are the ``Bs`` local columns, usage stays
+    global-flat with only the owned graphs' exchanges counted.
     """
     if backend not in GOSSIP_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
@@ -200,6 +217,11 @@ def gossip_core(
         raise ValueError(
             "failure scenarios / cost pricing require "
             "schedule='presampled'")
+    if node_shard is not None and (per_tick or failure_ctx is not None
+                                   or cost_model is not None):
+        raise ValueError(
+            "node_shard requires schedule='presampled' and takes no failure "
+            "scenario or cost model")
     if backend == "ref":
         from ..kernels.sample_chunk import sample_chunk_ref as draw
     else:
@@ -220,10 +242,15 @@ def gossip_core(
 
     nflat = adj.nbr.shape[0]
     usage = torch.zeros(R * nflat, dtype=torch.int32, device=dev)
-    msgs = torch.zeros((R, B), dtype=torch.int32, device=dev)
+    Bg = adj.degrees.shape[0]  # the global batch (B unless node-sharded)
+    msgs = torch.zeros((R, Bg), dtype=torch.int32, device=dev)
     ticks = torch.zeros((R, B), dtype=torch.int32, device=dev)
     done = (converged(x0) if not fixed
             else torch.zeros((R, B), dtype=torch.bool, device=dev))
+    if node_shard is not None:
+        cols, ok = node_shard
+        own = cols[ok]
+        done_g = torch.ones((R, Bg), dtype=torch.bool, device=dev)
     extra = {}
     if cost_model is not None:
         extra = dict(
@@ -240,6 +267,15 @@ def gossip_core(
         if per_tick:
             x = _per_tick_chunk(x, eye, t0, check_every, keys, adj, loss_p,
                                 done, usage, msgs)
+        elif node_shard is not None:
+            done_g[:, own] = done[:, ok]
+            i, j, upd_i, upd_j = (
+                a.view(check_every, R, Bg)[:, :, cols].reshape(
+                    check_every, R * B)
+                for a in draw(t0, check_every, keys, adj, loss_p, done_g,
+                              usage, msgs))
+            keep = ok.repeat(R)
+            x = _value_pass(backend, x, i, j, upd_i & keep, upd_j & keep)
         else:
             # (T, R*B) pairs and update bits; the counters grow in place
             x = _value_pass(backend, x, *draw(
@@ -250,6 +286,8 @@ def gossip_core(
         if not fixed:
             done = done | converged(x.reshape(R, B, C, V))
         t0 += check_every
+    if node_shard is not None:
+        msgs = torch.where(ok, msgs[:, cols], 0)
     return (x.reshape(R, B, C, V), usage.reshape(R, nflat), msgs, done,
             ticks, *extra.values())
 

@@ -148,10 +148,11 @@ def multiscale_gossip(
     reuse a prebuilt `HierarchyPlan` (then `k`, `a`, `cell_max`,
     `rep_mode` come from the plan and `seed` only drives the gossip
     randomness).  `options` (`ExecOptions`) selects backend / device /
-    check cadence / tick budget; `failures` carries the paper's loss
-    model plus churn / straggler / regional / Byzantine scenarios;
-    `cost` (`CostModel`) prices the run onto the wireless medium into
-    `.cost` without perturbing the exchange trajectory.
+    process mesh / check cadence / tick budget (with a mesh, every rank
+    calls this alike and gets the whole result); `failures` carries the
+    paper's loss model plus churn / straggler / regional / Byzantine
+    scenarios; `cost` (`CostModel`) prices the run onto the wireless
+    medium into `.cost` without perturbing the exchange trajectory.
     """
     if options is None:
         options = ExecOptions()

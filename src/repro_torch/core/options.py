@@ -1,10 +1,10 @@
 """Execution options for the plan/execute simulation core.
 
 `ExecOptions` says HOW a plan is executed: the value backend, the
-device, the schedule mode, the convergence-check cadence and the tick
-budget.  WHAT is simulated stays in the positional/semantic arguments
-(`eps`, `seeds`, `weighted`, `fixed_ticks_scale`) and in `FailureModel`
-(`core.medium`).
+device, the schedule mode, the process mesh, the convergence-check
+cadence and the tick budget.  WHAT is simulated stays in the
+positional/semantic arguments (`eps`, `seeds`, `weighted`,
+`fixed_ticks_scale`) and in `FailureModel` (`core.medium`).
 
 Backends:
 
@@ -22,6 +22,19 @@ Schedules: ``"presampled"`` (the schedule/value split) and
 scan, ``"cuda"`` its ``"pallas"`` branch (one `cell_mixing` launch a
 chunk), and ``"matmul"`` is refused.
 
+Meshes (`mesh`, a `torch.distributed` `DeviceMesh`; each rank calls
+`execute_plan` with the same arguments and gets the whole result):
+
+* a 1-dim mesh shards the Monte-Carlo trials: each rank runs its
+  contiguous block of them (T padded up to a multiple of the mesh size)
+  and the outputs are gathered to every rank;
+* a 2-dim mesh with dims ``("trials", "nodes")`` shards the trials over
+  ``"trials"`` and each level's graph batch over ``"nodes"`` (the draw
+  stays global; promotion crosses node blocks through a summed halo
+  buffer).  It needs the presampled schedule, and takes neither
+  `collect_usage`, a failure scenario nor a cost model, whose
+  reductions span the whole batch.
+
 The entry points run on the card unless the caller asks for
 ``device="cpu"``: without CUDA they raise (`resolve_device`), they never
 carry on quietly on the CPU.
@@ -29,6 +42,7 @@ carry on quietly on the CPU.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -49,6 +63,8 @@ class ExecOptions:
     check_every: convergence-oracle cadence (ticks per chunk).
     max_ticks_per_level: per-level tick budget in eps-oracle mode.
     collect_usage: also return the raw per-level flat exchange counters.
+    mesh: None, a 1-dim `DeviceMesh` (trial sharding) or a 2-dim one
+        with dims ("trials", "nodes") (module docstring).
     """
 
     backend: str = "cuda"
@@ -57,6 +73,12 @@ class ExecOptions:
     check_every: int = 64
     max_ticks_per_level: int = 2_000_000
     collect_usage: bool = False
+    mesh: Any = None
+
+    @property
+    def node_mesh(self) -> bool:
+        """Whether `mesh` is the ("trials", "nodes") mesh."""
+        return self.mesh is not None and self.mesh.ndim == 2
 
     def __post_init__(self):
         if self.backend not in _ENGINE_BACKENDS:
@@ -75,6 +97,22 @@ class ExecOptions:
             raise ValueError(
                 "backend='cuda' needs device='cuda'; use backend='ref' or "
                 "'matmul' on the CPU")
+        if self.mesh is None:
+            return
+        names = tuple(self.mesh.mesh_dim_names or ())
+        if self.mesh.ndim == 2 and names == ("trials", "nodes"):
+            if self.schedule != "presampled":
+                raise ValueError(
+                    "the (trials, nodes) mesh requires schedule='presampled'")
+            if self.collect_usage:
+                raise ValueError(
+                    "collect_usage is not supported on the (trials, nodes) "
+                    "mesh (flat usage stays shard-local)")
+        elif self.mesh.ndim != 1:
+            raise ValueError(
+                "execute_plan wants a 1-dim trial mesh or a 2-dim mesh with "
+                f"dims ('trials', 'nodes'), got dims {names} of shape "
+                f"{tuple(self.mesh.shape)}")
 
 
 def resolve_device(device) -> torch.device:

@@ -6,8 +6,8 @@ Determinism contract (fault tolerance): batch contents are a pure
 function of (seed, step), so a restart that resumes from checkpoint
 step S reproduces the exact training stream — no data-loader state in
 the checkpoint.  Batches are host numpy arrays; the train steps place
-them on their device.  The reference's `shard_batch` places a batch on
-a mesh and waits for the port's multi-device work.
+them on their device.  On a process mesh each rank takes its own block
+of a batch with `shard_batch`.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["SyntheticLM", "MemmapCorpus", "write_synthetic_corpus"]
+__all__ = ["SyntheticLM", "MemmapCorpus", "shard_batch", "shard_slice",
+           "write_synthetic_corpus"]
 
 
 @dataclasses.dataclass
@@ -101,3 +102,25 @@ def write_synthetic_corpus(path: str, num_tokens: int, vocab_size: int,
     toks.tofile(tmp)
     os.replace(tmp, path)
     return path
+
+
+def shard_slice(size: int, mesh, dp_axes) -> slice:
+    """This rank's contiguous block of a leading dim of `size` split over
+    the mesh dims `dp_axes`, picked by its row-major coordinates there."""
+    from ..dist.collectives import axis_index, axis_size
+
+    n = axis_size(mesh, dp_axes)
+    if size % n:
+        raise ValueError(f"a leading dim of {size} does not split into "
+                         f"{n} blocks over {dp_axes}")
+    block = size // n
+    i = axis_index(mesh, dp_axes)
+    return slice(i * block, (i + 1) * block)
+
+
+def shard_batch(batch: dict, mesh, dp_axes) -> dict:
+    """This rank's block of a host batch: the leading (batch) dim of
+    each leaf split over the mesh dims `dp_axes` (numpy in, numpy out),
+    the block the reference's `shard_batch` places on this device."""
+    return {k: v[shard_slice(v.shape[0], mesh, dp_axes)]
+            for k, v in batch.items()}

@@ -6,16 +6,20 @@ Public surface:
   SyncConfig / build_sync_plan  static plan resolution (plan/execute split)
   SyncPlan / execute_sync       compress->faults->rotate->mix executor
   async_execute_sync            one-step-delayed (overlapped) pipeline stage
+  execute_sync_sharded          the same mix as explicit collectives, each
+                                rank of a replica DeviceMesh holding one row
+  collectives                   ppermute / psum / pmean / pmax / broadcast /
+                                all_gather over named mesh dims, and their
+                                account of calls and bytes
   sync_gradients                one-shot strategy-dispatched mixing
   suggest_levels                the n^(2/3) recursive-partition rule
   rotation_schedule             step-indexed randomized-cell permutations
   compression                   error-feedback gradient compression
   SyncFailureModel              per-step churn/straggler/Byzantine injection
   AGGREGATIONS / robust         fault-tolerant aggregation modes
-
-The reference's `execute_sync_sharded` (a device mesh) is not ported yet.
 """
-from .async_sync import async_execute_sync, init_inflight
+from . import collectives
+from .async_sync import async_execute_sync, execute_sync_sharded, init_inflight
 from .compression import (
     CompressionConfig, compress, decompress, init_residual, wire_fraction,
 )
@@ -54,6 +58,8 @@ __all__ = [
     "tree_robust_reduce",
     "async_execute_sync",
     "build_sync_plan",
+    "collectives",
+    "execute_sync_sharded",
     "execute_sync",
     "init_inflight",
     "plan_wire_bytes",

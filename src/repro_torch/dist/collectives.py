@@ -1,0 +1,256 @@
+"""Collectives over the named dims of a `DeviceMesh`.
+
+The torch form of the `lax` collectives that the reference's
+`shard_map` bodies call.  Each rank is one program of the reference's
+`shard_map`: it holds its own shard and calls the same function with
+the same arguments (SPMD).  A collective over several dims acts on the
+ranks that share every other coordinate, in row-major order over the
+dims as given, which is the order `lax` collectives use for a tuple of
+axis names and the reference's replica order.
+
+  axis_index / axis_size  this rank's row-major index over dims, and
+                          the number of ranks there
+  ppermute                point to point along (src, dst) index pairs;
+                          a rank no pair sends to receives zeros
+                          (`ppermutes`: several pair lists, one batch)
+  psum / pmax / pmean     all-reduce sums and maxima; `pmean` sums in
+                          f32 and rounds the mean to the input's dtype
+  bcast_from_zero         every rank adopts the value at index 0
+  all_gather              the ranks' tensors concatenated (``tiled``)
+                          or stacked along a new leading dim
+
+A reduction over several dims runs one dim at a time, finest last dim
+first; a gather likewise, so its result is in row-major order.  The
+process group is the caller's: collectives go to the groups the mesh
+was built over (gloo, NCCL), and nothing here picks a backend or
+catches a failed collective.  Point-to-point transfers address global
+ranks in the default group.
+
+gloo moves CUDA tensors in some collectives only (`_GLOO_CUDA`); for
+the others this module copies the tensor to the host, runs the
+collective there and copies the result back.  The computation stays on
+the card.
+
+The account: every call adds one to its kind's count and the bytes
+this rank puts in (a reduction's or a broadcast's tensor, a gather's
+input, a permutation's sent rows), and every host copy does the same
+under ``"host_copy"``.  `account()` reads it and `reset_account()` sets
+it to zero; it stands in for the reference's HLO collective count.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Union
+
+import torch
+import torch.distributed as dist
+
+__all__ = [
+    "account",
+    "all_gather",
+    "axis_index",
+    "axis_size",
+    "bcast_from_zero",
+    "pmax",
+    "pmean",
+    "ppermute",
+    "ppermutes",
+    "psum",
+    "reset_account",
+]
+
+Dims = Union[str, int, Sequence[Union[str, int]]]
+
+# collectives that gloo runs on CUDA tensors itself (torch's backend
+# table); the rest are staged through the host
+_GLOO_CUDA = frozenset({"all_reduce", "broadcast"})
+
+_ACCOUNT: dict[str, list[int]] = {}
+
+
+def reset_account() -> None:
+    """Set every count of the account to zero."""
+    _ACCOUNT.clear()
+
+
+def account() -> dict:
+    """{kind: {"calls": n, "bytes": b}} since the last reset."""
+    return {k: {"calls": c, "bytes": b} for k, (c, b) in
+            sorted(_ACCOUNT.items())}
+
+
+def _count(kind: str, x: torch.Tensor) -> None:
+    entry = _ACCOUNT.setdefault(kind, [0, 0])
+    entry[0] += 1
+    entry[1] += x.numel() * x.element_size()
+
+
+def _dims(dims: Dims) -> tuple:
+    return (dims,) if isinstance(dims, (str, int)) else tuple(dims)
+
+
+def _index(mesh, dim) -> int:
+    if isinstance(dim, int):
+        return dim
+    names = mesh.mesh_dim_names or ()
+    if dim not in names:
+        raise ValueError(f"mesh has no dim {dim!r}; its dims are {names}")
+    return names.index(dim)
+
+
+def axis_size(mesh, dims: Dims) -> int:
+    """The number of ranks along `dims` (their sizes' product)."""
+    n = 1
+    for d in _dims(dims):
+        n *= mesh.size(_index(mesh, d))
+    return n
+
+
+def axis_index(mesh, dims: Dims) -> int:
+    """This rank's row-major index over `dims`."""
+    idx = 0
+    for d in _dims(dims):
+        i = _index(mesh, d)
+        idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx
+
+
+def _group_ranks(mesh, dims: tuple) -> list[int]:
+    """Global ranks of this rank's group along `dims`, row-major."""
+    axes = [_index(mesh, d) for d in dims]
+    coord = mesh.get_coordinate()
+    sub = mesh.mesh[tuple(slice(None) if i in axes else c
+                          for i, c in enumerate(coord))]
+    # `sub` keeps the mesh's dim order; put it in the order of `dims`
+    kept = sorted(axes)
+    return sub.permute([kept.index(a) for a in axes]).reshape(-1).tolist()
+
+
+def _staged(x: torch.Tensor, op: str, group) -> bool:
+    """Whether `x` must go through the host for collective `op`."""
+    return (x.is_cuda and op not in _GLOO_CUDA
+            and dist.get_backend(group) == "gloo")
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    _count("host_copy", x)
+    return x.cpu()
+
+
+def _to_device(host: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    _count("host_copy", host)
+    return out.copy_(host)
+
+
+def _all_reduce(x: torch.Tensor, dims: tuple, mesh, op, kind: str):
+    out = x.clone()
+    for d in reversed(dims):
+        group = mesh.get_group(_index(mesh, d))
+        _count(kind, out)
+        if _staged(out, "all_reduce", group):
+            host = _to_host(out)
+            dist.all_reduce(host, op=op, group=group)
+            _to_device(host, out)
+        else:
+            dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def psum(x: torch.Tensor, mesh, dims: Dims) -> torch.Tensor:
+    """The sum of `x` over the ranks along `dims` (a new tensor)."""
+    return _all_reduce(x, _dims(dims), mesh, dist.ReduceOp.SUM, "psum")
+
+
+def pmax(x: torch.Tensor, mesh, dims: Dims) -> torch.Tensor:
+    """The elementwise maximum of `x` over the ranks along `dims`."""
+    return _all_reduce(x, _dims(dims), mesh, dist.ReduceOp.MAX, "pmax")
+
+
+def pmean(x: torch.Tensor, mesh, dims: Dims) -> torch.Tensor:
+    """The mean of `x` over the ranks along `dims`: summed in f32 (bf16
+    upcast), divided, rounded to x's dtype, as `robust.replica_mean`
+    does over a dense replica axis.  The sum is reassociated."""
+    acc = psum(x.float(), mesh, dims)
+    return (acc / axis_size(mesh, dims)).to(x.dtype)
+
+
+def bcast_from_zero(x: torch.Tensor, mesh, dims: Dims) -> torch.Tensor:
+    """Every rank along `dims` adopts the value of index 0 (a new
+    tensor): a broadcast, so the value and the sign of a zero are
+    kept."""
+    out = x.clone()
+    for d in _dims(dims):
+        group = mesh.get_group(_index(mesh, d))
+        src = dist.get_global_rank(group, 0)
+        _count("broadcast", out)
+        if _staged(out, "broadcast", group):
+            host = _to_host(out)
+            dist.broadcast(host, src=src, group=group)
+            _to_device(host, out)
+        else:
+            dist.broadcast(out, src=src, group=group)
+    return out
+
+
+def all_gather(x: torch.Tensor, mesh, dims: Dims,
+               tiled: bool = True) -> torch.Tensor:
+    """The tensors of the ranks along `dims` in row-major order,
+    concatenated along dim 0 (``tiled``) or stacked on a new dim 0."""
+    out = x.contiguous() if tiled else x.unsqueeze(0).contiguous()
+    for d in reversed(_dims(dims)):
+        group = mesh.get_group(_index(mesh, d))
+        _count("all_gather", out)
+        staged = _staged(out, "all_gather", group)
+        src = _to_host(out) if staged else out
+        parts = [torch.empty_like(src)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, src, group=group)
+        cat = torch.cat(parts)
+        out = (_to_device(cat, torch.empty_like(cat, device=x.device))
+               if staged else cat)
+    return out
+
+
+def ppermute(x: torch.Tensor, mesh, dims: Dims,
+             pairs: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """`lax.ppermute`: for each (src, dst) pair of row-major indices
+    along `dims`, rank src's `x` goes to rank dst.  A rank that no pair
+    names as dst gets zeros."""
+    return ppermutes(x, mesh, dims, [pairs])[0]
+
+
+def ppermutes(x: torch.Tensor, mesh, dims: Dims,
+              pair_lists: Sequence[Sequence[tuple[int, int]]]) -> list:
+    """`ppermute` of `x` under each pair list, every transfer in one
+    batch (list k's messages carry tag k), so independent permutations,
+    such as a ring round's two shifts, travel together."""
+    dims = _dims(dims)
+    ranks = _group_ranks(mesh, dims)
+    me = axis_index(mesh, dims)
+    x = x.contiguous()
+    staged = _staged(x, "send", None)
+    send = None
+    ops, outs, landed = [], [], []
+    for tag, pairs in enumerate(pair_lists):
+        out = torch.zeros_like(x)
+        for src, dst in pairs:
+            if src == me and dst == me:
+                out.copy_(x)
+            elif src == me:
+                _count("ppermute", x)
+                if send is None:
+                    send = _to_host(x) if staged else x
+                ops.append(dist.P2POp(dist.isend, send, ranks[dst],
+                                      tag=tag))
+            elif dst == me:
+                recv = torch.empty_like(x, device="cpu") if staged else out
+                ops.append(dist.P2POp(dist.irecv, recv, ranks[src],
+                                      tag=tag))
+                if staged:
+                    landed.append((recv, out))
+        outs.append(out)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for recv, out in landed:
+        _to_device(recv, out)
+    return outs

@@ -103,7 +103,13 @@ def execute_sync(
     device = next(iter(grads.values())).device
     faults = (replica_fault_masks(plan.failures, R, step, device)
               if plan.faulty else None)
-    mix = _mixer(plan, step, faults, device)
+    return _sync_leaves(plan, grads, residuals, faults,
+                        _mixer(plan, step, faults, device), inplace)
+
+
+def _sync_leaves(plan, grads, residuals, faults, mix, inplace):
+    """Every leaf through `_sync_leaf`: (mixed, new residuals)."""
+    compressed = plan.compression.scheme != "none"
     mixed = grads if inplace else {}
     new_res = residuals if (inplace or not compressed) else {}
     for k, g in grads.items():
@@ -116,7 +122,9 @@ def execute_sync(
 
 
 def _sync_leaf(plan, g, r, faults, mix, inplace):
-    """One leaf, piece by piece of its columns: (mixed, new residual)."""
+    """One leaf, piece by piece of its columns: (mixed, new residual).
+    `g` holds the rows `faults` describes: all R, or one rank's row in
+    the sharded executor, whose pieces have the same columns."""
     if inplace and not (g.is_contiguous()
                         and (r is None or r.is_contiguous())):
         raise ValueError("inplace sync needs contiguous leaves")
@@ -128,7 +136,7 @@ def _sync_leaf(plan, g, r, faults, mix, inplace):
     if r is not None:
         out_r = r2 if inplace else torch.empty_like(r2)
         stats = row_stats(g2, r2, plan.compression)
-    cols = max(1, _PIECE // R)
+    cols = max(1, _PIECE // plan.R)
     for a in range(0, g2.shape[1], cols):
         gc = g2[:, a:a + cols]
         acc = new_r = None

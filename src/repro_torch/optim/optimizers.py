@@ -32,7 +32,7 @@ import torch
 
 __all__ = [
     "Optimizer", "adamw", "adafactor", "sgdm",
-    "apply_updates", "global_norm", "clip_by_global_norm",
+    "apply_updates", "global_norm", "square_norm", "clip_by_global_norm",
     "cosine_schedule", "make_optimizer",
 ]
 
@@ -75,9 +75,14 @@ def _sq_sum(g: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def square_norm(tree) -> torch.Tensor:
+    """The f32 sum of squares over every leaf (0-d f32)."""
+    return sum(_sq_sum(g) for g in _leaves(tree))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the f32 sum of squares over every leaf (0-d f32)."""
-    return torch.sqrt(sum(_sq_sum(g) for g in _leaves(tree)))
+    return torch.sqrt(square_norm(tree))
 
 
 def clip_by_global_norm(grads: dict, max_norm: float, *,

@@ -22,6 +22,15 @@ mixed gradients while the fresh ones become the in-flight buffer
 that produced them; step 0 is warm-up and leaves parameters and
 optimizer state untouched.
 
+With a replica `mesh` (a 1-dim `torch.distributed` `DeviceMesh`) the
+decentralized step is SPMD: each of its R ranks holds one replica's rows
+(leading axis 1, from `init_decentralized_state(..., mesh=)`) and its
+block of the batch (`data.shard_batch`), and calls the step with the
+same arguments.  The global clip norm sums each rank's f32 sum of
+squares with an all-reduce, and the mix runs through
+`dist.execute_sync_sharded`; both reassociate a sum, so a replica's
+trajectory follows the dense step's to f32 rounding.
+
 Both steps update the state IN PLACE (the reference's jit donates it)
 and return it with the step's metrics: the llama3.2-3b state is tens of
 GB, and a second copy would not fit beside it.
@@ -34,13 +43,18 @@ import torch
 
 from .._tf32 import no_tf32
 from ..core.options import resolve_device
+from ..data.pipeline import shard_slice
 from ..dist import (
-    SyncConfig, build_sync_plan, execute_sync, init_inflight, init_residual,
-    plan_wire_bytes, replica_fault_masks,
+    SyncConfig, build_sync_plan, execute_sync, execute_sync_sharded,
+    init_inflight, init_residual, plan_wire_bytes, replica_fault_masks,
 )
+from ..dist import collectives as C
+from ..dist.async_sync import check_replica_mesh
 from ..models.config import ModelConfig
 from ..models.model import loss_fn, param_dict
-from ..optim.optimizers import Optimizer, clip_by_global_norm, global_norm
+from ..optim.optimizers import (
+    Optimizer, clip_by_global_norm, global_norm, square_norm,
+)
 
 __all__ = [
     "make_train_step", "make_decentralized_step", "replica_grads",
@@ -72,20 +86,28 @@ def replicate(params, R: int) -> dict:
 
 
 def init_decentralized_state(params_replicated: dict, optimizer: Optimizer,
-                             sync: Optional[SyncConfig] = None) -> dict:
+                             sync: Optional[SyncConfig] = None, *,
+                             mesh=None, replica_axis: str = "replica") -> dict:
     """params_replicated: leading replica axis R on every leaf; the
     optimizer state's leaves (and its count) carry R too.
 
     Pass the step's `SyncConfig` to size the state for it: with a
     non-``none`` compression scheme the state grows a per-replica
     error-feedback `residuals` dict (zeros); with `overlap="one_step"`
-    (and R > 1) the double-buffered `prev_grads` dict (zeros)."""
+    (and R > 1) the double-buffered `prev_grads` dict (zeros).
+
+    With a replica `mesh` the state is this rank's rows of the dense
+    one: its block of the R rows by `data.shard_slice`'s rule over
+    `replica_axis` (copied, so the R rows can be freed)."""
     params = params_replicated
+    R = next(iter(params.values())).shape[0]
+    if mesh is not None:
+        rows = shard_slice(R, mesh, replica_axis)
+        params = {k: p[rows].clone() for k, p in params.items()}
     state = {"params": params, "opt": optimizer.init(params, stacked=True),
              "step": 0}
     if sync is not None and sync.compression.scheme != "none":
         state["residuals"] = init_residual(params)
-    R = next(iter(params.values())).shape[0]
     if sync is not None and sync.overlap == "one_step" and R > 1:
         state["prev_grads"] = init_inflight(params)
     return state
@@ -147,12 +169,19 @@ def replica_grads(cfg: ModelConfig, params: dict, batch: dict):
     return torch.stack(losses), grads
 
 
-def clip_replicas_(grads: dict, clip_norm: float) -> torch.Tensor:
+def clip_replicas_(grads: dict, clip_norm: float, *, mesh=None,
+                   replica_axis: str = "replica") -> torch.Tensor:
     """Clip R-stacked gradients in place to a global norm of
     ``clip_norm * sqrt(R)`` over all replicas (each replica's own budget
-    of `clip_norm`, as the reference clips); returns the norm before."""
-    R = next(iter(grads.values())).shape[0]
-    gnorm = global_norm(grads)
+    of `clip_norm`, as the reference clips); returns the norm before.
+    With a replica `mesh` `grads` holds this rank's rows, and the f32
+    sums of squares of all R replicas are all-reduced."""
+    if mesh is None:
+        R = next(iter(grads.values())).shape[0]
+        gnorm = global_norm(grads)
+    else:
+        R = C.axis_size(mesh, replica_axis)
+        gnorm = torch.sqrt(C.psum(square_norm(grads), mesh, replica_axis))
     scale = torch.clamp(clip_norm * R**0.5 / torch.clamp_min(gnorm, 1e-9),
                         max=1.0)
     for g in grads.values():
@@ -160,41 +189,61 @@ def clip_replicas_(grads: dict, clip_norm: float) -> torch.Tensor:
     return gnorm
 
 
-def _pieces(leaf: torch.Tensor):
-    """Column pieces of a (R, ...) leaf viewed as (R, D)."""
+def _pieces(leaf: torch.Tensor, R: int):
+    """Column pieces of a (rows, ...) leaf viewed as (rows, D), as wide
+    as R rows allow."""
     flat = leaf.reshape(leaf.shape[0], -1)
-    cols = max(1, _PIECE // leaf.shape[0])
-    return flat.split(cols, dim=1)
+    return flat.split(max(1, _PIECE // R), dim=1)
 
 
-def consensus_distance(params: dict) -> torch.Tensor:
+def consensus_distance(params: dict, *, mesh=None,
+                       replica_axis: str = "replica") -> torch.Tensor:
     """RMS distance of replicas from their mean (leading axis R) — the
-    training-side analogue of the paper's eps accuracy (0-d f32)."""
+    training-side analogue of the paper's eps accuracy (0-d f32).  With
+    a replica `mesh` `params` holds this rank's rows; the mean and the
+    sum are all-reduced."""
+    R = (next(iter(params.values())).shape[0] if mesh is None
+         else C.axis_size(mesh, replica_axis))
     sq, n = 0.0, 0
     for p in params.values():
-        for piece in _pieces(p):
+        for piece in _pieces(p, R):
             pf = piece.float()
-            d = pf - pf.mean(dim=0, keepdim=True)
+            mean = (pf.mean(dim=0, keepdim=True) if mesh is None
+                    else C.pmean(pf, mesh, replica_axis))
+            d = pf - mean
             sq = sq + (d * d).sum()
         n += p.numel()
+    if mesh is not None:
+        sq, n = C.psum(sq, mesh, replica_axis), n * R
     return torch.sqrt(sq / max(n, 1))
 
 
-def survivor_consensus_distance(params: dict,
-                                live: torch.Tensor) -> torch.Tensor:
+def survivor_consensus_distance(params: dict, live: torch.Tensor, *,
+                                mesh=None,
+                                replica_axis: str = "replica") -> torch.Tensor:
     """`consensus_distance` restricted to the live replicas of a faulty
-    sync step: RMS distance of the live replicas from the *live* mean."""
+    sync step: RMS distance of the live replicas from the *live* mean.
+    `live` is the (R,) mask; with a replica `mesh` `params` holds this
+    rank's rows, and the sums are all-reduced."""
     live_f = live.float()
     cnt = torch.clamp_min(live_f.sum(), 1.0)
+    R = live.shape[0]
+    if mesh is not None:
+        rows = shard_slice(R, mesh, replica_axis)
+        live_f = live_f[rows]
     w = live_f[:, None]
     sq, n = 0.0, 0.0
     for p in params.values():
-        for piece in _pieces(p):
+        for piece in _pieces(p, R):
             pf = piece.float()
-            mean = (pf * w).sum(dim=0, keepdim=True) / cnt
-            d = (pf - mean) * w
+            total = (pf * w).sum(dim=0, keepdim=True)
+            if mesh is not None:
+                total = C.psum(total, mesh, replica_axis)
+            d = (pf - total / cnt) * w
             sq = sq + (d * d).sum()
         n = n + cnt * (p.numel() // p.shape[0])
+    if mesh is not None:
+        sq = C.psum(sq, mesh, replica_axis)
     return torch.sqrt(sq / torch.clamp_min(n, 1.0))
 
 
@@ -207,6 +256,7 @@ def make_decentralized_step(
     *,
     clip_norm: float = 1.0,
     mesh=None,
+    replica_axis: str = "replica",
     device="cuda",
 ) -> Callable:
     """Step over replicated state on `device` (the card unless "cpu" is
@@ -216,18 +266,27 @@ def make_decentralized_step(
     The sync config is resolved to a static `SyncPlan` here, once.  With
     compression on, `state` must carry `residuals`, and with
     `overlap="one_step"` also `prev_grads`, from
-    `init_decentralized_state(..., sync=sync)`.  `mesh` (the reference's
-    shard_map executor) is not ported and raises.
+    `init_decentralized_state(..., sync=sync)`.  A replica `mesh` (a
+    1-dim `DeviceMesh` whose `replica_axis` dim has R ranks) makes the
+    step SPMD (module docstring): the state holds this rank's rows, the
+    batch is its block (1, per_replica, S), the mix runs through
+    `dist.execute_sync_sharded`, and the metrics are the replicas'
+    (``"replica_loss"`` is this rank's own loss).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded sync executor (mesh=) is not ported yet (ROADMAP "
-            "Queue A, several devices)")
     dev = resolve_device(device)
     R = num_replicas
     plan = build_sync_plan(sync, R)
+    if mesh is not None:
+        check_replica_mesh(plan, mesh, replica_axis)
     compressed = plan.compression.scheme != "none"
     overlapped = plan.overlapped
+    on_mesh = dict(mesh=mesh, replica_axis=replica_axis)
+
+    def mix(grads, residuals, s):
+        if mesh is None:
+            return execute_sync(plan, grads, residuals, s, inplace=True)
+        return execute_sync_sharded(plan, grads, residuals, s, mesh=mesh,
+                                    axis_name=replica_axis, inplace=True)
 
     def step(state, batch):
         if compressed and "residuals" not in state:
@@ -245,21 +304,19 @@ def make_decentralized_step(
         losses, grads = replica_grads(cfg, params, _on(batch, dev))
         with torch.no_grad():
             # per-replica clipping, then gossip mixing (the averaging)
-            gnorm = clip_replicas_(grads, clip_norm)
+            gnorm = clip_replicas_(grads, clip_norm, **on_mesh)
             wire = plan_wire_bytes(plan, grads)
             if overlapped:
                 # apply the PREVIOUS step's mixed gradients under the
                 # rotation index and learning rate of the step that
                 # produced them; the fresh ones go in flight
-                mixed, residuals = execute_sync(
-                    plan, state["prev_grads"], state.get("residuals"), t - 1,
-                    inplace=True)
+                mixed, residuals = mix(state["prev_grads"],
+                                       state.get("residuals"), t - 1)
                 state["prev_grads"] = grads
                 warm = t > 0
                 lr = lr_fn(max(t - 1, 0))
             else:
-                mixed, residuals = execute_sync(
-                    plan, grads, state.get("residuals"), t, inplace=True)
+                mixed, residuals = mix(grads, state.get("residuals"), t)
                 warm = True
                 lr = lr_fn(t)
             if warm:  # warm-up step 0 discards the update wholesale
@@ -269,20 +326,23 @@ def make_decentralized_step(
             if "residuals" in state:
                 state["residuals"] = residuals
             state["step"] = t + 1
-            consensus = consensus_distance(params)
+            consensus = consensus_distance(params, **on_mesh)
             # degradation metrics: the sync index's fault masks (the
             # executor drew the same ones), consensus over survivors only
             if plan.faulty:
                 faults = replica_fault_masks(
                     plan.failures, R, t - 1 if overlapped else t, dev)
-                surv_err = survivor_consensus_distance(params, faults.live)
+                surv_err = survivor_consensus_distance(params, faults.live,
+                                                       **on_mesh)
                 eff_frac = faults.live.float().mean()
                 rejected = (faults.byzantine.float().sum()
                             if plan.robust_consensus else 0.0)
             else:
                 surv_err, eff_frac, rejected = consensus, 1.0, 0.0
+            loss = (losses.mean() if mesh is None else
+                    C.psum(losses.sum(), mesh, replica_axis) / R)
         metrics = {
-            "loss": losses.mean(),
+            "loss": loss,
             "grad_norm": gnorm,
             "lr": lr,
             "consensus_distance": consensus,
@@ -293,6 +353,8 @@ def make_decentralized_step(
             "effective_replica_fraction": eff_frac,
             "rejected_gradient_count": rejected,
         }
+        if mesh is not None:
+            metrics["replica_loss"] = losses[0]
         return state, metrics
 
     return step

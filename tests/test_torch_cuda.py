@@ -978,3 +978,44 @@ def test_chunked_attention_on_card_matches_full(cuda_device, Sq, Sk, H, Hkv,
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     for g, w in zip(got_g, want_g):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def _collectives_rank(rank, world):
+    """CUDA tensors through the collective layer on a gloo group: every
+    rank on cuda:0, the results and this rank's account."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist import collectives as C
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("replica",))
+    x = torch.arange(6, dtype=torch.float32, device=dev) + 10.0 * rank
+    C.reset_account()
+    swapped = C.ppermute(x, mesh, "replica", [(0, 1), (1, 0)])
+    mean = C.pmean(x.to(torch.bfloat16), mesh, "replica")
+    gathered = C.all_gather(x[None], mesh, "replica")
+    zero = C.bcast_from_zero(x, mesh, "replica")
+    devices = {t.device.type for t in (swapped, mean, gathered, zero)}
+    return dict(swapped=swapped.cpu(), mean=mean.float().cpu(),
+                gathered=gathered.cpu(), zero=zero.cpu(), devices=devices,
+                account=C.account())
+
+
+@pytest.mark.cuda
+def test_collectives_move_cuda_tensors_over_gloo(cuda_device):
+    from repro_torch.dist.ranks import run_ranks
+
+    out = run_ranks(_collectives_rank, 2, backend="gloo", timeout=120)
+    xs = [torch.arange(6, dtype=torch.float32) + 10.0 * r for r in range(2)]
+    want_mean = ((xs[0].to(torch.bfloat16).float()
+                  + xs[1].to(torch.bfloat16).float()) / 2).to(torch.bfloat16)
+    for rank, res in enumerate(out):
+        assert res["devices"] == {"cuda"}
+        assert torch.equal(res["swapped"], xs[1 - rank])
+        assert torch.equal(res["mean"], want_mean.float())
+        assert torch.equal(res["gathered"], torch.stack(xs))
+        assert torch.equal(res["zero"], xs[0])
+        # p2p and gathers go through the host, counted both ways
+        assert res["account"]["host_copy"]["calls"] >= 4
+        assert res["account"]["ppermute"]["calls"] == 1

@@ -17,6 +17,7 @@ loss trajectory at 1e-4, and no multi-step run compares residuals
 Exact strategies keep the port's replicas bitwise identical.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -255,7 +256,9 @@ def test_decentralized_step_requires_its_state(model):
                                           device="cpu")
         with pytest.raises(ValueError, match=what):
             step(state, _batch(data, 0))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh without a "replica" dim is refused, as the reference does
+    no_replica = SimpleNamespace(mesh_dim_names=("data",), shape=(R,))
+    with pytest.raises(ValueError, match="no dim 'replica'"):
         TT.make_decentralized_step(pcfg, opt, lambda s: 1e-2,
-                                   TD.SyncConfig(), R, mesh=object(),
+                                   TD.SyncConfig(), R, mesh=no_replica,
                                    device="cpu")

@@ -14,6 +14,7 @@ accumulator bitwise.
 """
 import dataclasses
 import itertools
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -339,8 +340,11 @@ def test_async_execute_sync_matches_reference(kw):
             if res is not None:
                 np.testing.assert_allclose(tr[k].numpy(), np.asarray(rr[k]),
                                            rtol=TOL, atol=TOL)
-    with pytest.raises(NotImplementedError, match="mesh=None"):
-        TD.async_execute_sync(tplan, _torch(g), _torch(prev), mesh=object())
+    # a mesh without a "replica" dim is refused, as the reference does
+    no_replica = SimpleNamespace(mesh_dim_names=("data",), shape=(8,))
+    with pytest.raises(ValueError, match="no dim 'replica'"):
+        TD.async_execute_sync(tplan, _torch(g), _torch(prev),
+                              mesh=no_replica)
 
 
 @pytest.mark.parametrize("strategy", ["allreduce", "hierarchical", "ring",
