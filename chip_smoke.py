@@ -77,8 +77,14 @@ mesh, bitwise to the unsharded run with 33 launches of `sample_chunk`
 and `pair_apply` in each rank; M4 `make_decentralized_step` on a
 4-rank replica mesh at llama3.2-3b width against the dense step at
 R=4 (in the same group); M3 `execute_sync_sharded` on 8 ranks in eight
-sync modes against `execute_sync` on the card.  None of them times a
-collective.  Any failed check raises, and the script exits non-zero.
+sync modes against `execute_sync` on the card.  Then model sharding over
+a (data, model) mesh, in one more 4-rank group: S1 llama3.2-3b's sharded
+prefill at full width (4 layers, 4 x 4096 on 2 x 2, one bf16 flash
+launch a layer in each rank on its heads; an f32 copy's blocks against
+the unsharded model), S2 one sharded AdamW step (2 layers, f32) against
+the unsharded step, S3 its state saved and restored onto a 4 x 1 mesh,
+bitwise.  None of them times a collective.  Any failed check raises,
+and the script exits non-zero.
 
 Output: progress lines, the card's name and power limit, one JSON line
 ``{"kernels": [...]}`` (per kernel: its launches on each path that runs
@@ -236,6 +242,32 @@ MESH_SEED = 0
 MESH_SYNC_SHAPE = (3072, 3072)
 MESH_SYNC_TOL = 2e-6
 MESH_TRAIN = dict(R=4, steps=2, rtol=1e-5)
+# S1-S3, model sharding over a (data, model) mesh (models.sharded), as
+# ranks of one gloo group sharing the card like M1-M4 (so nothing here
+# times a collective across cards).  S1: llama3.2-3b at full width and
+# SHARD["prefill_layers"] layers in bf16, forward on PREFILL (4 x 4096) on
+# a 2 x 2 mesh: each rank 2 rows, 12 query and 4 KV heads and half the
+# vocabulary, one launch of the bf16 flash kernel a layer and nothing
+# else; then an f32 copy at SHARD["agree_layers"] layers, each rank's
+# hidden state and logits block against the unsharded model on its rows
+# on the card, allclose at SHARD["prefill_tol"] (rtol and atol; the
+# sharded run sums the row-parallel products in another order).  S2: one
+# AdamW step (lr SHARD["lr"]) of llama3.2-3b width at
+# SHARD["train_layers"] layers in f32 on SHARD["train"] (4 x 512)
+# SyntheticLM tokens on the 2 x 2 mesh against the unsharded step on the
+# card: the loss, every block of the first moment ((1 - b1) g) and every
+# block of the parameters drawn from the seed within SHARD["train_tol"]
+# of the leaf's largest element; no kernel launch.  The zero-initialised
+# norm scales are held through their first moments and their own error
+# is reported: their first step is lr * g / (|g| + eps), the leaf's
+# largest element is lr itself, and where this random model's gradient
+# is far below eps (its loss is ~35.8: the tied logits peak on the input
+# token) the step carries the gradient's f32 rounding amplified by up to
+# lr / eps.  S3: S2's state saved with its shardings and restored onto a
+# 4 x 1 mesh, every block bitwise.  The group has MESH["timeout"].
+SHARD = dict(ranks=4, mesh=(2, 2), restore_mesh=(4, 1), prefill_layers=4,
+             agree_layers=2, prefill_tol=1e-4, train_layers=2,
+             train=(4, 512), lr=1e-5, train_tol=1e-5)
 # the serving fleet.  P1: the legacy per-tick schedule on the n=10^5 FI
 # plan, backend "ref" (the plain tick scan) and "cuda" (each chunk's
 # mixing matrix built tick by tick from the identity's rows, one
@@ -3513,6 +3545,119 @@ class Smoke:
 # Module-level, so that the ranks (spawned, importing this file without
 # running main) can unpickle them.
 
+    def sharded_model(self) -> dict:
+        """S1-S3 (SHARD): the parent's unsharded AdamW step first (its
+        loss and parameters written to a temp dir), then one group of 4
+        ranks.  Returns each phase's launches of each kernel in rank 0."""
+        torch = self.torch
+        from repro_torch.dist.ranks import run_ranks
+        from repro_torch.optim import adamw
+        from repro_torch.train import init_train_state, make_train_step
+
+        row = {}
+        t_all = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_s_") as tmp:
+            t0 = time.perf_counter()
+            cfg, model, batch = _shard_train_setup(torch, self.dev)
+            opt = adamw()
+            state = init_train_state(model, opt)
+            step = make_train_step(cfg, opt, _shard_lr(), device=self.dev)
+            state, m = step(state, batch)
+            want_loss = float(m["loss"])
+            torch.save({f"{part}/{k}": p.cpu() for part, tree in (
+                ("params", state["params"]), ("m", state["opt"]["m"]))
+                for k, p in tree.items()}, Path(tmp) / "s2_state.pt")
+            del state, step, model, m
+            torch.cuda.empty_cache()
+            row["s2_reference_s"] = time.perf_counter() - t0
+            log(f"[shard S2] unsharded AdamW step on the card: loss "
+                f"{want_loss!r}, {row['s2_reference_s']:.1f} s")
+            t0 = time.perf_counter()
+            ranks = run_ranks(_shard_rank, SHARD["ranks"], tmp,
+                              backend="gloo", timeout=MESH["timeout"],
+                              threads=_rank_threads(SHARD["ranks"]))
+            row["group_s"] = time.perf_counter() - t0
+        paths = {}
+        for name in ("S1", "S2", "S3"):
+            for rank, out in enumerate(ranks):
+                got = out[name]
+                log(f"[shard {name}] rank {rank}: {got['seconds']:.2f} s, "
+                    f"collectives {got['account']}")
+        s1 = [out["S1"] for out in ranks]
+        for rank, got in enumerate(s1):
+            check(got["counts"]["flash_attention"] == SHARD["prefill_layers"]
+                  and got["flash"] == {"flash_attention_sm90":
+                                       SHARD["prefill_layers"],
+                                       "flash_attention": 0},
+                  f"S1 rank {rank}: the sharded prefill launched "
+                  f"{got['counts']} {got['flash']}, not one bf16 flash "
+                  f"launch a layer")
+            self.check_idle(got["counts"], "flash_attention",
+                            f"S1 rank {rank}")
+            check(got["finite"] and got["shape"] == got["want_shape"],
+                  f"S1 rank {rank}: logits block {got['shape']} (want "
+                  f"{got['want_shape']}), finite {got['finite']}")
+            for what in ("hidden", "logits"):
+                check(got[f"{what}_close"],
+                      f"S1 rank {rank}: the f32 {what} differ from the "
+                      f"unsharded model's by {got[f'{what}_err']} (max abs)")
+        row["S1"] = {k: [g[k] for g in s1] for k in (
+            "seconds", "hidden_err", "logits_err", "agree_s")}
+        log(f"[shard S1] llama3.2-3b {SHARD['prefill_layers']} layers bf16 "
+            f"prefill {PREFILL[0]}x{PREFILL[1]} on {SHARD['mesh']}: each rank "
+            f"{s1[0]['want_shape']} logits, {SHARD['prefill_layers']} bf16 "
+            f"flash launches; f32 at {SHARD['agree_layers']} layers: hidden "
+            f"within {max(row['S1']['hidden_err']):.3g}, logits within "
+            f"{max(row['S1']['logits_err']):.3g} (max abs)")
+        paths["S1"] = s1[0]["counts"]
+        worst = {"params": 0.0, "m": 0.0, "zero_init": 0.0}
+        for rank, out in enumerate(ranks):
+            got = out["S2"]
+            err = abs(got["loss"] - want_loss) / abs(want_loss)
+            check(err <= SHARD["train_tol"],
+                  f"S2 rank {rank}: loss {got['loss']!r} vs {want_loss!r}")
+            for key, e in got["rel"].items():
+                part, k = key.split("/", 1)
+                if part == "params" and k in got["zero_init"]:
+                    part = "zero_init"   # held through "m" (SHARD)
+                else:
+                    check(e <= SHARD["train_tol"],
+                          f"S2 rank {rank}: {key} differs by {e} of its "
+                          f"largest element")
+                worst[part] = max(worst[part], e)
+            self.check_idle(got["counts"], None, f"S2 rank {rank}")
+            check(not any(got["flash"].values()),
+                  f"S2 rank {rank} launched {got['flash']}")
+            check(out["S3"]["bitwise"] and out["S3"]["step"] == 1,
+                  f"S3 rank {rank}: the restore on {SHARD['restore_mesh']} "
+                  f"differs: {out['S3']}")
+        row["S2"] = dict(loss=[o["S2"]["loss"] for o in ranks],
+                         want_loss=want_loss, worst_rel=worst,
+                         seconds=[o["S2"]["seconds"] for o in ranks])
+        row["S3"] = {k: [o["S3"][k] for o in ranks] for k in (
+            "seconds", "save_s", "restore_s", "check_s")}
+        row["S3"]["leaves"] = ranks[0]["S3"]["leaves"]
+        log(f"[shard S2] AdamW step {SHARD['train'][0]}x{SHARD['train'][1]} "
+            f"on {SHARD['mesh']}: losses {row['S2']['loss']} vs "
+            f"{want_loss!r}; of each leaf's largest element, the first "
+            f"moments within {worst['m']:.3g}, the parameters within "
+            f"{worst['params']:.3g}, the zero-initialised norm scales "
+            f"within {worst['zero_init']:.3g}; no kernel launch")
+        log(f"[shard S3] state saved from {SHARD['mesh']} and restored on "
+            f"{SHARD['restore_mesh']}: {row['S3']['leaves']} leaves bitwise; "
+            f"save {max(row['S3']['save_s']):.1f} s, restore "
+            f"{max(row['S3']['restore_s']):.1f} s, the check's gathers "
+            f"{max(row['S3']['check_s']):.1f} s")
+        paths["S2"] = ranks[0]["S2"]["counts"]
+        row["account_rank0"] = {n: ranks[0][n]["account"]
+                                for n in ("S1", "S2", "S3")}
+        row["total_s"] = time.perf_counter() - t_all
+        log(f"[shard] S1-S3 took {row['total_s']:.1f} s: the unsharded step "
+            f"{row['s2_reference_s']:.1f} s, the 4-rank group "
+            f"{row['group_s']:.1f} s")
+        self.report["shard"] = row
+        return paths
+
 def _rank_threads(ranks: int) -> int:
     """CPU threads a rank: the host's cores shared out (more threads
     than cores make torch's CPU ops spin against each other)."""
@@ -3739,6 +3884,201 @@ def _mesh_sync_rank(rank, world) -> dict:
     return out
 
 
+def _shard_lr():
+    from repro_torch.optim import cosine_schedule
+
+    return cosine_schedule(SHARD["lr"], 0, 10)
+
+
+def _shard_train_setup(torch, dev):
+    """S2's model (llama3.2-3b width, SHARD["train_layers"] layers, f32)
+    drawn on the card from MODEL_SEED, and its SyntheticLM batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Transformer
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), dtype="float32",
+                              num_layers=SHARD["train_layers"])
+    B, S = SHARD["train"]
+    batch = SyntheticLM(cfg.vocab_size, S, B, seed=MODEL_SEED).batch_at(0)
+    return cfg, Transformer(cfg).init(seed=MODEL_SEED, device=dev), batch
+
+
+def _shard_prefill(torch, smoke, mesh) -> dict:
+    """S1 in one rank."""
+    import numpy as np
+
+    from repro_torch._tf32 import no_tf32
+    from repro_torch.configs import get_config
+    from repro_torch.data import shard_batch
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch import batch_axes, set_mesh
+    from repro_torch.models import Transformer, forward
+    from repro_torch.models import sharded as SH
+    from repro_torch.models.model import _hidden, _tree, param_specs
+
+    dev = torch.device("cuda", 0)
+    dp = batch_axes(mesh)
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              num_layers=SHARD["prefill_layers"])
+    B, S = PREFILL
+    tokens = np.random.default_rng(MODEL_SEED).integers(
+        0, cfg.vocab_size, (B, S))
+    rows = shard_batch({"tokens": tokens}, mesh, dp)
+    local = SH.shard_params(Transformer(cfg).init(seed=MODEL_SEED,
+                                                  device=dev),
+                            mesh, param_specs(cfg, mesh))
+    torch.cuda.empty_cache()
+    smoke.zero_counts()
+    C.reset_account()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with set_mesh(mesh):
+        logits = forward(local, cfg, rows, dp=dp)
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, counts=smoke.read_counts(),
+               flash=dict(smoke.flash_kernels()), account=C.account(),
+               shape=tuple(logits.shape),
+               want_shape=(B // 2, S, cfg.vocab_size // 2),
+               finite=bool(torch.isfinite(logits).all()))
+    del logits, local
+    torch.cuda.empty_cache()
+    # the f32 copy: this rank's blocks against the unsharded model on its
+    # rows, on the card
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=SHARD["agree_layers"])
+    full = Transformer(cfg32).init(seed=MODEL_SEED, device=dev)
+    local = SH.shard_params(full, mesh, param_specs(cfg32, mesh))
+    tol = SHARD["prefill_tol"]
+    with set_mesh(mesh), no_tf32(), torch.no_grad():
+        got = _hidden(_tree(local), cfg32, rows, lay=SH.layout(cfg32, dp))
+    with no_tf32(), torch.no_grad():
+        want = _hidden(full, cfg32, rows)
+    out["hidden_err"] = float((got - want).abs().max())
+    out["hidden_close"] = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+    del got, want
+    with set_mesh(mesh):
+        got = forward(local, cfg32, rows, dp=dp)
+    want = SH.local_block(forward(full, cfg32, rows), mesh,
+                          (None, None, "model"))
+    out["logits_err"] = float((got - want).abs().max())
+    out["logits_close"] = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+    del got, want, full, local
+    torch.cuda.empty_cache()
+    out["agree_s"] = time.perf_counter() - t0
+    return out
+
+
+def _shard_train(torch, smoke, mesh, tmp) -> dict:
+    """S2 and S3 in one rank."""
+    from repro_torch.data import shard_batch
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch import batch_axes, make_host_mesh, set_mesh
+    from repro_torch.launch.specs import state_shardings
+    from repro_torch.models import sharded as SH
+    from repro_torch.models.model import flat_tree, model_params, param_specs
+    from repro_torch.optim import adamw
+    from repro_torch.train import (
+        init_train_state, make_train_step, restore_checkpoint,
+        save_checkpoint,
+    )
+
+    dev = torch.device("cuda", 0)
+    dp = batch_axes(mesh)
+    cfg, model, batch = _shard_train_setup(torch, dev)
+    p_abs, specs = model.abstract(), model.specs()
+    local = SH.shard_params(model, mesh, param_specs(cfg, mesh))
+    del model
+    torch.cuda.empty_cache()
+    opt = adamw()
+    state = init_train_state(local, opt)
+    step = make_train_step(cfg, opt, _shard_lr(), device=dev, dp=dp)
+    smoke.zero_counts()
+    C.reset_account()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with set_mesh(mesh):
+        state, m = step(state, shard_batch(batch, mesh, dp))
+    torch.cuda.synchronize()
+    s2 = dict(seconds=time.perf_counter() - t0, loss=float(m["loss"]),
+              counts=smoke.read_counts(), flash=dict(smoke.flash_kernels()),
+              account=C.account())
+    want = torch.load(Path(tmp) / "s2_state.pt", mmap=True)
+    ps = param_specs(cfg, mesh)
+    rel = {}
+    for part, tree in (("params", state["params"]), ("m", state["opt"]["m"])):
+        for k, p in tree.items():
+            w = SH.local_block(want[f"{part}/{k}"], mesh, ps[k]).to(dev)
+            rel[f"{part}/{k}"] = float((p - w).abs().max()
+                                       / w.abs().max().clamp_min(1e-30))
+    s2["rel"] = rel
+    s2["zero_init"] = sorted(k for k, d in flat_tree(model_params(cfg))
+                             if d.init == "zeros")
+    del want
+    # S3: save with this mesh's shardings, restore onto the 4 x 1 mesh
+    C.reset_account()
+    t0 = time.perf_counter()
+    opt_abs = opt.init(p_abs)
+    ckpt = str(Path(tmp) / "s3")
+    save_checkpoint(ckpt, state, 1, shardings=state_shardings(
+        mesh, p_abs, specs, opt_abs), mesh=mesh)
+    t_save = time.perf_counter()
+    new = make_host_mesh(*SHARD["restore_mesh"], device_type="cuda")
+    new_sh = state_shardings(new, p_abs, specs, opt_abs)
+    like = {"params": {}, "opt": {"m": {}, "v": {}, "count": torch.zeros(
+        (), dtype=torch.int32, device=dev)}, "step": 0}
+    for k, a in p_abs.items():
+        for tree, spec in ((like["params"], new_sh["params"][k]),
+                           (like["opt"]["m"], new_sh["opt"]["m"][k]),
+                           (like["opt"]["v"], new_sh["opt"]["v"][k])):
+            shape = SH.local_block(a, new, spec).shape
+            tree[k] = torch.zeros(shape, dtype=(a.dtype if tree is
+                                                like["params"]
+                                                else torch.float32),
+                                  device=dev)
+    got, step_no = restore_checkpoint(ckpt, like, shardings=new_sh, mesh=new)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter()
+    old_sh = state_shardings(mesh, p_abs, specs, opt_abs)
+    same, leaves = got["step"] == state["step"], 0
+    for part, path in (("params", ("params",)), ("m", ("opt", "m")),
+                       ("v", ("opt", "v"))):
+        src, dst = state, got
+        sh_old, sh_new = old_sh, new_sh
+        for key in path:
+            src, dst = src[key], dst[key]
+            sh_old, sh_new = sh_old[key], sh_new[key]
+        for k in src:
+            whole = SH.gather_act(src[k], mesh, sh_old[k])
+            same &= torch.equal(SH.local_block(whole, new, sh_new[k]),
+                                dst[k])
+            leaves += 1
+            del whole
+    same &= torch.equal(got["opt"]["count"], state["opt"]["count"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s3 = dict(seconds=t1 - t0, save_s=t_save - t0,
+              restore_s=t_restore - t_save, check_s=t1 - t_restore,
+              bitwise=bool(same), step=step_no, leaves=leaves,
+              account=C.account())
+    return s2, s3
+
+
+def _shard_rank(rank, world, tmp):
+    """S1, S2 and S3 in one rank of the 4-rank group."""
+    import torch
+
+    from repro_torch.launch import make_host_mesh
+
+    torch.cuda.set_device(0)
+    smoke = Smoke(torch)
+    mesh = make_host_mesh(*SHARD["mesh"], device_type="cuda")
+    out = {"S1": _shard_prefill(torch, smoke, mesh)}
+    out["S2"], out["S3"] = _shard_train(torch, smoke, mesh, tmp)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3784,6 +4124,9 @@ def main() -> int:
         f"(trials, nodes) mesh (gloo, one card), backend cuda, each rank":
             mesh["m2"]}
     del g5, plan5
+    # S1-S3: model sharding over a (data, model) mesh, ranks on this card
+    torch.cuda.empty_cache()
+    shard = smoke.sharded_model()
     g6, plan6, x06, graph6, pl6 = smoke.setup(1_000_000)
     main6 = smoke.large_n(1_000_000, g6, plan6, x06, graph6, pl6)
     del g6, plan6
@@ -3969,8 +4312,16 @@ def main() -> int:
     m4_path = (f"make_decentralized_step llama3.2-3b width, 1 layer, sgdm, "
                f"{MESH_TRAIN['R']}-rank replica mesh (gloo, one card), each "
                f"rank")
+    s1_path = (f"forward llama3.2-3b {SHARD['prefill_layers']} layers "
+               f"{PREFILL[0]}x{PREFILL[1]} on a 2 x 2 (data, model) mesh "
+               f"(gloo, one card), each rank")
+    s2_path = (f"make_train_step llama3.2-3b width, {SHARD['train_layers']} "
+               f"layers, f32, AdamW, {SHARD['train'][0]}x{SHARD['train'][1]} "
+               f"on a 2 x 2 (data, model) mesh, each rank")
     for name, row in smoke.kernels.items():
         row["launches_by_path"][m4_path] = mesh["m4"][name]
+        row["launches_by_path"][s1_path] = shard["S1"][name]
+        row["launches_by_path"][s2_path] = shard["S2"][name]
 
     total = time.perf_counter() - t_start
     smoke.report["total_s"] = total

@@ -3,7 +3,10 @@
 `run_ranks(fn, world, *args, backend=..., timeout=...)` starts `world`
 processes with the ``spawn`` method (safe in a parent that has started
 CUDA or threads), which meet through a file store in a fresh temporary
-directory, not a TCP port.  Rank r initialises the default process group
+directory, not a TCP port.  `fn` and its arguments reach the ranks as
+one file of plain `pickle.dumps` bytes in that directory (tensors by
+value), so starting a rank does not wait for the one before to read
+them.  Rank r initialises the default process group
 with the caller's `backend`, calls ``fn(r, world, *args)`` and sends its
 result back; `run_ranks` returns the results in rank order.  `fn` and
 its arguments are pickled, so `fn` is a module-level function.  A
@@ -32,7 +35,7 @@ from typing import Callable, Optional
 __all__ = ["run_ranks"]
 
 
-def _rank_main(fn, rank, world, args, backend, store, timeout, threads,
+def _rank_main(payload, rank, world, backend, store, timeout, threads,
                results):
     import torch
     import torch.distributed as dist
@@ -40,6 +43,8 @@ def _rank_main(fn, rank, world, args, backend, store, timeout, threads,
     if threads is not None:
         torch.set_num_threads(threads)
     try:
+        with open(payload, "rb") as f:
+            fn, args = pickle.load(f)
         dist.init_process_group(
             backend, init_method=f"file://{store}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=timeout))
@@ -75,6 +80,9 @@ def run_ranks(fn: Callable, world: int, *args, backend: str,
 
     with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
         store = os.path.join(tmp, "store")
+        payload = os.path.join(tmp, "payload")
+        with open(payload, "wb") as f:
+            f.write(pickle.dumps((fn, args)))
         env = os.environ.get("OMP_NUM_THREADS")
         if threads is not None:
             os.environ["OMP_NUM_THREADS"] = str(threads)
@@ -82,7 +90,7 @@ def run_ranks(fn: Callable, world: int, *args, backend: str,
             for r in range(world):
                 procs.append(ctx.Process(
                     target=_rank_main,
-                    args=(fn, r, world, args, backend, store, timeout,
+                    args=(payload, r, world, backend, store, timeout,
                           threads, results), daemon=True))
                 procs[-1].start()
             deadline = time.monotonic() + timeout

@@ -32,6 +32,15 @@ at its own position.  It is plain tensor code too, as in the reference.
 
 The functions take `params` as any mapping of name to tensor: a dict,
 or the `ParameterDict` of a `models.model.Transformer` block.
+
+Under a mesh (`launch.mesh.set_mesh`) and with `dp=`, `attention` and
+`decode_attention` run sharded (`models.sharded`): `params` hold this
+rank's blocks, gathered over the data-parallel dims at use; the rank
+computes its H/m query and Hkv/m KV heads (a config view with
+`head_dim` pinned to the model's head width, so the flash route
+launches the kernel on the rank's heads), and the output projection's
+partial sums are added over "model".  The reference's `_constrain_heads`
+is not ported: that layout is written out here.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
+from . import sharded
 from .config import ModelConfig
 from .layers import DTYPES, P_, dense, mrope, rope
 
@@ -58,10 +68,10 @@ def attn_params(cfg: ModelConfig, cross: bool = False) -> dict:
     the same shapes."""
     D, H, Hkv, dh = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.head_width
     return {
-        "wq": P_((D, H * dh)),
-        "wk": P_((D, Hkv * dh)),
-        "wv": P_((D, Hkv * dh)),
-        "wo": P_((H * dh, D)),
+        "wq": P_((D, H * dh), spec=("data", "model")),
+        "wk": P_((D, Hkv * dh), spec=("data", "model")),
+        "wv": P_((D, Hkv * dh), spec=("data", "model")),
+        "wo": P_((H * dh, D), spec=("model", "data")),
     }
 
 
@@ -230,6 +240,7 @@ def attention(
     memory_positions=None,
     chunk_threshold: int = 2047,
     train: bool = False,
+    dp=None,
 ):
     """Self- (or cross-) attention over a full sequence (prefill, or
     training when `train`).  `positions` is (B, S), or (B, S, 3) for
@@ -245,7 +256,31 @@ def attention(
     `positions=None` takes the flash op, and training, explicit or
     M-RoPE positions and cross-attention take `chunked_attention` over
     chunks of min(1024, keys); otherwise `full_attention` with the masks
-    as biases."""
+    as biases.
+
+    `dp` (the data-parallel dims, or a `sharded.Layout`) under a mesh:
+    sharded (module docstring); x is this rank's rows, replicated over
+    "model", and so is the output.  Cross-attention does not shard
+    yet."""
+    lay = sharded.layout(None, dp)
+    if lay is None:
+        return _attention(params, cfg, x, positions, kind=kind,
+                          causal=causal, memory=memory,
+                          memory_positions=memory_positions,
+                          chunk_threshold=chunk_threshold, train=train)
+    if memory is not None:
+        raise NotImplementedError("cross-attention is not sharded yet "
+                                  "(ROADMAP Queue A)")
+    w = lay.params(params, attn_params(cfg))
+    return lay.reduce(_attention(w, lay.local_cfg(cfg), lay.copy(x),
+                                 positions, kind=kind, causal=causal,
+                                 chunk_threshold=chunk_threshold,
+                                 train=train))
+
+
+def _attention(params, cfg: ModelConfig, x, positions, *, kind, causal,
+               memory=None, memory_positions=None, chunk_threshold, train):
+    """`attention` on one device (or on this rank's heads)."""
     H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
     index = positions is None
     if index:
@@ -338,7 +373,7 @@ def _decode_attend(params, cfg: ModelConfig, q, k, v, keep):
 
 
 def decode_attention(params, cfg: ModelConfig, x, cache: dict, step: int, *,
-                     kind: str = "attn", memory_kv=None):
+                     kind: str = "attn", memory_kv=None, dp=None):
     """x: (B, 1, D) at absolute position `step`.  Writes the token's K, V
     and position into slot ``step % L`` of the cache IN PLACE (the
     reference returns new arrays; the tensors of the returned cache are
@@ -346,7 +381,19 @@ def decode_attention(params, cfg: ModelConfig, x, cache: dict, step: int, *,
 
     With `memory_kv`, a precomputed cross-attention's (k, v, k_pos) (k
     and v (B, Hkv, Sm, dh)), the token attends over all of it instead,
-    without rotary, and the cache is returned untouched."""
+    without rotary, and the cache is returned untouched.
+
+    `dp` under a mesh: sharded as `attention`; the cache holds this
+    rank's rows and KV heads (`init_kv_cache` of the local config)."""
+    lay = sharded.layout(None, dp)
+    if lay is not None:
+        if memory_kv is not None:
+            raise NotImplementedError("cross-attention is not sharded yet "
+                                      "(ROADMAP Queue A)")
+        w = lay.params(params, attn_params(cfg))
+        h, new = decode_attention(w, lay.local_cfg(cfg), lay.copy(x), cache,
+                                  step, kind=kind)
+        return lay.reduce(h), new
     if memory_kv is not None:
         k, v, _ = memory_kv
         q = _heads(dense(x, params["wq"]), cfg.num_heads, cfg.head_width)

@@ -2,11 +2,23 @@
 norms, dense products, RoPE / M-RoPE and the MLPs.
 
 A model is declared once as a tree of `P_` descriptors (shape, init,
-scale, dtype).  The tree gives the parameter count without allocating
-anything, builds the model's parameters on the meta device, and draws
-them from an explicit `torch.Generator` with the reference's standard
-deviations (the draws are not jax.random's).  Mesh partition specs have
-no role on one card and are not ported.
+scale, dtype, partition spec).  The tree gives the parameter count
+without allocating anything, builds the model's parameters on the meta
+device (`abstract_tree`), gives the tree of partition specs
+(`spec_tree`), and draws the parameters from an explicit
+`torch.Generator` with the reference's standard deviations (the draws
+are not jax.random's).
+
+A spec is the reference's `PartitionSpec` as a plain tuple: one entry
+per dim, a mesh dim name, a tuple of names, or None (replicated).  Two
+logical dims shard parameters: "data" (FSDP / ZeRO-3: gathered at use)
+and "model" (tensor parallel: heads, d_ff and the vocabulary); the
+multi-pod "pod" dim replicates them and splits only the batch.
+`current_mesh()` is the mesh that `launch.mesh.set_mesh` put in
+context; under it the model's entry points run sharded when called with
+`dp=` (`models.sharded`).  The reference's `constrain_act` is not
+ported: it only hints a layout to GSPMD, and here the layout is written
+out in `models.sharded`.
 """
 from __future__ import annotations
 
@@ -17,7 +29,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["P_", "count_params", "rms_norm", "layer_norm", "dense", "rope",
+from ..launch.mesh import active_mesh
+
+__all__ = ["P_", "count_params", "spec_tree", "abstract_tree",
+           "current_mesh", "rms_norm", "layer_norm", "dense", "rope",
            "mrope", "mlp_params", "mlp", "DTYPES"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -25,12 +40,14 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 @dataclasses.dataclass(frozen=True)
 class P_:
-    """Parameter descriptor: shape, init kind, scale, dtype override."""
+    """Parameter descriptor: shape, init kind, scale, dtype override and
+    partition spec (module docstring; () is replicated)."""
 
     shape: tuple[int, ...]
     init: str = "fan_in"     # fan_in | zeros | ones | normal | embed
     scale: float = 1.0
     dtype: Optional[str] = None  # override model dtype (e.g. fp32 norms)
+    spec: tuple = ()
 
     def resolve_dtype(self, default_dtype: torch.dtype) -> torch.dtype:
         return DTYPES[self.dtype] if self.dtype else default_dtype
@@ -59,11 +76,37 @@ class P_:
         return out.copy_(draw * self.std())
 
 
+def _map(fn, tree):
+    """`fn` of every `P_` of a tree of dicts and lists, in its shape."""
+    if isinstance(tree, P_):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return [_map(fn, v) for v in tree]
+
+
 def count_params(tree) -> int:
     if isinstance(tree, P_):
         return math.prod(tree.shape)
     values = tree.values() if isinstance(tree, dict) else tree
     return sum(count_params(v) for v in values)
+
+
+def spec_tree(tree):
+    """The partition specs of a descriptor tree, in its shape."""
+    return _map(lambda d: d.spec, tree)
+
+
+def abstract_tree(tree, dtype: torch.dtype):
+    """Meta tensors (nothing allocated) of a descriptor tree, in its
+    shape, each in its descriptor's dtype or `dtype`."""
+    return _map(lambda d: torch.empty(d.shape, dtype=d.resolve_dtype(dtype),
+                                      device="meta"), tree)
+
+
+def current_mesh():
+    """The mesh in context (`launch.mesh.set_mesh`), or None."""
+    return active_mesh()
 
 
 # ----------------------------- layers ---------------------------------
@@ -143,13 +186,13 @@ def mrope(x, positions, theta, sections):
 def mlp_params(d_model: int, d_ff: int, kind: str) -> dict:
     if kind in ("swiglu", "geglu"):
         return {
-            "wi": P_((d_model, d_ff)),
-            "wg": P_((d_model, d_ff)),
-            "wo": P_((d_ff, d_model)),
+            "wi": P_((d_model, d_ff), spec=("data", "model")),
+            "wg": P_((d_model, d_ff), spec=("data", "model")),
+            "wo": P_((d_ff, d_model), spec=("model", "data")),
         }
     return {  # plain gelu (whisper)
-        "wi": P_((d_model, d_ff)),
-        "wo": P_((d_ff, d_model)),
+        "wi": P_((d_model, d_ff), spec=("data", "model")),
+        "wo": P_((d_ff, d_model), spec=("model", "data")),
     }
 
 

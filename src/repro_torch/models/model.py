@@ -11,7 +11,21 @@ cross-attend to its output (`memory`) after their self-attention.
 The reference stacks each homogeneous group of layers and scans over
 it; here `Transformer` is an `nn.Module` holding one block per layer in
 a `ModuleList` ("blocks", and "encoder.blocks"), and the stack is a
-Python loop.  Remat and sharding constraints have no role when serving.
+Python loop.  Every descriptor carries the reference's partition spec
+(the stacked groups' leading None dropped): `Transformer.specs()`.
+
+Under a mesh (`launch.mesh.set_mesh`), `forward`, `loss_fn`,
+`init_cache` and `decode_step` called with `dp=` (the data-parallel
+dims; the default is ("data",), as the reference's) run sharded as
+explicit SPMD (`models.sharded`): `params` are this rank's blocks
+(`sharded.shard_params` under `param_specs`), the batch is this rank's
+rows, the hidden state between blocks is (B/dp, S, D) replicated over
+"model", and the logits come back as this rank's vocabulary block
+(B/dp, S, V/m).  The reference's `_constrain` of the hidden state to
+P(dp, None, "model") is not ported: it is a memory layout of the same
+function.  Dense attention blocks ("attn", "local") shard; the other
+kinds raise NotImplementedError.  Without a mesh, or with `dp=None`,
+everything runs unsharded.
 
 Training (`loss_fn`) runs the same blocks with gradients on, each
 block recomputed in backward when `cfg.remat`, through differentiable
@@ -27,11 +41,12 @@ train state holds them, or that dict nested.
 
 Entry points:
   Transformer(cfg)                    — parameters on the meta device,
-                                        `num_params`, `.init(seed, device)`
-  forward(params, cfg, batch)         — logits (prefill); batch carries
+                                        `num_params`, `.init(seed, device)`,
+                                        `.specs()`, `.abstract()`
+  forward(params, cfg, batch, dp=)    — logits (prefill); batch carries
                                         "frames" for whisper
-  loss_fn(params, cfg, batch)         — mean next-token CE (training)
-  init_cache / decode_step            — single-token serving (whisper:
+  loss_fn(params, cfg, batch, dp=)    — mean next-token CE (training)
+  init_cache / decode_step (dp=)      — single-token serving (whisper:
                                         `init_cache(frames=)` encodes)
   init_paged_cache / paged_decode_step — continuous batching over a
                                         paged KV cache
@@ -44,13 +59,16 @@ from torch.utils.checkpoint import checkpoint
 
 from .._tf32 import no_tf32
 from ..core.options import resolve_device
+from ..dist import collectives as C
+from . import sharded
 from .attention import (
     attention, attn_params, decode_attention, init_kv_cache,
     init_paged_kv_cache, paged_decode_attention,
 )
 from .config import ModelConfig
 from .layers import (
-    DTYPES, P_, count_params, dense, layer_norm, mlp, mlp_params, rms_norm,
+    DTYPES, P_, abstract_tree, count_params, dense, layer_norm, mlp,
+    mlp_params, rms_norm, spec_tree,
 )
 from .moe import moe_ffn, moe_params
 from .rglru import init_rglru_state, rglru_block, rglru_decode, rglru_params
@@ -61,29 +79,40 @@ from .rwkv import (
 
 __all__ = ["Transformer", "forward", "loss_fn", "init_cache", "decode_step",
            "init_paged_cache", "paged_decode_step", "model_params",
-           "param_dict"]
+           "param_dict", "param_specs", "DP_DEFAULT"]
+
+DP_DEFAULT = ("data",)
 
 # --------------------------- parameter tree ---------------------------
 
 
 def _norm_params(cfg: ModelConfig, kind: str) -> dict:
+    D = cfg.d_model
     if kind == "rwkv":  # LayerNorm with bias
         return {
-            "scale": P_((cfg.d_model,), init="ones", dtype="float32"),
-            "bias": P_((cfg.d_model,), init="zeros", dtype="float32"),
+            "scale": P_((D,), init="ones", dtype="float32", spec=("model",)),
+            "bias": P_((D,), init="zeros", dtype="float32", spec=("model",)),
         }
-    return {"scale": P_((cfg.d_model,), init="zeros", dtype="float32")}
+    return {"scale": P_((D,), init="zeros", dtype="float32",
+                        spec=("model",))}
 
 
-def _apply_norm(p, cfg: ModelConfig, x):
+def _apply_norm(p, cfg: ModelConfig, x, lay=None):
+    """The norm of `p`; under a layout its scale is gathered whole (the
+    hidden state is replicated over "model")."""
+    if lay is not None:
+        d = _norm_params(cfg, "attn")
+        p = {k: lay.whole(p[k], d[k]) for k in d}
     if "bias" in p:
         return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm(x, p["scale"], cfg.norm_eps)
 
 
-def block_params(cfg: ModelConfig, kind: str, *, cross: bool = False) -> dict:
+def block_params(cfg: ModelConfig, kind: str, *, cross: bool = False,
+                 model_axis: int = 16) -> dict:
     """One block's descriptors; `cross` adds an attention block's
-    cross-attention ("xattn") and its norm ("lnx")."""
+    cross-attention ("xattn") and its norm ("lnx").  `model_axis` picks
+    the MoE experts' specs."""
     d: dict = {"ln1": _norm_params(cfg, kind), "ln2": _norm_params(cfg, kind)}
     if kind in ("attn", "local"):
         d["attn"] = attn_params(cfg)
@@ -91,7 +120,7 @@ def block_params(cfg: ModelConfig, kind: str, *, cross: bool = False) -> dict:
             d["xattn"] = attn_params(cfg, cross=True)
             d["lnx"] = _norm_params(cfg, kind)
         if cfg.num_experts:
-            d["moe"] = moe_params(cfg)
+            d["moe"] = moe_params(cfg, model_axis)
         else:
             d["mlp"] = mlp_params(cfg.d_model, cfg.d_ff, cfg.mlp_kind)
         if cfg.post_norms:
@@ -107,27 +136,44 @@ def block_params(cfg: ModelConfig, kind: str, *, cross: bool = False) -> dict:
     return d
 
 
-def model_params(cfg: ModelConfig) -> dict:
+def _head_params(cfg: ModelConfig) -> dict:
+    """The embedding (vocabulary over "model") and the untied
+    unembedding's descriptors."""
+    V, D = cfg.vocab_size, cfg.d_model
+    tree = {"embed": P_((V, D), init="embed", spec=("model", "data"))}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = P_((D, V), spec=("data", "model"))
+    return tree
+
+
+def model_params(cfg: ModelConfig, model_axis: int = 16) -> dict:
     """The descriptor tree: embed, final_norm, unembed (untied only),
     one block per layer under "blocks" (with cross-attention in an
     encoder-decoder) and, for an encoder-decoder, "encoder": its blocks
-    and final norm."""
-    V, D = cfg.vocab_size, cfg.d_model
-    tree: dict = {
-        "embed": P_((V, D), init="embed"),
-        "final_norm": _norm_params(cfg, "attn"),
-    }
-    if not cfg.tie_embeddings:
-        tree["unembed"] = P_((D, V))
+    and final norm.  `model_axis` picks the MoE experts' specs."""
+    head = _head_params(cfg)
+    tree: dict = {"embed": head.pop("embed"),
+                  "final_norm": _norm_params(cfg, "attn")} | head
     cross = cfg.encoder_layers > 0
-    tree["blocks"] = [block_params(cfg, kind, cross=cross)
+    tree["blocks"] = [block_params(cfg, kind, cross=cross,
+                                   model_axis=model_axis)
                       for kind in cfg.layer_kinds()]
     if cross:
         tree["encoder"] = {
-            "blocks": [block_params(cfg, "attn")
+            "blocks": [block_params(cfg, "attn", model_axis=model_axis)
                        for _ in range(cfg.encoder_layers)],
             "final_norm": _norm_params(cfg, "attn")}
     return tree
+
+
+def param_specs(cfg: ModelConfig, mesh=None, model_axis: int = 16) -> dict:
+    """{parameter name: spec}, sanitized against `mesh` (a `DeviceMesh`
+    or a name-to-size mapping) when one is given."""
+    descr = dict(flat_tree(model_params(cfg, model_axis)))
+    if mesh is None:
+        return {k: d.spec for k, d in descr.items()}
+    return {k: sharded.sanitize_spec(d.spec, d.shape, mesh)
+            for k, d in descr.items()}
 
 
 def _meta(tree, dtype):
@@ -192,11 +238,13 @@ def _tree(params):
 
 def _block_forward(p, cfg: ModelConfig, kind: str, x, positions, *,
                    memory=None, causal: bool = True,
-                   chunk_threshold: int = 2047, train: bool = False):
+                   chunk_threshold: int = 2047, train: bool = False,
+                   lay=None):
     """One block over a full sequence.  `chunk_threshold` is the
     attention's, self and cross (keys beyond it take the flash route or
     `chunked_attention`); `memory` (B, Se, D) feeds the block's
-    cross-attention where it has one."""
+    cross-attention where it has one.  `lay`: the sharded layout, or
+    None."""
     if kind == "rwkv":
         x = x + rwkv_time_mix(p["time"], cfg, _apply_norm(p["ln1"], cfg, x),
                               train=train)
@@ -205,36 +253,64 @@ def _block_forward(p, cfg: ModelConfig, kind: str, x, positions, *,
     if kind == "rglru":
         x = x + rglru_block(p["rglru"], cfg, _apply_norm(p["ln1"], cfg, x))
         return x + mlp(_apply_norm(p["ln2"], cfg, x), p["mlp"], cfg.mlp_kind)
-    h = attention(p["attn"], cfg, _apply_norm(p["ln1"], cfg, x), positions,
-                  kind=kind, causal=causal, chunk_threshold=chunk_threshold,
-                  train=train)
-    return _attn_block_rest(p, cfg, x, h, memory, positions,
+    h = attention(p["attn"], cfg, _apply_norm(p["ln1"], cfg, x, lay),
+                  positions, kind=kind, causal=causal,
+                  chunk_threshold=chunk_threshold, train=train, dp=lay)
+    return _attn_block_rest(p, cfg, x, h, memory, positions, lay=lay,
                             chunk_threshold=chunk_threshold, train=train)
 
 
 def _attn_block_rest(p, cfg: ModelConfig, x, h, memory=None, positions=None,
-                     **cross):
+                     lay=None, **cross):
     """An attention block after its attention output `h`: the residual;
     where the block has a cross-attention and `memory` is given, that
     attention's residual (queries at `positions`, `attention`'s keywords
     `cross`); then the feed-forward's (the MLP, or the MoE), each with
     its post-norm where the config has them."""
     if cfg.post_norms:
-        h = _apply_norm(p["post1"], cfg, h)
+        h = _apply_norm(p["post1"], cfg, h, lay)
     x = x + h
     if memory is not None and "xattn" in p:
         x = x + attention(p["xattn"], cfg, _apply_norm(p["lnx"], cfg, x),
                           positions, memory=memory, **cross)
-    z = _apply_norm(p["ln2"], cfg, x)
+    z = _apply_norm(p["ln2"], cfg, x, lay)
     h = (moe_ffn(p["moe"], cfg, z) if cfg.num_experts
-         else mlp(z, p["mlp"], cfg.mlp_kind))
+         else _mlp(p["mlp"], cfg, z, lay))
     if cfg.post_norms:
-        h = _apply_norm(p["post2"], cfg, h)
+        h = _apply_norm(p["post2"], cfg, h, lay)
     return x + h
 
 
-def _embed(params, cfg: ModelConfig, tokens):
-    e = params["embed"][tokens]
+def _mlp(p, cfg: ModelConfig, z, lay=None):
+    """The dense MLP; under a layout, column-parallel wi / wg and
+    row-parallel wo over "model" (replicated where "model" does not
+    divide d_ff)."""
+    if lay is None:
+        return mlp(z, p, cfg.mlp_kind)
+    descr = mlp_params(cfg.d_model, cfg.d_ff, cfg.mlp_kind)
+    w = lay.params(p, descr)
+    if not lay.split(descr["wi"]):
+        return mlp(z, w, cfg.mlp_kind)
+    return lay.reduce(mlp(lay.copy(z), w, cfg.mlp_kind))
+
+
+def _embed(params, cfg: ModelConfig, tokens, lay=None):
+    """The tokens' embeddings.  Under a layout the rank looks up its
+    vocabulary block (zeros for ids outside it) and the blocks are
+    summed over "model", which is exact."""
+    if lay is None:
+        e = params["embed"][tokens]
+    else:
+        d = _head_params(cfg)["embed"]
+        E = lay.param(params["embed"], d)
+        if lay.split(d):
+            Vl = E.shape[0]
+            local = tokens - lay.model_index() * Vl
+            inside = ((local >= 0) & (local < Vl))[..., None]
+            e = E[local.clamp(0, Vl - 1)]
+            e = lay.reduce(torch.where(inside, e, torch.zeros_like(e)))
+        else:
+            e = E[tokens]
     if cfg.scale_embeddings:
         e = e * torch.tensor(cfg.d_model**0.5, dtype=e.dtype)
     return e.to(DTYPES[cfg.dtype])
@@ -254,6 +330,24 @@ def _unembed(params, cfg: ModelConfig, x):
     return logits
 
 
+def _head(params, cfg: ModelConfig, lay):
+    """(the unembedding's weights as `_unembed` reads them, whether the
+    vocabulary is split over "model"): as they are, or under a layout
+    this rank's vocabulary block gathered over the dp dims."""
+    if lay is None:
+        return params, False
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    d = _head_params(cfg)[name]
+    return {name: lay.param(params[name], d)}, lay.split(d)
+
+
+def _logits(params, cfg: ModelConfig, x, lay=None):
+    """f32 logits of the hidden state x: (B, S, V), or under a layout
+    this rank's block (B/dp, S, V/m)."""
+    w, split = _head(params, cfg, lay)
+    return _unembed(w, cfg, lay.copy(x) if split else x)
+
+
 def _tokens(params, tokens):
     return torch.as_tensor(tokens, device=params["embed"].device).long()
 
@@ -267,22 +361,22 @@ def _positions(cfg: ModelConfig, batch: dict, tokens):
 
 
 def _blocks(blocks, kinds, cfg: ModelConfig, x, positions, *, memory=None,
-            causal: bool = True, train: bool = False):
+            causal: bool = True, train: bool = False, lay=None):
     """A stack of blocks, each recomputed in backward when `train` and
     `cfg.remat`."""
     for p, kind in zip(blocks, kinds):
         if train and cfg.remat:
             x = checkpoint(_train_block, p, cfg, kind, x, positions, memory,
-                           causal, use_reentrant=False)
+                           causal, lay, use_reentrant=False)
         else:
             x = _block_forward(p, cfg, kind, x, positions, memory=memory,
-                               causal=causal, train=train)
+                               causal=causal, train=train, lay=lay)
     return x
 
 
-def _train_block(p, cfg, kind, x, positions, memory, causal):
+def _train_block(p, cfg, kind, x, positions, memory, causal, lay):
     return _block_forward(p, cfg, kind, x, positions, memory=memory,
-                          causal=causal, train=True)
+                          causal=causal, train=True, lay=lay)
 
 
 def _encode(params, cfg: ModelConfig, frames, *, train: bool = False):
@@ -312,39 +406,54 @@ def _encode(params, cfg: ModelConfig, frames, *, train: bool = False):
     return _apply_norm(enc["final_norm"], cfg, x)
 
 
-def _hidden(params, cfg: ModelConfig, batch: dict, *, train: bool = False):
+def _hidden(params, cfg: ModelConfig, batch: dict, *, train: bool = False,
+            lay=None):
     """Backbone through the final norm (pre-unembed), the encoder first
     for an encoder-decoder.  With `train`, the blocks take the
     differentiable routes, each recomputed in backward when
-    `cfg.remat`."""
+    `cfg.remat`.  Under a layout `lay` (`sharded.layout`), this rank's
+    rows (B/dp, S, D), replicated over "model"."""
     tokens = _tokens(params, batch["tokens"])
     positions = _positions(cfg, batch, tokens)
     memory = _encode(params, cfg, batch.get("frames"), train=train)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, lay)
     x = _blocks(params["blocks"], cfg.layer_kinds(), cfg, x, positions,
-                memory=memory, train=train)
-    return _apply_norm(params["final_norm"], cfg, x)
+                memory=memory, train=train, lay=lay)
+    return _apply_norm(params["final_norm"], cfg, x, lay)
 
 
-def forward(params, cfg: ModelConfig, batch: dict):
+def forward(params, cfg: ModelConfig, batch: dict, *, dp=DP_DEFAULT):
     """batch: tokens (B,S) [+ positions (B,S,3) for M-RoPE, + frames
-    (B,Se,D) for an encoder-decoder].  Returns fp32 logits (B,S,V)."""
+    (B,Se,D) for an encoder-decoder].  Returns fp32 logits (B,S,V).
+
+    Under a mesh with `dp` (module docstring): `params` are this rank's
+    blocks, the batch its rows, and the logits its block (B/dp, S, V/m)
+    (`sharded.gather_act` assembles them)."""
     params = _tree(params)
+    lay = sharded.layout(cfg, dp)
     with no_tf32(), torch.no_grad():
-        return _unembed(params, cfg, _hidden(params, cfg, batch))
+        return _logits(params, cfg, _hidden(params, cfg, batch, lay=lay),
+                       lay)
 
 
-def _chunk_nll(params, cfg, xc, lc):
+def _chunk_nll(params, cfg, xc, lc, lay=None, start=None):
     """(summed NLL, count) of one chunk of positions; labels < 0 are
-    masked."""
+    masked.  With a vocabulary block's first id `start` (a layout whose
+    "model" dim splits the vocabulary), `params` hold that block and the
+    NLL is `sharded.vocab_parallel_nll`'s."""
     logits = _unembed(params, cfg, xc)                      # (B, c, V) f32
     mask = (lc >= 0).float()
-    gold = logits.gather(-1, lc.clamp_min(0)[..., None])[..., 0]
-    nll = (torch.logsumexp(logits, dim=-1) - gold) * mask
-    return nll.sum(), mask.sum()
+    safe = lc.clamp_min(0)
+    if start is not None:
+        nll = sharded.vocab_parallel_nll(logits, safe, lay.mesh, start)
+    else:
+        gold = logits.gather(-1, safe[..., None])[..., 0]
+        nll = torch.logsumexp(logits, dim=-1) - gold
+    return (nll * mask).sum(), mask.sum()
 
 
-def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_chunk: int = 512):
+def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_chunk: int = 512,
+            dp=DP_DEFAULT):
     """Mean next-token cross-entropy; labels < 0 are masked.  Gradients
     flow to whichever parameter tensors require them.
 
@@ -353,10 +462,17 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_chunk: int = 512):
     backward, as the reference's scan under `jax.checkpoint` does (at
     vocab 128256 one chunk of 512 is 0.26 GB of logits a row).  f32
     products run in full f32 (no TF32).
+
+    Under a mesh with `dp`: `params` are this rank's blocks and the batch
+    its rows.  The NLL is vocabulary-parallel; each rank divides its sum
+    by the global count of unmasked labels, so the gradients (this
+    rank's blocks, summed over the dp dims in backward) are the global
+    mean's; the loss returned is the global mean on every rank.
     """
     params = _tree(params)
+    lay = sharded.layout(cfg, dp)
     with no_tf32():
-        x = _hidden(params, cfg, batch, train=True)
+        x = _hidden(params, cfg, batch, train=True, lay=lay)
         labels = torch.as_tensor(batch["labels"], device=x.device).long()
         B, S, D = x.shape
         c = min(loss_chunk, S)
@@ -364,32 +480,48 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_chunk: int = 512):
         if pad:
             x = torch.nn.functional.pad(x, (0, 0, 0, pad))
             labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+        w, split = _head(params, cfg, lay)
+        start = None
+        if split:
+            x = lay.copy(x)
+            start = lay.model_index() * (cfg.vocab_size // lay.m)
         nll = torch.zeros((), dtype=torch.float32, device=x.device)
         cnt = torch.zeros((), dtype=torch.float32, device=x.device)
         for t in range(0, S + pad, c):
-            s, m = checkpoint(_chunk_nll, params, cfg, x[:, t:t + c],
-                              labels[:, t:t + c], use_reentrant=False)
+            s, m = checkpoint(_chunk_nll, w, cfg, x[:, t:t + c],
+                              labels[:, t:t + c], lay, start,
+                              use_reentrant=False)
             nll = nll + s
             cnt = cnt + m
-        return nll / cnt.clamp_min(1.0)
+        if lay is None:
+            return nll / cnt.clamp_min(1.0)
+        cnt = C.psum(cnt.detach(), lay.mesh, lay.dp)
+        return sharded.reduce_from(nll / cnt.clamp_min(1.0), lay.mesh,
+                                   lay.dp)
 
 
 # ------------------------------ serving -------------------------------
 
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
-               frames=None) -> dict:
+               frames=None, *, dp=DP_DEFAULT) -> dict:
     """Per-layer decode state on the parameters' device.  `max_len` is
     the attention cache length; recurrent layers keep O(1) state.  An
     encoder-decoder encodes `frames` (B, Se, D) once here: its output is
     the cache's "memory", which every decode step cross-attends to
-    (None for a decoder-only config)."""
+    (None for a decoder-only config).
+
+    Under a mesh with `dp`, `batch` counts this rank's rows, and each
+    attention layer's cache holds its Hkv/m KV heads (the reference's
+    cache rule P(dp, "model", None, None))."""
     params = _tree(params)
     device = params["embed"].device
+    lay = sharded.layout(cfg, dp)
+    local = cfg if lay is None else lay.local_cfg(cfg)
     with no_tf32(), torch.no_grad():
         memory = _encode(params, cfg, frames)
     return {
-        "layers": [layer_state(cfg, kind, batch, max_len, device)
+        "layers": [layer_state(local, kind, batch, max_len, device)
                    for kind in cfg.layer_kinds()],
         "step": 0,
         "memory": memory,
@@ -409,7 +541,7 @@ def layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def _block_decode(p, cfg: ModelConfig, kind: str, x, state, step: int,
-                  memory=None):
+                  memory=None, lay=None):
     if kind == "rwkv":
         h, new_t = rwkv_time_mix_decode(
             p["time"], cfg, _apply_norm(p["ln1"], cfg, x), state)
@@ -423,28 +555,33 @@ def _block_decode(p, cfg: ModelConfig, kind: str, x, state, step: int,
         x = x + h
         return (x + mlp(_apply_norm(p["ln2"], cfg, x), p["mlp"],
                         cfg.mlp_kind), new)
-    h, new = decode_attention(p["attn"], cfg, _apply_norm(p["ln1"], cfg, x),
-                              state, step, kind=kind)
+    h, new = decode_attention(p["attn"], cfg,
+                              _apply_norm(p["ln1"], cfg, x, lay), state,
+                              step, kind=kind, dp=lay)
     at = (None if memory is None  # the token's position, for its cross
           else torch.full((x.shape[0], 1), int(step), device=x.device))
-    return _attn_block_rest(p, cfg, x, h, memory, at), new
+    return _attn_block_rest(p, cfg, x, h, memory, at, lay=lay), new
 
 
-def decode_step(params, cfg: ModelConfig, cache: dict, tokens):
+def decode_step(params, cfg: ModelConfig, cache: dict, tokens, *,
+                dp=DP_DEFAULT):
     """One serving step: tokens (B,) -> logits (B, V), updated cache.
     Attention layers write their KV cache in place; an encoder-decoder's
-    blocks cross-attend to the cache's memory."""
+    blocks cross-attend to the cache's memory.  Under a mesh with `dp`:
+    this rank's rows of tokens and cache, and its logits block
+    (B/dp, V/m)."""
     step, memory = cache["step"], cache.get("memory")
     params = _tree(params)
+    lay = sharded.layout(cfg, dp)
     with no_tf32(), torch.no_grad():
-        x = _embed(params, cfg, _tokens(params, tokens)[:, None])
+        x = _embed(params, cfg, _tokens(params, tokens)[:, None], lay)
         layers = []
         for p, kind, state in zip(params["blocks"], cfg.layer_kinds(),
                                   cache["layers"]):
-            x, new = _block_decode(p, cfg, kind, x, state, step, memory)
+            x, new = _block_decode(p, cfg, kind, x, state, step, memory, lay)
             layers.append(new)
-        x = _apply_norm(params["final_norm"], cfg, x)
-        logits = _unembed(params, cfg, x)[:, 0]
+        x = _apply_norm(params["final_norm"], cfg, x, lay)
+        logits = _logits(params, cfg, x, lay)[:, 0]
     return logits, {"layers": layers, "step": step + 1, "memory": memory}
 
 
@@ -543,11 +680,12 @@ class Transformer(nn.Module):
     on a device from a seed.  `forward(batch)` is `forward(self, cfg,
     batch)`."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, model_axis: int = 16):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
-        self.descr = model_params(cfg)
+        self.model_axis = model_axis
+        self.descr = model_params(cfg, model_axis)
         dtype = DTYPES[cfg.dtype]
         for name, sub in self.descr.items():
             setattr(self, name, _meta(sub, dtype))
@@ -560,6 +698,17 @@ class Transformer(nn.Module):
     @property
     def num_params(self) -> int:
         return count_params(self.descr)
+
+    def specs(self) -> dict:
+        """{parameter name: partition spec}, as `named_parameters` names
+        the parameters (`spec_tree` of the descriptors, flattened)."""
+        return dict(flat_tree(spec_tree(self.descr)))
+
+    def abstract(self) -> dict:
+        """{parameter name: meta tensor} of the parameters' global shapes
+        and dtypes; nothing is allocated."""
+        return dict(flat_tree(abstract_tree(self.descr,
+                                            DTYPES[self.cfg.dtype])))
 
     def init(self, seed: int = 0, device="cuda") -> "Transformer":
         """Allocate the parameters on `device` (the card unless "cpu" is

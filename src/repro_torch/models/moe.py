@@ -25,13 +25,22 @@ from .layers import P_
 __all__ = ["moe_params", "moe_ffn"]
 
 
-def moe_params(cfg: ModelConfig) -> dict:
+def moe_params(cfg: ModelConfig, model_axis: int = 16) -> dict:
+    """The router and the expert weights.  Their specs put the experts
+    over "model" when `model_axis` divides E (expert parallel), else
+    the expert's hidden dim (tensor parallel inside each expert), as
+    the reference chooses; the sharded MoE is not ported yet (a model
+    mesh raises in `models.sharded`)."""
     E, D, F_ = cfg.num_experts, cfg.d_model, cfg.d_ff
+    if E % model_axis == 0:
+        spec_in, spec_out = ("model", "data", None), ("model", None, "data")
+    else:
+        spec_in, spec_out = (None, "data", "model"), (None, "model", "data")
     return {
-        "router": P_((D, E), scale=0.1),
-        "wi": P_((E, D, F_)),
-        "wg": P_((E, D, F_)),
-        "wo": P_((E, F_, D)),
+        "router": P_((D, E), scale=0.1, spec=("data", None)),
+        "wi": P_((E, D, F_), spec=spec_in),
+        "wg": P_((E, D, F_), spec=spec_in),
+        "wo": P_((E, F_, D), spec=spec_out),
     }
 
 

@@ -36,13 +36,13 @@ def rglru_params(cfg: ModelConfig) -> dict:
     D = cfg.d_model
     W = cfg.rglru_conv_width
     return {
-        "wx": P_((D, D)),        # recurrence branch in
-        "wy": P_((D, D)),        # gate branch in
-        "conv": P_((W, D), init="normal", scale=0.1),
-        "wa": P_((D, D), scale=0.5),
-        "wi": P_((D, D), scale=0.5),
-        "lam": P_((D,), init="normal", scale=0.5),
-        "wo": P_((D, D)),
+        "wx": P_((D, D), spec=("data", "model")),  # recurrence branch in
+        "wy": P_((D, D), spec=("data", "model")),  # gate branch in
+        "conv": P_((W, D), init="normal", scale=0.1, spec=(None, "model")),
+        "wa": P_((D, D), scale=0.5, spec=("data", "model")),
+        "wi": P_((D, D), scale=0.5, spec=("data", "model")),
+        "lam": P_((D,), init="normal", scale=0.5, spec=("model",)),
+        "wo": P_((D, D), spec=("model", "data")),
     }
 
 

@@ -40,28 +40,29 @@ def rwkv_params(cfg: ModelConfig) -> dict:
     H, N = cfg.rwkv_heads, cfg.rwkv_head_dim
     return {
         "time": {
-            "mu_r": P_((D,), init="normal", scale=0.2),
-            "mu_k": P_((D,), init="normal", scale=0.2),
-            "mu_v": P_((D,), init="normal", scale=0.2),
-            "mu_g": P_((D,), init="normal", scale=0.2),
-            "mu_w": P_((D,), init="normal", scale=0.2),
-            "wr": P_((D, D)),
-            "wk": P_((D, D)),
-            "wv": P_((D, D)),
-            "wg": P_((D, D)),
-            "w0": P_((D,), init="normal", scale=0.5),
-            "wa": P_((D, _DECAY_LORA), scale=0.5),
-            "wb": P_((_DECAY_LORA, D), scale=0.5),
-            "u": P_((H, N), init="normal", scale=0.2),
-            "ln_scale": P_((D,), init="ones", dtype="float32"),
-            "wo": P_((D, D)),
+            "mu_r": P_((D,), init="normal", scale=0.2, spec=("model",)),
+            "mu_k": P_((D,), init="normal", scale=0.2, spec=("model",)),
+            "mu_v": P_((D,), init="normal", scale=0.2, spec=("model",)),
+            "mu_g": P_((D,), init="normal", scale=0.2, spec=("model",)),
+            "mu_w": P_((D,), init="normal", scale=0.2, spec=("model",)),
+            "wr": P_((D, D), spec=("data", "model")),
+            "wk": P_((D, D), spec=("data", "model")),
+            "wv": P_((D, D), spec=("data", "model")),
+            "wg": P_((D, D), spec=("data", "model")),
+            "w0": P_((D,), init="normal", scale=0.5, spec=("model",)),
+            "wa": P_((D, _DECAY_LORA), scale=0.5, spec=("data", None)),
+            "wb": P_((_DECAY_LORA, D), scale=0.5, spec=(None, "model")),
+            "u": P_((H, N), init="normal", scale=0.2, spec=("model", None)),
+            "ln_scale": P_((D,), init="ones", dtype="float32",
+                           spec=("model",)),
+            "wo": P_((D, D), spec=("model", "data")),
         },
         "channel": {
-            "mu_k": P_((D,), init="normal", scale=0.2),
-            "mu_r": P_((D,), init="normal", scale=0.2),
-            "wk": P_((D, F_)),
-            "wv": P_((F_, D)),
-            "wr": P_((D, D)),
+            "mu_k": P_((D,), init="normal", scale=0.2, spec=("model",)),
+            "mu_r": P_((D,), init="normal", scale=0.2, spec=("model",)),
+            "wk": P_((D, F_), spec=("data", "model")),
+            "wv": P_((F_, D), spec=("model", "data")),
+            "wr": P_((D, D), spec=("data", "model")),
         },
     }
 

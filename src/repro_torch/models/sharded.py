@@ -1,0 +1,385 @@
+"""Model sharding over a ("data", "model") mesh, as explicit SPMD on
+`torch.distributed`.
+
+Each rank holds its block of every parameter, by the parameter's
+sanitized spec (`sanitize_spec`, `shard_params`), and runs the model's
+entry points on its block of the batch.  The reference leaves the layout
+to GSPMD and only hints it; here it is written out, in Megatron's form
+with FSDP:
+
+* a weight's batch-axis ("data") dims are all-gathered at use
+  (`gather_param`); in backward its gradient is summed over every
+  data-parallel dim ("pod" too, where the weight is replicated) and this
+  rank's block kept, which is a reduce-scatter;
+* heads and d_ff are split over "model": the column-parallel products
+  (wq, wk, wv, wi, wg) take their input through `copy_to_model`
+  (forward identity, backward sum over "model"), and the row-parallel
+  wo gives a partial sum that `reduce_from_model` completes (forward
+  sum, backward identity);
+* the vocabulary is split over "model" for the embedding, the
+  unembedding and the loss (`vocab_parallel_nll`);
+* a parameter that the replicated hidden state uses whole (a norm's
+  scale, which P("model") shards) is gathered over "model" too
+  (`gather_model`), and its gradient is not summed there: every "model"
+  rank computes the same one and keeps its block;
+* the hidden state between blocks is (B/dp, S, D), replicated over
+  "model".  The reference's P(dp, None, "model") there is a memory
+  layout of the same function.
+
+A gradient is summed over a dim only where the ranks along it compute
+different contributions: the data-parallel dims, and "model" for the
+input of a column-parallel product.  The reference's `constrain_act`,
+`_constrain_heads`, `_constrain` and the MoE constraints have no
+counterpart: the layout they hint is the one written out here.
+
+`layout(cfg, dp)` gives the sharded layout of a call, or None when no
+mesh is in context (`launch.mesh.set_mesh`) or `dp` is None: the model
+then runs unsharded, as without a mesh.  It raises NotImplementedError
+for what is not sharded yet (ROADMAP Queue A): rwkv and rglru blocks,
+mixtures of experts, the encoder-decoder, and head counts that the
+"model" size does not divide.
+
+The collectives are `dist.collectives`' (counted in its account) on the
+process groups the mesh was built over; nothing here picks a backend or
+catches a failed collective.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from ..dist import collectives as C
+from ..launch.mesh import mesh_shape
+from .config import ModelConfig
+from .layers import P_, current_mesh
+
+__all__ = [
+    "Layout", "layout", "sanitize_spec", "shard_params", "gather_params",
+    "gather_param", "gather_model", "gather_act", "copy_to_model",
+    "reduce_from_model", "reduce_from", "vocab_parallel_nll", "local_block",
+    "sharded_dims",
+]
+
+SHARDED_KINDS = ("attn", "local")
+_QUEUE = "is not sharded yet (ROADMAP Queue A)"
+
+
+def _axes(entry) -> tuple:
+    """The mesh dims of one spec entry: () for None."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def sanitize_spec(spec: tuple, shape: tuple, mesh) -> tuple:
+    """`spec` with each entry whose dims' sizes do not divide the array's
+    dim dropped to None (replicated), as the reference's does (whisper's
+    51865 vocab on a 16-way "model" dim).  An entry naming a dim the
+    mesh lacks is dropped too.  `mesh` is a `DeviceMesh` or a name-to-size
+    mapping."""
+    sizes = mesh_shape(mesh)
+    out = []
+    for i, entry in enumerate(spec):
+        axes = _axes(entry)
+        if not axes or i >= len(shape) or any(a not in sizes for a in axes):
+            out.append(None)
+            continue
+        n = math.prod(sizes[a] for a in axes)
+        out.append(entry if shape[i] % n == 0 else None)
+    return tuple(out)
+
+
+def sharded_dims(spec: tuple) -> tuple:
+    """Every mesh dim a (sanitized) spec shards over."""
+    return tuple(a for entry in spec for a in _axes(entry))
+
+
+def _block(size: int, mesh, axes: tuple) -> tuple[int, int]:
+    """(start, length) of this rank's block of a dim of `size` split over
+    `axes` (row-major over them)."""
+    n = C.axis_size(mesh, axes)
+    length = size // n
+    return C.axis_index(mesh, axes) * length, length
+
+
+def local_block(full: torch.Tensor, mesh, spec: tuple,
+                keep: Optional[tuple] = None) -> torch.Tensor:
+    """This rank's block (a view) of `full` under a sanitized `spec`;
+    with `keep`, only the entries over those dims are split."""
+    out = full
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        if axes and (keep is None or set(axes) <= set(keep)):
+            start, length = _block(out.shape[d], mesh, axes)
+            out = out.narrow(d, start, length)
+    return out
+
+
+def _gather_dims(x: torch.Tensor, mesh, spec: tuple, dims) -> torch.Tensor:
+    """`x` all-gathered along each dim of `spec` whose entry names only
+    mesh dims in `dims`."""
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        if axes and set(axes) <= set(dims):
+            x = C.all_gather(x.movedim(d, 0), mesh, axes).movedim(0, d)
+    return x
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, mesh, spec, dp):
+        ctx.mesh, ctx.spec, ctx.dp = mesh, spec, dp
+        out = _gather_dims(w, mesh, spec, dp)
+        return out.contiguous() if out is not w else w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.dp:
+            g = C.psum(g, ctx.mesh, ctx.dp)
+        return (local_block(g, ctx.mesh, ctx.spec, keep=ctx.dp).contiguous(),
+                None, None, None)
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        out = _gather_dims(w, mesh, spec, ("model",))
+        return out.contiguous() if out is not w else w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (local_block(g, ctx.mesh, ctx.spec,
+                            keep=("model",)).contiguous(), None, None)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.mesh, ctx.dims), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        return _psum(x, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _psum(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """psum with bf16 summed in f32 and rounded once."""
+    if x.dtype == torch.bfloat16:
+        return C.psum(x.float(), mesh, dims).to(x.dtype)
+    return C.psum(x, mesh, dims)
+
+
+def gather_param(w: torch.Tensor, mesh, spec: tuple, dp) -> torch.Tensor:
+    """The parameter block `w` gathered along its dims sharded over the
+    data-parallel dims `dp` (FSDP); dims sharded over "model" stay local.
+    Backward: the gradient summed over every dp dim, this rank's block
+    kept."""
+    return _GatherParam.apply(w, mesh, tuple(spec), tuple(dp))
+
+
+def gather_model(w: torch.Tensor, mesh, spec: tuple) -> torch.Tensor:
+    """`w` gathered along its dims sharded over "model", for a value the
+    replicated hidden state uses whole.  Backward keeps this rank's block
+    of the gradient, unsummed: every "model" rank computes the same."""
+    return _GatherModel.apply(w, mesh, tuple(spec))
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Forward identity, backward sum over "model": the input of a
+    column-parallel product."""
+    return _Copy.apply(x, mesh, ("model",))
+
+
+def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Forward sum over "model", backward identity: the output of a
+    row-parallel product."""
+    return _Reduce.apply(x, mesh, ("model",))
+
+
+def reduce_from(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """Forward sum over `dims`, backward identity."""
+    return _Reduce.apply(x, mesh, tuple(dims))
+
+
+class _VocabNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, mesh, start):
+        Vl = logits.shape[-1]
+        m = C.pmax(logits.amax(-1), mesh, "model")
+        e = torch.exp(logits - m[..., None])
+        sumexp = C.psum(e.sum(-1), mesh, "model")
+        local = labels - start
+        inside = (local >= 0) & (local < Vl)
+        local = local.clamp(0, Vl - 1)
+        gold = logits.gather(-1, local[..., None])[..., 0]
+        gold = C.psum(torch.where(inside, gold, torch.zeros_like(gold)),
+                      mesh, "model")
+        ctx.save_for_backward(e, sumexp, local, inside)
+        return torch.log(sumexp) + m - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        e, sumexp, local, inside = ctx.saved_tensors
+        grad = e / sumexp[..., None]
+        grad.scatter_add_(-1, local[..., None], -inside[..., None].to(e.dtype))
+        return grad * g[..., None], None, None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, mesh,
+                       start: int) -> torch.Tensor:
+    """Per-token NLL (f32, labels' shape) from this rank's vocab block of
+    the f32 logits (..., V/m), whose first id is `start`: the max by pmax
+    (not differentiated), the sum of exp and the target logit by psum
+    over "model".  `labels` are global ids (mask them outside).  The
+    backward is written out: softmax minus the one-hot, on the block."""
+    return _VocabNLL.apply(logits, labels, mesh, int(start))
+
+
+@torch.no_grad()
+def shard_params(full, mesh, specs: dict) -> dict:
+    """{name: this rank's block} of the full parameters (a flat dict, or
+    a `Transformer`) under their specs, sanitized here against the full
+    shapes; each block a copy."""
+    if not isinstance(full, dict):
+        full = {n: p.detach() for n, p in full.named_parameters()}
+    return {k: local_block(v, mesh, sanitize_spec(specs[k], v.shape, mesh))
+            .clone() for k, v in full.items()}
+
+
+def gather_act(x: torch.Tensor, mesh, spec: tuple) -> torch.Tensor:
+    """The whole of a block `x` sharded as `spec` (entries over mesh dims,
+    such as (dp, None, "model") for the logits): gathered along every
+    entry, in row-major block order.  Not differentiated."""
+    with torch.no_grad():
+        return _gather_dims(x, mesh, spec, mesh_shape(mesh))
+
+
+def gather_params(local: dict, mesh, specs: dict) -> dict:
+    """{name: the full leaf} of the blocks in `local` under their specs,
+    sanitized against the FULL shapes (as `shard_params` sanitizes
+    them; `models.model.param_specs(cfg, mesh)` gives them)."""
+    return {k: gather_act(v, mesh, specs[k]) for k, v in local.items()}
+
+
+# ------------------------------ layout --------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """The sharded layout of one call: the mesh, its data-parallel dims
+    `dp` and its sizes.  `param` / `whole` gather a weight block at use,
+    `copy` / `reduce` bracket a tensor-parallel product."""
+
+    mesh: object
+    dp: tuple
+    sizes: dict
+
+    @property
+    def m(self) -> int:
+        """The "model" dim's size (1 without one)."""
+        return self.sizes.get("model", 1)
+
+    def spec(self, d: P_) -> tuple:
+        return sanitize_spec(d.spec, d.shape, self.sizes)
+
+    def split(self, d: P_) -> bool:
+        """Whether descriptor `d`'s weight is split over "model"."""
+        return "model" in sharded_dims(self.spec(d))
+
+    def param(self, w, d: P_):
+        """Weight block `w` of descriptor `d` with its dp dims gathered."""
+        return gather_param(w, self.mesh, self.spec(d), self.dp)
+
+    def params(self, p, descr: dict) -> dict:
+        return {k: self.param(p[k], d) for k, d in descr.items()}
+
+    def whole(self, w, d: P_):
+        """`w` gathered along every dim, for a value the replicated
+        hidden state uses whole."""
+        spec = self.spec(d)
+        return gather_model(gather_param(w, self.mesh, spec, self.dp),
+                            self.mesh, spec)
+
+    def copy(self, x):
+        return copy_to_model(x, self.mesh) if self.m > 1 else x
+
+    def reduce(self, x):
+        return reduce_from_model(x, self.mesh) if self.m > 1 else x
+
+    def model_index(self) -> int:
+        return C.axis_index(self.mesh, "model") if "model" in self.sizes else 0
+
+    def local_cfg(self, cfg: ModelConfig) -> ModelConfig:
+        """The config of this rank's heads: H / m query and Hkv / m KV
+        heads, `head_dim` pinned to the full config's head width (so the
+        width and the attention's scale stay the model's)."""
+        m = self.m
+        _check_heads(cfg, m)
+        return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
+                                   num_kv_heads=cfg.kv_heads // m,
+                                   head_dim=cfg.head_width)
+
+
+def _check_heads(cfg: ModelConfig, m: int) -> None:
+    if cfg.num_heads % m or cfg.kv_heads % m:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.num_heads} query and {cfg.kv_heads} KV heads "
+            f"on a 'model' dim of {m}: a KV cache sharded over its sequence "
+            f"{_QUEUE}")
+
+
+def check_config(cfg: ModelConfig, m: int) -> None:
+    """Raise NotImplementedError for a config this slice does not shard."""
+    kinds = sorted(set(cfg.layer_kinds()) - set(SHARDED_KINDS))
+    if kinds:
+        raise NotImplementedError(f"{cfg.name}: the {kinds} block kinds "
+                                  f"{_QUEUE}")
+    if cfg.num_experts:
+        raise NotImplementedError(f"{cfg.name}: the mixture of experts "
+                                  f"{_QUEUE}")
+    if cfg.encoder_layers:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder {_QUEUE}")
+    _check_heads(cfg, m)
+
+
+def layout(cfg: Optional[ModelConfig], dp) -> Optional[Layout]:
+    """The sharded layout of a call with data-parallel dims `dp` under the
+    mesh in context, or None (no mesh, or `dp` None): the module
+    docstring.  With `cfg`, raises for a config this slice does not
+    shard.  A `Layout` as `dp` is returned as it is: a block recomputed
+    in backward runs where the mesh's context may not be (on the card,
+    autograd's own thread), so the model passes its layout down."""
+    if isinstance(dp, Layout):
+        return dp
+    mesh = current_mesh()
+    if mesh is None or dp is None:
+        return None
+    dp = (dp,) if isinstance(dp, str) else tuple(dp)
+    sizes = mesh_shape(mesh)
+    if not hasattr(mesh, "get_group"):
+        raise TypeError("a name-to-size mapping describes a mesh; running "
+                        "sharded needs a DeviceMesh")
+    if set(dp) - set(sizes) or "model" in dp:
+        raise ValueError(f"dp={dp} names dims outside the mesh's batch "
+                         f"dims; the mesh has {tuple(sizes)}")
+    if set(sizes) - set(dp) - {"model"}:
+        raise ValueError(f"the mesh's dims {tuple(sizes)} are not dp={dp} "
+                         f"and 'model'")
+    if cfg is not None:
+        check_config(cfg, sizes.get("model", 1))
+    return Layout(mesh, dp, sizes)

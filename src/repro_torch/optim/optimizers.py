@@ -86,10 +86,12 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def clip_by_global_norm(grads: dict, max_norm: float, *,
-                        inplace: bool = False):
+                        inplace: bool = False, norm=None):
     """(grads scaled to global norm <= max_norm, the norm before).  The
-    scale is cast to each leaf's dtype, as the reference casts it."""
-    n = global_norm(grads)
+    scale is cast to each leaf's dtype, as the reference casts it.
+    `norm`: the global norm when the caller has it (a sharded step sums
+    its blocks' squares over the mesh)."""
+    n = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp_min(n, 1e-9), max=1.0)
     if inplace:
         for g in grads.values():

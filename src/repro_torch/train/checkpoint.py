@@ -16,6 +16,16 @@ The archive is written leaf by leaf (the same zip of ``.npy`` members
 llama3.2-3b AdamW state is 38 GB on disk.  `restore_checkpoint` reads
 into the tensors of the state it is given, in place, leaf by leaf,
 with a few members read (and their CRCs checked) ahead by threads.
+
+Elastic checkpoints (the state of a model-sharded step, `models.sharded`):
+with `shardings` (a tree of specs mirroring the state, as
+`launch.specs.state_shardings` gives them, sanitized against the full
+shapes) and a mesh (`mesh=`, else the one in context), every rank calls
+`save_checkpoint` with its blocks: each leaf is gathered whole, the
+mesh's first rank alone writes, publishes and prunes, and the others
+wait at a barrier of the default process group.  `restore_checkpoint`
+with the NEW mesh's shardings gives each rank its block on that mesh,
+whatever mesh wrote the checkpoint.  The files are the unsharded ones.
 """
 from __future__ import annotations
 
@@ -30,6 +40,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..models.layers import current_mesh
+from ..models.sharded import gather_act, local_block
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "list_steps"]
@@ -62,23 +76,61 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _mesh_of(mesh):
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None:
+        raise ValueError("sharded checkpoints need a mesh: pass mesh= or "
+                         "call under launch.mesh.set_mesh")
+    return mesh
+
+
+def _whole(state: dict, shardings: dict, mesh):
+    """(key, leaf) of `state`, each sharded tensor gathered whole."""
+    specs = _flatten(shardings)
+    for key, leaf in _flatten(state).items():
+        if torch.is_tensor(leaf) and specs.get(key):
+            leaf = gather_act(leaf, mesh, specs[key])
+        yield key, leaf
+
+
 def save_checkpoint(directory: str, state: dict, step: int, *,
-                    keep_n: int = 3, metadata: Optional[dict] = None) -> str:
+                    keep_n: int = 3, metadata: Optional[dict] = None,
+                    shardings: Optional[dict] = None, mesh=None) -> str:
+    """Write `state` as checkpoint `step`; returns its directory.  With
+    `shardings`, every rank of the mesh calls it with its blocks (module
+    docstring)."""
+    final = os.path.join(directory, f"ckpt_{step:010d}")
+    if shardings is None:
+        _write(directory, _flatten(state).items(), step, keep_n, metadata)
+        return final
+    mesh = _mesh_of(mesh)
+    leaves = _whole(state, shardings, mesh)
+    if dist.get_rank() == int(mesh.mesh.reshape(-1)[0]):
+        _write(directory, leaves, step, keep_n, metadata)
+    else:
+        for _ in leaves:  # the gathers, in the writer's order
+            pass
+    dist.barrier()
+    return final
+
+
+def _write(directory: str, leaves, step: int, keep_n: int,
+           metadata: Optional[dict]) -> None:
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"tmp.{step}")
     final = os.path.join(directory, f"ckpt_{step:010d}")
     os.makedirs(tmp, exist_ok=True)
-    leaves = {}
+    shapes = {}
     with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), mode="w",
                          compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
-        for key, leaf in _flatten(state).items():
+        for key, leaf in leaves:
             a = _to_numpy(leaf)
             with zf.open(key + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, a, allow_pickle=False)
-            leaves[key] = {"shape": list(a.shape), "dtype": str(a.dtype)}
+            shapes[key] = {"shape": list(a.shape), "dtype": str(a.dtype)}
             del a
-    manifest = {"step": int(step), "leaves": leaves,
+    manifest = {"step": int(step), "leaves": shapes,
                 "metadata": metadata or {}}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -86,7 +138,6 @@ def save_checkpoint(directory: str, state: dict, step: int, *,
         shutil.rmtree(final)
     os.replace(tmp, final)     # atomic publish
     _prune(directory, keep_n)
-    return final
 
 
 def _prune(directory: str, keep_n: int) -> None:
@@ -134,11 +185,19 @@ def _read_member(archive: str, key: str) -> np.ndarray:
 
 
 def restore_checkpoint(directory: str, state_like: dict, *,
-                       step: Optional[int] = None):
+                       step: Optional[int] = None,
+                       shardings: Optional[dict] = None, mesh=None):
     """(state, step): the checkpoint read into the structure of
     `state_like`.  Its tensors receive the stored values in place (each
     keeps its device and dtype); its other leaves (the step counter) are
-    replaced in the returned dict."""
+    replaced in the returned dict.  With `shardings` (the NEW mesh's,
+    module docstring), `state_like` holds this rank's blocks on that
+    mesh (`mesh=`, else the one in context), and each receives its block
+    of the stored leaf."""
+    specs = {}
+    if shardings is not None:
+        mesh = _mesh_of(mesh)
+        specs = _flatten(shardings)
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -166,7 +225,10 @@ def restore_checkpoint(directory: str, state_like: dict, *,
                                                  nxt)))
             got, future = pending.popleft()
             assert got == key, (got, key)
-            return future.result()
+            a = future.result()
+            if specs.get(key):
+                return local_block(torch.as_tensor(a), mesh, specs[key])
+            return a
 
         state = _unflatten_like(state_like, arrays)
     return state, step

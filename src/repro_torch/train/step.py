@@ -34,6 +34,16 @@ trajectory follows the dense step's to f32 rounding.
 Both steps update the state IN PLACE (the reference's jit donates it)
 and return it with the step's metrics: the llama3.2-3b state is tens of
 GB, and a second copy would not fit beside it.
+
+`make_train_step(..., dp=)` under a mesh (`launch.mesh.set_mesh`) is the
+model-sharded step (`models.sharded`): the state holds this rank's
+block of every parameter (`init_train_state` of the blocks, so the
+optimizer's moments mirror them) and the batch its rows.  The gradients
+come back as blocks of the global mean's; the clip norm sums each
+block's f32 squares over every mesh dim the leaf is sharded on (and
+none it is replicated on); AdamW and SGDM update the blocks as they
+are, elementwise.  Adafactor's update reduces over whole leaves, so a
+sharded Adafactor raises NotImplementedError (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -50,8 +60,9 @@ from ..dist import (
 )
 from ..dist import collectives as C
 from ..dist.async_sync import check_replica_mesh
+from ..models import sharded
 from ..models.config import ModelConfig
-from ..models.model import loss_fn, param_dict
+from ..models.model import DP_DEFAULT, loss_fn, param_dict, param_specs
 from ..optim.optimizers import (
     Optimizer, clip_by_global_norm, global_norm, square_norm,
 )
@@ -74,7 +85,8 @@ def _flat(params) -> dict:
 
 def init_train_state(params, optimizer: Optimizer) -> dict:
     """params: a `Transformer` or a flat dict of tensors (the state holds
-    those tensors and updates them in place)."""
+    those tensors and updates them in place).  On a mesh: this rank's
+    blocks (`models.sharded.shard_params`); the moments mirror them."""
     params = _flat(params)
     return {"params": params, "opt": optimizer.init(params), "step": 0}
 
@@ -117,29 +129,60 @@ def _on(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict):
+def _value_and_grad(cfg: ModelConfig, params: dict, batch: dict, dp=None):
     """(loss, {name: gradient}) of `loss_fn` at `params`, which are left
     as they are: the gradients flow to detached leaves sharing their
-    storage."""
+    storage.  `dp`: `loss_fn`'s (None: unsharded)."""
     leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
     with no_tf32(), torch.enable_grad():
-        loss = loss_fn(leaves, cfg, batch)
+        loss = loss_fn(leaves, cfg, batch, dp=dp)
         grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
 
 
+def _sharded_norm(grads: dict, lay, specs: dict) -> torch.Tensor:
+    """The global norm of sharded gradient blocks: each group of leaves
+    sharded over the same mesh dims has its f32 sum of squares summed
+    over those dims (a leaf replicated over a dim holds the same values
+    on every rank there)."""
+    groups: dict = {}
+    for k, g in grads.items():
+        groups.setdefault(sharded.sharded_dims(specs[k]), []).append(g)
+    total = 0.0
+    for dims in sorted(groups):
+        sq = square_norm(groups[dims])
+        total = total + (C.psum(sq, lay.mesh, dims) if dims else sq)
+    return torch.sqrt(total)
+
+
+def _check_sharded_optimizer(opt_state: dict) -> None:
+    if any(isinstance(v, dict) for v in opt_state.get("v", {}).values()):
+        raise NotImplementedError(
+            "a sharded Adafactor (its update reduces over whole leaves) is "
+            "not ported yet (ROADMAP Queue A)")
+
+
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                     lr_fn: Callable, *, clip_norm: float = 1.0,
-                    device="cuda") -> Callable:
+                    device="cuda", dp=DP_DEFAULT) -> Callable:
     """step(state, batch) -> (state, metrics) on `device` (the card
     unless "cpu" is asked for); `batch` holds host arrays (tokens,
-    labels) or tensors."""
+    labels) or tensors.  Under a mesh with `dp`: the sharded step
+    (module docstring) on this rank's blocks and rows; the metrics are
+    global."""
     dev = resolve_device(device)
 
     def step(state, batch):
-        loss, grads = _value_and_grad(cfg, state["params"], _on(batch, dev))
+        lay = sharded.layout(cfg, dp)
+        if lay is not None:
+            _check_sharded_optimizer(state["opt"])
+        loss, grads = _value_and_grad(cfg, state["params"], _on(batch, dev),
+                                      dp=dp)
         with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, clip_norm, inplace=True)
+            norm = (None if lay is None else
+                    _sharded_norm(grads, lay, param_specs(cfg, lay.mesh)))
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, inplace=True,
+                                               norm=norm)
             lr = lr_fn(state["step"])
             optimizer.update_(grads, state["opt"], state["params"], lr)
         del grads
