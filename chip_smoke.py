@@ -83,7 +83,13 @@ prefill at full width (4 layers, 4 x 4096 on 2 x 2, one bf16 flash
 launch a layer in each rank on its heads; an f32 copy's blocks against
 the unsharded model), S2 one sharded AdamW step (2 layers, f32) against
 the unsharded step, S3 its state saved and restored onto a 4 x 1 mesh,
-bitwise.  None of them times a collective.  Any failed check raises,
+bitwise, and on the same mesh S4 recurrentgemma-9b (3 layers: its one
+KV head does not divide "model", so each rank's local layer attends
+over its share of the (row, query head) units in one bf16 flash launch)
+and S5 rwkv6-3b (4 layers, 20 heads a rank, one wkv launch a layer),
+each prefilling 4 x 4096 at full width, then an f32 copy's blocks and 8
+decode steps from a sharded cache against the unsharded model.  None of
+them times a collective.  Any failed check raises,
 and the script exits non-zero.
 
 Output: progress lines, the card's name and power limit, one JSON line
@@ -264,10 +270,29 @@ MESH_TRAIN = dict(R=4, steps=2, rtol=1e-5)
 # is far below eps (its loss is ~35.8: the tied logits peak on the input
 # token) the step carries the gradient's f32 rounding amplified by up to
 # lr / eps.  S3: S2's state saved with its shardings and restored onto a
-# 4 x 1 mesh, every block bitwise.  The group has MESH["timeout"].
+# 4 x 1 mesh, every block bitwise.  S4 / S5 (SHARD_KINDS): the block
+# kinds and the head counts that "model" does not divide, on the same
+# mesh, in bf16 at full width with their depth cut: prefill on PREFILL,
+# each rank's logits block finite, exactly the listed launches of the
+# kernels (recurrentgemma-9b's local layer past its window runs the bf16
+# flash kernel once, on the rank's 16 of the 2 x 16 (row, query head)
+# units, each with the one KV head; rwkv6-3b runs the wkv kernel once a
+# layer on its 2 x 20 (row, head) rows) and 0 of every other kernel;
+# then an f32 copy at the listed depth, each rank's hidden state and
+# logits block allclose at SHARD["prefill_tol"] to the unsharded model's
+# on its rows, and SHARD["decode_steps"] decode steps from a sharded
+# init_cache (recurrentgemma-9b's local cache split over its positions,
+# flash-decode) against the unsharded decode, each step's logits block
+# at the same tolerance.  The group has MESH["timeout"].
 SHARD = dict(ranks=4, mesh=(2, 2), restore_mesh=(4, 1), prefill_layers=4,
              agree_layers=2, prefill_tol=1e-4, train_layers=2,
-             train=(4, 512), lr=1e-5, train_tol=1e-5)
+             train=(4, 512), lr=1e-5, train_tol=1e-5, decode_steps=8,
+             logits_chunk=1024)
+# phase: (arch, bf16 layers, f32 layers, {kernel: launches a rank})
+SHARD_KINDS = {
+    "S4": ("recurrentgemma-9b", 3, 3, {"flash_attention": 1}),
+    "S5": ("rwkv6-3b", 4, 2, {"rwkv6": 4}),
+}
 # the serving fleet.  P1: the legacy per-tick schedule on the n=10^5 FI
 # plan, backend "ref" (the plain tick scan) and "cuda" (each chunk's
 # mixing matrix built tick by tick from the identity's rows, one
@@ -3546,9 +3571,10 @@ class Smoke:
 # running main) can unpickle them.
 
     def sharded_model(self) -> dict:
-        """S1-S3 (SHARD): the parent's unsharded AdamW step first (its
-        loss and parameters written to a temp dir), then one group of 4
-        ranks.  Returns each phase's launches of each kernel in rank 0."""
+        """S1-S5 (SHARD, SHARD_KINDS): the parent's unsharded AdamW step
+        first (its loss and parameters written to a temp dir), then one
+        group of 4 ranks.  Returns each phase's launches of each kernel
+        in rank 0."""
         torch = self.torch
         from repro_torch.dist.ranks import run_ranks
         from repro_torch.optim import adamw
@@ -3649,14 +3675,55 @@ class Smoke:
             f"{max(row['S3']['restore_s']):.1f} s, the check's gathers "
             f"{max(row['S3']['check_s']):.1f} s")
         paths["S2"] = ranks[0]["S2"]["counts"]
+        for phase in SHARD_KINDS:
+            paths[phase] = self._check_shard_kind(
+                phase, [out[phase] for out in ranks])
+            row[phase] = {k: [out[phase][k] for out in ranks]
+                          for k in ("seconds", "err", "agree_s",
+                                    "agree_split", "cache_shapes")}
         row["account_rank0"] = {n: ranks[0][n]["account"]
-                                for n in ("S1", "S2", "S3")}
+                                for n in ("S1", "S2", "S3", *SHARD_KINDS)}
+        row["account_rank0"].update({f"{n} f32": ranks[0][n]["agree_account"]
+                                     for n in SHARD_KINDS})
         row["total_s"] = time.perf_counter() - t_all
-        log(f"[shard] S1-S3 took {row['total_s']:.1f} s: the unsharded step "
+        log(f"[shard] S1-S5 took {row['total_s']:.1f} s: the unsharded step "
             f"{row['s2_reference_s']:.1f} s, the 4-rank group "
             f"{row['group_s']:.1f} s")
         self.report["shard"] = row
         return paths
+
+    def _check_shard_kind(self, phase: str, got: list) -> dict:
+        """S4 / S5's gates over every rank's result; rank 0's launches."""
+        arch, layers, agree, runs = SHARD_KINDS[phase]
+        flash = runs.get("flash_attention", 0)
+        for rank, g in enumerate(got):
+            check(all(g["counts"][k] == n for k, n in runs.items())
+                  and g["flash"] == {"flash_attention_sm90": flash,
+                                     "flash_attention": 0},
+                  f"{phase} rank {rank}: the sharded prefill launched "
+                  f"{g['counts']} {g['flash']}, not {runs} (bf16)")
+            self.check_idle(g["counts"], tuple(runs), f"{phase} rank {rank}")
+            check(g["finite"] and g["shape"] == g["want_shape"],
+                  f"{phase} rank {rank}: logits block {g['shape']} (want "
+                  f"{g['want_shape']}), finite {g['finite']}")
+            for what, ok in g["close"].items():
+                check(ok, f"{phase} rank {rank}: the f32 {what} differ from "
+                          f"the unsharded model's by {g['err'][what]} (max "
+                          f"abs)")
+            log(f"[shard {phase}] rank {rank}: {g['seconds']:.2f} s, f32 "
+                f"copy {g['agree_s']:.2f} s ({g['agree_split']}), "
+                f"collectives {g['account']}, the f32 copy's sharded runs' "
+                f"{g['agree_account']}")
+        worst = {k: max(g["err"][k] for g in got) for k in got[0]["err"]}
+        log(f"[shard {phase}] {arch} {layers} layers bf16 prefill "
+            f"{PREFILL[0]}x{PREFILL[1]} on {SHARD['mesh']}: each rank "
+            f"{got[0]['want_shape']} logits, {runs} launches; f32 at {agree} "
+            f"layers: hidden within {worst['hidden']:.3g}, logits within "
+            f"{worst['logits']:.3g}, {SHARD['decode_steps']} decode steps "
+            f"within {worst['decode']:.3g} (max abs); rank 0's cache blocks "
+            f"{got[0]['cache_shapes']}")
+        return got[0]["counts"]
+
 
 def _rank_threads(ranks: int) -> int:
     """CPU threads a rank: the host's cores shared out (more threads
@@ -4065,8 +4132,120 @@ def _shard_train(torch, smoke, mesh, tmp) -> dict:
     return s2, s3
 
 
+def _shard_kind(torch, smoke, mesh, phase: str) -> dict:
+    """S4 or S5 (SHARD_KINDS) in one rank."""
+    import numpy as np
+
+    from repro_torch._tf32 import no_tf32
+    from repro_torch.configs import get_config
+    from repro_torch.data import shard_batch
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch import batch_axes, set_mesh
+    from repro_torch.models import (
+        Transformer, decode_step, forward, init_cache,
+    )
+    from repro_torch.models import sharded as SH
+    from repro_torch.models.model import (
+        _head, _hidden, _tree, _unembed, param_specs,
+    )
+
+    arch, layers, agree_layers, _ = SHARD_KINDS[phase]
+    dev = torch.device("cuda", 0)
+    dp = batch_axes(mesh)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    B, S = PREFILL
+    rng = np.random.default_rng(MODEL_SEED)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S))
+    steps = rng.integers(0, cfg.vocab_size, (SHARD["decode_steps"], B))
+    rows = shard_batch({"tokens": tokens, "steps": steps.T}, mesh, dp)
+    local = SH.shard_params(Transformer(cfg).init(seed=MODEL_SEED,
+                                                  device=dev),
+                            mesh, param_specs(cfg, mesh))
+    torch.cuda.empty_cache()
+    smoke.zero_counts()
+    C.reset_account()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with set_mesh(mesh):
+        logits = forward(local, cfg, {"tokens": rows["tokens"]}, dp=dp)
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, counts=smoke.read_counts(),
+               flash=dict(smoke.flash_kernels()), account=C.account(),
+               shape=tuple(logits.shape),
+               want_shape=(B // 2, S, cfg.vocab_size // 2),
+               finite=bool(torch.isfinite(logits).all()))
+    del logits, local
+    torch.cuda.empty_cache()
+    # the f32 copy: the unsharded model on this rank's rows first, then
+    # the rank's blocks; the logits blocks compared a chunk of positions
+    # at a time (a rank's whole block is 3.9 GB at recurrentgemma-9b's
+    # vocabulary, and four ranks share the card)
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=agree_layers)
+    full = Transformer(cfg32).init(seed=MODEL_SEED, device=dev)
+    local = SH.shard_params(full, mesh, param_specs(cfg32, mesh))
+    batch = {"tokens": rows["tokens"]}
+    # the unembedding's vocabulary block: the rank's columns of the logits
+    name, spec = (("embed", ("model", None)) if cfg32.tie_embeddings
+                  else ("unembed", (None, "model")))
+    head = {name: SH.local_block(full[name].detach(), mesh, spec).clone()}
+    with no_tf32(), torch.no_grad():
+        want = {"hidden": _hidden(full, cfg32, batch)}
+    cache = init_cache(full, cfg32, B // 2, SHARD["decode_steps"])
+    want["decode"] = []
+    for tok in rows["steps"].T:
+        lg, cache = decode_step(full, cfg32, cache, tok)
+        want["decode"].append(SH.local_block(lg, mesh, (None, "model")))
+    del full, cache
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    split = {"unsharded": time.perf_counter() - t0}
+    C.reset_account()
+    tol = SHARD["prefill_tol"]
+    with set_mesh(mesh), no_tf32(), torch.no_grad():
+        lay = SH.layout(cfg32, dp)
+        got = _hidden(_tree(local), cfg32, batch, lay=lay)
+        w, _ = _head(_tree(local), cfg32, lay)
+    err = {"hidden": float((got - want["hidden"]).abs().max())}
+    close = {"hidden": bool(torch.allclose(got, want["hidden"], rtol=tol,
+                                           atol=tol))}
+    err["logits"], close["logits"] = 0.0, True
+    with no_tf32(), torch.no_grad():
+        for t in range(0, S, SHARD["logits_chunk"]):
+            part = slice(t, t + SHARD["logits_chunk"])
+            a = _unembed(w, cfg32, got[:, part])      # `_logits` under lay
+            b = _unembed(head, cfg32, want["hidden"][:, part])
+            err["logits"] = max(err["logits"], float((a - b).abs().max()))
+            close["logits"] &= bool(torch.allclose(a, b, rtol=tol, atol=tol))
+            del a, b
+    del got, w, head, want["hidden"]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    split["prefill"] = time.perf_counter() - t0 - split["unsharded"]
+    with set_mesh(mesh):
+        cache = init_cache(local, cfg32, B // 2, SHARD["decode_steps"],
+                           dp=dp)
+        out["cache_shapes"] = [{k: tuple(a.shape) for k, a in layer.items()}
+                               for layer in cache["layers"]]
+        errs = []
+        for tok, w in zip(rows["steps"].T, want["decode"]):
+            lg, cache = decode_step(local, cfg32, cache, tok, dp=dp)
+            errs.append(float((lg - w).abs().max()))
+            close.setdefault("decode", True)
+            close["decode"] &= bool(torch.allclose(lg, w, rtol=tol, atol=tol))
+    err["decode"] = max(errs)
+    del local, cache, want
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    agree_s = time.perf_counter() - t0
+    split["decode"] = agree_s - split["unsharded"] - split["prefill"]
+    out.update(err=err, close=close, agree_s=agree_s, agree_split=split,
+               agree_account=C.account())
+    return out
+
+
 def _shard_rank(rank, world, tmp):
-    """S1, S2 and S3 in one rank of the 4-rank group."""
+    """S1-S5 in one rank of the 4-rank group."""
     import torch
 
     from repro_torch.launch import make_host_mesh
@@ -4076,6 +4255,8 @@ def _shard_rank(rank, world, tmp):
     mesh = make_host_mesh(*SHARD["mesh"], device_type="cuda")
     out = {"S1": _shard_prefill(torch, smoke, mesh)}
     out["S2"], out["S3"] = _shard_train(torch, smoke, mesh, tmp)
+    for phase in SHARD_KINDS:
+        out[phase] = _shard_kind(torch, smoke, mesh, phase)
     return out
 
 
@@ -4124,7 +4305,7 @@ def main() -> int:
         f"(trials, nodes) mesh (gloo, one card), backend cuda, each rank":
             mesh["m2"]}
     del g5, plan5
-    # S1-S3: model sharding over a (data, model) mesh, ranks on this card
+    # S1-S5: model sharding over a (data, model) mesh, ranks on this card
     torch.cuda.empty_cache()
     shard = smoke.sharded_model()
     g6, plan6, x06, graph6, pl6 = smoke.setup(1_000_000)
@@ -4318,10 +4499,16 @@ def main() -> int:
     s2_path = (f"make_train_step llama3.2-3b width, {SHARD['train_layers']} "
                f"layers, f32, AdamW, {SHARD['train'][0]}x{SHARD['train'][1]} "
                f"on a 2 x 2 (data, model) mesh, each rank")
+    kind_paths = {
+        phase: (f"forward {arch} {layers} layers {PREFILL[0]}x{PREFILL[1]} "
+                f"on a 2 x 2 (data, model) mesh (gloo, one card), each rank")
+        for phase, (arch, layers, _, _) in SHARD_KINDS.items()}
     for name, row in smoke.kernels.items():
         row["launches_by_path"][m4_path] = mesh["m4"][name]
         row["launches_by_path"][s1_path] = shard["S1"][name]
         row["launches_by_path"][s2_path] = shard["S2"][name]
+        for phase, path in kind_paths.items():
+            row["launches_by_path"][path] = shard[phase][name]
 
     total = time.perf_counter() - t_start
     smoke.report["total_s"] = total

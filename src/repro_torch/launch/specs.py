@@ -12,7 +12,7 @@ name-to-size mapping; building a cell starts no process group.
 A cell's `fn` is the sharded step: it runs under `launch.mesh.set_mesh`
 of a `DeviceMesh` of these dims, in every rank, on the rank's blocks of
 the arguments (`models.sharded.shard_params`, `local_block`).  The
-block kinds this slice does not shard raise there, not here.
+configs the port does not shard yet raise there, not here.
 """
 from __future__ import annotations
 
@@ -24,10 +24,10 @@ from ..configs.registry import SHAPES
 from ..models.config import ModelConfig
 from ..models.layers import DTYPES
 from ..models.model import Transformer, decode_step, forward, init_cache
-from ..models.sharded import sanitize_spec
+from ..models.sharded import cache_spec, sanitize_spec
 from ..optim import cosine_schedule, make_optimizer
 from ..train import init_train_state, make_train_step
-from .mesh import batch_axes, mesh_shape
+from .mesh import batch_axes
 
 __all__ = ["build_cell", "sanitize_spec", "state_shardings", "Cell"]
 
@@ -85,30 +85,13 @@ def _batch_abs_and_sh(cfg: ModelConfig, B: int, S: int, mesh, dp,
 
 
 def _cache_shardings(cfg: ModelConfig, cache_abs: dict, mesh, dp) -> dict:
-    """The reference's name-based rules for the decode state, a layer at
-    a time (the port keeps no stacked layer axis)."""
-    model = mesh_shape(mesh).get("model", 1)
-
-    def rule(name, leaf):
-        shape = tuple(leaf.shape)
-        if name in ("k", "v"):          # (B, Hkv, L, dh)
-            if shape[1] % model == 0:
-                return sanitize_spec((dp, "model", None, None), shape, mesh)
-            # KV heads below the "model" size: the sequence dim instead
-            return sanitize_spec((dp, None, "model", None), shape, mesh)
-        if name == "pos":               # (B, L)
-            return sanitize_spec((dp, None), shape, mesh)
-        if name == "wkv":               # (B*H, N, N)
-            return sanitize_spec((dp, None, None), shape, mesh)
-        if name == "h":                 # (B, D)
-            return sanitize_spec((dp, "model"), shape, mesh)
-        if name in ("conv", "tm_prev", "cm_prev"):   # (B, w, D)
-            return sanitize_spec((dp, None, "model"), shape, mesh)
-        return (None,) * len(shape)
-
+    """The reference's name-based rules for the decode state
+    (`models.sharded.cache_spec`), a layer at a time (the port keeps no
+    stacked layer axis)."""
     memory = cache_abs["memory"]
     return {
-        "layers": [{k: rule(k, a) for k, a in layer.items()}
+        "layers": [{k: cache_spec(k, tuple(a.shape), mesh, dp)
+                    for k, a in layer.items()}
                    for layer in cache_abs["layers"]],
         "step": (),
         "memory": (None if memory is None else

@@ -35,12 +35,18 @@ or the `ParameterDict` of a `models.model.Transformer` block.
 
 Under a mesh (`launch.mesh.set_mesh`) and with `dp=`, `attention` and
 `decode_attention` run sharded (`models.sharded`): `params` hold this
-rank's blocks, gathered over the data-parallel dims at use; the rank
-computes its H/m query and Hkv/m KV heads (a config view with
-`head_dim` pinned to the model's head width, so the flash route
-launches the kernel on the rank's heads), and the output projection's
-partial sums are added over "model".  The reference's `_constrain_heads`
-is not ported: that layout is written out here.
+rank's blocks, gathered over the data-parallel dims at use, and the
+output projection's partial sums are added over "model".  Where "model"
+divides the KV heads, the rank computes its H/m query and Hkv/m KV
+heads (a config view with `head_dim` pinned to the model's head width,
+so the flash route launches the kernel on the rank's heads) and its
+cache holds those heads.  Where it does not, q, k and v are gathered
+into whole heads and the rank attends over its share of the (row, query
+head) units, each unit one batch entry of the route's call with its KV
+head, so the flash kernel's index masks stay whole-sequence; its cache
+holds its block of every KV head's positions, and decode combines the
+ranks' partial softmaxes (flash-decode).  The reference's
+`_constrain_heads` is not ported: that layout is written out here.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import collectives as C
 from ..kernels.flash_attention import flash_attention
 from . import sharded
 from .config import ModelConfig
@@ -271,11 +278,21 @@ def attention(
     if memory is not None:
         raise NotImplementedError("cross-attention is not sharded yet "
                                   "(ROADMAP Queue A)")
+    route = dict(kind=kind, causal=causal, chunk_threshold=chunk_threshold,
+                 train=train)
+    if not lay.heads_divide(cfg):
+        return _attention_units(params, cfg, x, positions, lay, **route)
     w = lay.params(params, attn_params(cfg))
     return lay.reduce(_attention(w, lay.local_cfg(cfg), lay.copy(x),
-                                 positions, kind=kind, causal=causal,
-                                 chunk_threshold=chunk_threshold,
-                                 train=train))
+                                 positions, **route))
+
+
+def _index_positions(cfg: ModelConfig, x):
+    """Positions 0..S-1 in every row of x (B, S, D)."""
+    if cfg.mrope_sections is not None:
+        raise ValueError(f"{cfg.name}: M-RoPE needs (B, S, 3) positions")
+    B, S = x.shape[:2]
+    return torch.arange(S, device=x.device)[None].expand(B, S)
 
 
 def _attention(params, cfg: ModelConfig, x, positions, *, kind, causal,
@@ -284,11 +301,7 @@ def _attention(params, cfg: ModelConfig, x, positions, *, kind, causal,
     H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
     index = positions is None
     if index:
-        if cfg.mrope_sections is not None:
-            raise ValueError(f"{cfg.name}: M-RoPE needs (B, S, 3) positions")
-        B, S = x.shape[:2]
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    window = cfg.window if kind == "local" else None
+        positions = _index_positions(cfg, x)
     src = x if memory is None else memory
     q = _heads(dense(x, params["wq"]), H, dh)
     k = _heads(dense(src, params["wk"]), Hkv, dh)
@@ -303,14 +316,63 @@ def _attention(params, cfg: ModelConfig, x, positions, *, kind, causal,
                  else torch.arange(src.shape[1], device=src.device)
                  [None].expand(src.shape[:2]))
     q_pos = positions if positions.dim() == 2 else positions[..., 0]
+    o = _attend(cfg, q, k, v, q_pos, k_pos, kind=kind, causal=causal,
+                cross=memory is not None, index=index,
+                chunk_threshold=chunk_threshold, train=train)
+    return dense(_unheads(o), params["wo"])
+
+
+def _attention_units(params, cfg: ModelConfig, x, positions, lay, *, kind,
+                     causal, chunk_threshold, train):
+    """Sharded self-attention where "model" does not divide the KV heads
+    (module docstring): q, k and v whole on every rank (`Layout.columns`),
+    rotated; the rank's units of the B·H (row, query head) pairs attend,
+    each as one batch entry with its KV head, on the route `_attention`
+    takes; their outputs gathered whole feed the rank's rows of wo."""
+    descr = attn_params(cfg)
+    H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
+    B, S = x.shape[:2]
+    index = positions is None
+    if index:
+        positions = _index_positions(cfg, x)
+    x = lay.copy(x)
+    q, k, v = (_heads(lay.columns(x, params[n], descr[n]), h, dh)
+               for n, h in (("wq", H), ("wk", Hkv), ("wv", Hkv)))
+    q = _apply_rope(cfg, q, positions)
+    k = _apply_rope(cfg, k, positions)
+    pos = positions if positions.dim() == 2 else positions[..., 0]
+    start, stop, counts = lay.units(B * H)
+    unit = torch.arange(start, stop, device=x.device)
+    row, kv = unit // H, unit % H // (H // Hkv)
+    qu = q.reshape(B * H, S, dh)[start:stop, None]
+    ku, vu = k[row, kv][:, None], v[row, kv][:, None]
+    if stop > start:
+        o = _attend(cfg, qu, ku, vu, pos[row], pos[row], kind=kind,
+                    causal=causal, cross=False, index=index,
+                    chunk_threshold=chunk_threshold, train=train)
+    else:
+        # no unit here: the empty output still depends on q, k and v, so
+        # this rank takes part in their gathers' backward
+        o = qu + ku + vu
+    o = lay.gather(o[:, 0], 0, counts)                      # (B*H, S, dh)
+    return lay.reduce(lay.rows(_unheads(o.reshape(B, H, S, dh)),
+                               params["wo"], descr["wo"]))
+
+
+def _attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, kind, causal, cross,
+            index, chunk_threshold, train):
+    """The attention of q (B, H, Sq, dh) over k, v (B, Hkv, Sk, dh) at
+    positions q_pos (B, Sq) and k_pos (B, Sk), on the route of the module
+    docstring's table; `index` says that the positions are 0..S-1, the
+    only ones the flash op takes."""
+    window = cfg.window if kind == "local" else None
     scale = _scale(cfg)
     softcap = cfg.attn_logit_softcap
-    Sk = src.shape[1]
-    banded = (window is not None and causal and memory is None
-              and Sk > window)
+    Sk = k.shape[2]
+    banded = window is not None and causal and not cross and Sk > window
     # the flash kernel is forward only and masks by index: serving
     # self-attention at 0..S-1
-    flash = not train and index and memory is None
+    flash = not train and index and not cross
     if banded and not flash:
         o = banded_local_attention(q, k, v, q_pos, k_pos, window=window,
                                    softcap=softcap, scale=scale,
@@ -321,14 +383,14 @@ def _attention(params, cfg: ModelConfig, x, positions, *, kind, causal,
                             scale=scale)
     elif Sk > chunk_threshold:
         o = chunked_attention(q, k, v, q_pos, k_pos,
-                              causal=causal and memory is None, window=window,
+                              causal=causal and not cross, window=window,
                               softcap=softcap, scale=scale,
                               chunk=min(1024, Sk))
     else:
-        bias = _mask_bias(q_pos, k_pos, causal=causal and memory is None,
+        bias = _mask_bias(q_pos, k_pos, causal=causal and not cross,
                           window=window)
         o = full_attention(q, k, v, bias, softcap=softcap, scale=scale)
-    return dense(_unheads(o), params["wo"])
+    return o
 
 
 # ------------------------------ decode --------------------------------
@@ -348,17 +410,21 @@ def init_kv_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     }
 
 
-def _decode_qkv(params, cfg: ModelConfig, x, pos_b):
+def _decode_qkv(params, cfg: ModelConfig, x, pos_b, project=None):
     """q (B, H, 1, dh), k and v (B, Hkv, 1, dh) of the token x (B, 1, D)
-    at the positions pos_b (B,) int32, rotary applied."""
+    at the positions pos_b (B,) int32, rotary applied.  `project(x,
+    name)` gives a projection's product (``x @ params[name]`` unless
+    given)."""
     H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
+    if project is None:
+        project = lambda a, name: dense(a, params[name])  # noqa: E731
     if cfg.mrope_sections is not None:
         qpos = pos_b[:, None, None].expand(x.shape[0], 1, 3)
     else:
         qpos = pos_b[:, None]
-    q = _apply_rope(cfg, _heads(dense(x, params["wq"]), H, dh), qpos)
-    k = _apply_rope(cfg, _heads(dense(x, params["wk"]), Hkv, dh), qpos)
-    return q, k, _heads(dense(x, params["wv"]), Hkv, dh)
+    q = _apply_rope(cfg, _heads(project(x, "wq"), H, dh), qpos)
+    k = _apply_rope(cfg, _heads(project(x, "wk"), Hkv, dh), qpos)
+    return q, k, _heads(project(x, "wv"), Hkv, dh)
 
 
 def _decode_attend(params, cfg: ModelConfig, q, k, v, keep):
@@ -384,12 +450,16 @@ def decode_attention(params, cfg: ModelConfig, x, cache: dict, step: int, *,
     without rotary, and the cache is returned untouched.
 
     `dp` under a mesh: sharded as `attention`; the cache holds this
-    rank's rows and KV heads (`init_kv_cache` of the local config)."""
+    rank's rows and its block of the KV heads, or where "model" does not
+    divide them its block of every head's positions (`sharded.cache_spec`,
+    as `models.model.init_cache` builds it)."""
     lay = sharded.layout(None, dp)
     if lay is not None:
         if memory_kv is not None:
             raise NotImplementedError("cross-attention is not sharded yet "
                                       "(ROADMAP Queue A)")
+        if not lay.heads_divide(cfg):
+            return _decode_positions(params, cfg, x, cache, step, kind, lay)
         w = lay.params(params, attn_params(cfg))
         h, new = decode_attention(w, lay.local_cfg(cfg), lay.copy(x), cache,
                                   step, kind=kind)
@@ -413,6 +483,56 @@ def decode_attention(params, cfg: ModelConfig, x, cache: dict, step: int, *,
         keep &= pos > (pos_b[:, None] - cfg.window)
     return (_decode_attend(params, cfg, q, k, v, keep),
             {"k": k, "v": v, "pos": pos})
+
+
+def _decode_positions(params, cfg: ModelConfig, x, cache: dict, step: int,
+                      kind: str, lay):
+    """`decode_attention` where "model" does not divide the KV heads
+    (flash-decode): the cache holds this rank's block of the positions
+    of every KV head (all of them where "model" does not divide the
+    length); q, k and v of the token are whole on every rank, the rank
+    holding the step's slot writes k and v there, every rank writes the
+    position; each rank's softmax over its positions in f32 is combined
+    by a pmax of the maxima and a psum of the sums and weighted values
+    over "model"; the rank's rows of wo take the whole output."""
+    descr = attn_params(cfg)
+    B = x.shape[0]
+    H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
+    pos_b = torch.full((B,), int(step), dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _decode_qkv(
+        params, cfg, x, pos_b,
+        lambda a, name: lay.columns(a, params[name], descr[name]))
+    k, v, pos = cache["k"], cache["v"], cache["pos"]
+    L, own = pos.shape[1], k.shape[2]
+    split = own < L
+    off = lay.model_index() * own if split else 0
+    slot = int(step) % L
+    if off <= slot < off + own:
+        k[:, :, slot - off] = k_new[:, :, 0]
+        v[:, :, slot - off] = v_new[:, :, 0]
+    pos[:, slot] = pos_b
+    kp = pos[:, off:off + own]
+    keep = (kp >= 0) & (kp <= pos_b[:, None])
+    if kind == "local" and cfg.window is not None:
+        keep &= kp > (pos_b[:, None] - cfg.window)
+    qg = q.reshape(B, Hkv, H // Hkv, 1, dh).float() * _scale(cfg)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    c = cfg.attn_logit_softcap
+    if c is not None:
+        s = c * torch.tanh(s / c)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    s = s + torch.where(keep, zero, _NEG_INF)[:, None, None, None, :]
+    mx = s.amax(dim=-1, keepdim=True)
+    if split:
+        mx = C.pmax(mx, lay.mesh, "model")
+    p = torch.exp(s - mx)
+    acc = torch.cat([torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()),
+                     p.sum(dim=-1, keepdim=True)], dim=-1)
+    if split:
+        acc = C.psum(acc, lay.mesh, "model")
+    o = (acc[..., :-1] / acc[..., -1:]).reshape(B, H, 1, dh).to(q.dtype)
+    h = lay.rows(_unheads(o), params["wo"], descr["wo"])
+    return lay.reduce(h), {"k": k, "v": v, "pos": pos}
 
 
 # --------------------------- paged decode ------------------------------

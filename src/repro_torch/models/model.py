@@ -23,9 +23,10 @@ rows, the hidden state between blocks is (B/dp, S, D) replicated over
 "model", and the logits come back as this rank's vocabulary block
 (B/dp, S, V/m).  The reference's `_constrain` of the hidden state to
 P(dp, None, "model") is not ported: it is a memory layout of the same
-function.  Dense attention blocks ("attn", "local") shard; the other
-kinds raise NotImplementedError.  Without a mesh, or with `dp=None`,
-everything runs unsharded.
+function.  Attention ("attn", "local", for any head count), rwkv and
+RG-LRU blocks shard; mixtures of experts and the encoder-decoder raise
+NotImplementedError.  Without a mesh, or with `dp=None`, everything
+runs unsharded.
 
 Training (`loss_fn`) runs the same blocks with gradients on, each
 block recomputed in backward when `cfg.remat`, through differentiable
@@ -101,7 +102,7 @@ def _apply_norm(p, cfg: ModelConfig, x, lay=None):
     """The norm of `p`; under a layout its scale is gathered whole (the
     hidden state is replicated over "model")."""
     if lay is not None:
-        d = _norm_params(cfg, "attn")
+        d = _norm_params(cfg, "rwkv" if "bias" in p else "attn")
         p = {k: lay.whole(p[k], d[k]) for k in d}
     if "bias" in p:
         return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
@@ -246,13 +247,17 @@ def _block_forward(p, cfg: ModelConfig, kind: str, x, positions, *,
     cross-attention where it has one.  `lay`: the sharded layout, or
     None."""
     if kind == "rwkv":
-        x = x + rwkv_time_mix(p["time"], cfg, _apply_norm(p["ln1"], cfg, x),
-                              train=train)
+        x = x + rwkv_time_mix(p["time"], cfg,
+                              _apply_norm(p["ln1"], cfg, x, lay),
+                              train=train, lay=lay)
         return x + rwkv_channel_mix(p["channel"], cfg,
-                                    _apply_norm(p["ln2"], cfg, x))
+                                    _apply_norm(p["ln2"], cfg, x, lay),
+                                    lay=lay)
     if kind == "rglru":
-        x = x + rglru_block(p["rglru"], cfg, _apply_norm(p["ln1"], cfg, x))
-        return x + mlp(_apply_norm(p["ln2"], cfg, x), p["mlp"], cfg.mlp_kind)
+        x = x + rglru_block(p["rglru"], cfg,
+                            _apply_norm(p["ln1"], cfg, x, lay), lay=lay)
+        return x + _mlp(p["mlp"], cfg, _apply_norm(p["ln2"], cfg, x, lay),
+                        lay)
     h = attention(p["attn"], cfg, _apply_norm(p["ln1"], cfg, x, lay),
                   positions, kind=kind, causal=causal,
                   chunk_threshold=chunk_threshold, train=train, dp=lay)
@@ -297,20 +302,37 @@ def _mlp(p, cfg: ModelConfig, z, lay=None):
 def _embed(params, cfg: ModelConfig, tokens, lay=None):
     """The tokens' embeddings.  Under a layout the rank looks up its
     vocabulary block (zeros for ids outside it) and the blocks are
-    summed over "model", which is exact."""
+    summed over "model", which is exact.  The block's width is split
+    over "data" (FSDP): where the tokens of the ranks along it are fewer
+    than the block's rows, they are gathered instead of the weight, the
+    rank looks them all up in its columns and the looked-up columns are
+    gathered (each rank's gradient summed in backward); else the block
+    is gathered whole."""
     if lay is None:
         e = params["embed"][tokens]
     else:
         d = _head_params(cfg)["embed"]
-        E = lay.param(params["embed"], d)
+        fsdp = lay.fsdp_dims(d, 1)
+        n = C.axis_size(lay.mesh, fsdp)
+        Vl = params["embed"].shape[0]
+        if fsdp and tokens.numel() * n < Vl:
+            E = lay.local(params["embed"], d, fsdp)
+            rows = C.all_gather(tokens, lay.mesh, fsdp)
+        else:
+            E, rows = lay.param(params["embed"], d), tokens
         if lay.split(d):
-            Vl = E.shape[0]
-            local = tokens - lay.model_index() * Vl
+            local = rows - lay.model_index() * Vl
             inside = ((local >= 0) & (local < Vl))[..., None]
             e = E[local.clamp(0, Vl - 1)]
-            e = lay.reduce(torch.where(inside, e, torch.zeros_like(e)))
+            e = torch.where(inside, e, torch.zeros_like(e))
         else:
-            e = E[tokens]
+            e = E[rows]
+        if rows is not tokens:
+            e = sharded.gather_blocks(e, lay.mesh, -1, dims=fsdp).narrow(
+                0, C.axis_index(lay.mesh, fsdp) * tokens.shape[0],
+                tokens.shape[0])
+        if lay.split(d):
+            e = lay.reduce(e)
     if cfg.scale_embeddings:
         e = e * torch.tensor(cfg.d_model**0.5, dtype=e.dtype)
     return e.to(DTYPES[cfg.dtype])
@@ -320,10 +342,16 @@ def _unembed(params, cfg: ModelConfig, x):
     if cfg.tie_embeddings:
         # bf16 products are exact in f32: this is an f32-accumulated dot
         logits = x.float() @ params["embed"].float().T
-        # the reference's tied-head scaling for its unit-variance embed
-        logits = logits * cfg.d_model**-0.5
     else:
         logits = dense(x, params["unembed"]).float()
+    return _finish_logits(cfg, logits)
+
+
+def _finish_logits(cfg: ModelConfig, logits):
+    """The head's product `logits` (f32) scaled (tied) and softcapped."""
+    if cfg.tie_embeddings:
+        # the reference's tied-head scaling for its unit-variance embed
+        logits = logits * cfg.d_model**-0.5
     if cfg.final_logit_softcap is not None:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -343,7 +371,29 @@ def _head(params, cfg: ModelConfig, lay):
 
 def _logits(params, cfg: ModelConfig, x, lay=None):
     """f32 logits of the hidden state x: (B, S, V), or under a layout
-    this rank's block (B/dp, S, V/m)."""
+    this rank's block (B/dp, S, V/m).  Where the hidden states of the
+    ranks along the dp dims that split the head's width hold fewer
+    elements than its gathered block (a decode step), they are gathered
+    instead: the rank multiplies all their rows by its block's columns
+    and the products are reduce-scattered back to each rank's rows."""
+    if lay is not None:
+        name = "embed" if cfg.tie_embeddings else "unembed"
+        d = _head_params(cfg)[name]
+        wide = 1 if cfg.tie_embeddings else 0      # the width's dim
+        fsdp = lay.fsdp_dims(d, wide)
+        n = C.axis_size(lay.mesh, fsdp)
+        D, Vl = cfg.d_model, params[name].shape[1 - wide]
+        if fsdp and x.shape[0] * x.shape[1] * n * (D + Vl) < Vl * D:
+            w = lay.local(params[name], d, fsdp)
+            xs = lay.copy(x) if lay.split(d) else x
+            xs = sharded.gather_blocks(xs, lay.mesh, 0, dims=fsdp)
+            xs = xs.narrow(-1, C.axis_index(lay.mesh, fsdp) * (D // n),
+                           D // n).float()
+            part = xs @ (w.float().T if cfg.tie_embeddings else w.float())
+            logits = sharded.reduce_scatter(part, lay.mesh, 0, dims=fsdp)
+            if not cfg.tie_embeddings:
+                logits = logits.to(x.dtype).float()  # `dense`'s rounding
+            return _finish_logits(cfg, logits)
     w, split = _head(params, cfg, lay)
     return _unembed(w, cfg, lay.copy(x) if split else x)
 
@@ -512,20 +562,37 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
     (None for a decoder-only config).
 
     Under a mesh with `dp`, `batch` counts this rank's rows, and each
-    attention layer's cache holds its Hkv/m KV heads (the reference's
-    cache rule P(dp, "model", None, None))."""
+    leaf is this rank's block under the reference's cache rule
+    (`sharded.cache_spec`): an attention layer's Hkv/m KV heads, or
+    where "model" does not divide them its block of every head's
+    positions; the rwkv state whole, the token-shift, conv and RG-LRU
+    buffers the rank's channels."""
     params = _tree(params)
     device = params["embed"].device
     lay = sharded.layout(cfg, dp)
-    local = cfg if lay is None else lay.local_cfg(cfg)
     with no_tf32(), torch.no_grad():
         memory = _encode(params, cfg, frames)
     return {
-        "layers": [layer_state(local, kind, batch, max_len, device)
+        "layers": [layer_state(cfg, kind, batch, max_len, device)
+                   if lay is None else
+                   _local_state(cfg, kind, batch, max_len, device, lay)
                    for kind in cfg.layer_kinds()],
         "step": 0,
         "memory": memory,
     }
+
+
+def _local_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 device, lay) -> dict:
+    """This rank's blocks over "model" of one layer's empty decode state
+    for `batch` rows (`init_cache`)."""
+    out = {}
+    for name, a in layer_state(cfg, kind, batch, max_len, "meta").items():
+        spec = sharded.cache_spec(name, tuple(a.shape), lay.sizes, lay.dp)
+        shape = sharded.local_block(a, lay.mesh, spec, keep=("model",)).shape
+        out[name] = torch.full(shape, -1 if name == "pos" else 0,
+                               dtype=a.dtype, device=device)
+    return out
 
 
 def layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -544,17 +611,17 @@ def _block_decode(p, cfg: ModelConfig, kind: str, x, state, step: int,
                   memory=None, lay=None):
     if kind == "rwkv":
         h, new_t = rwkv_time_mix_decode(
-            p["time"], cfg, _apply_norm(p["ln1"], cfg, x), state)
+            p["time"], cfg, _apply_norm(p["ln1"], cfg, x, lay), state, lay)
         x = x + h
         h, new_c = rwkv_channel_mix_decode(
-            p["channel"], cfg, _apply_norm(p["ln2"], cfg, x), new_t)
+            p["channel"], cfg, _apply_norm(p["ln2"], cfg, x, lay), new_t, lay)
         return x + h, new_c
     if kind == "rglru":
-        h, new = rglru_decode(p["rglru"], cfg, _apply_norm(p["ln1"], cfg, x),
-                              state)
+        h, new = rglru_decode(p["rglru"], cfg,
+                              _apply_norm(p["ln1"], cfg, x, lay), state, lay)
         x = x + h
-        return (x + mlp(_apply_norm(p["ln2"], cfg, x), p["mlp"],
-                        cfg.mlp_kind), new)
+        return x + _mlp(p["mlp"], cfg, _apply_norm(p["ln2"], cfg, x, lay),
+                        lay), new
     h, new = decode_attention(p["attn"], cfg,
                               _apply_norm(p["ln1"], cfg, x, lay), state,
                               step, kind=kind, dp=lay)

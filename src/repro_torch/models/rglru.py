@@ -17,7 +17,13 @@ plain tensor code and differentiable; the reference has no kernel here.
 Decode is the O(1) state update.
 
 The functions take `params` as any mapping of name to tensor: a dict,
-or the `ParameterDict` of a `models.model.Transformer` block.
+or the `ParameterDict` of a `models.model.Transformer` block.  Given a
+`models.sharded.Layout` (`lay`), they run on this rank's D/m channels
+(the reference's specs, `src/repro/models/rglru.py:33-39`): the
+column-parallel wx and wy, the conv, the gates and the scan on the
+rank's channels, the conv's output gathered over "model" for the wa and
+wi products, which take every channel, and the row-parallel wo; the
+decode state holds the rank's channels.
 """
 from __future__ import annotations
 
@@ -60,13 +66,16 @@ def _conv1d_causal(x, w, state=None):
     return out.to(x.dtype)
 
 
-def _gates(params, x):
-    """The decay a and the input u of the recurrence, f32 (B, S, D)."""
+def _gates(params, x, own=None):
+    """The decay a and the input u of the recurrence, f32 (B, S, D), from
+    the conv's output x; `own` is the channels of x whose gates these
+    are (this rank's under a layout; all of x unless given)."""
+    own = x if own is None else own
     a_log = (-_C * F.softplus(params["lam"].float())
              * torch.sigmoid(dense(x, params["wa"]).float()))
     a = torch.exp(a_log)
     i = torch.sigmoid(dense(x, params["wi"]).float())
-    u = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * x.float())
+    u = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * own.float())
     return a, u
 
 
@@ -82,22 +91,36 @@ def _scan(a, u):
     return u
 
 
-def rglru_block(params, cfg: ModelConfig, x, chunk: int = 512):
-    """Full-sequence form (prefill and training). x: (B, S, D)."""
-    B, S, D = x.shape
-    gate = F.gelu(dense(x, params["wy"]), approximate="tanh")
-    h_in = _conv1d_causal(dense(x, params["wx"]), params["conv"])
+def _weights(params, cfg: ModelConfig, lay):
+    """The weights as the block reads them: as they are, or under a
+    layout this rank's blocks gathered over the dp dims."""
+    return params if lay is None else lay.params(params, rglru_params(cfg))
+
+
+def rglru_block(params, cfg: ModelConfig, x, chunk: int = 512, lay=None):
+    """Full-sequence form (prefill and training). x: (B, S, D); under a
+    layout `lay` (module docstring) x is replicated over "model", and so
+    is the output."""
+    B, S, _ = x.shape
+    w = _weights(params, cfg, lay)
+    if lay is not None:
+        x = lay.copy(x)
+    gate = F.gelu(dense(x, w["wy"]), approximate="tanh")
+    h_in = _conv1d_causal(dense(x, w["wx"]), w["conv"])
+    h_all = h_in if lay is None else lay.gather(h_in)
     c = min(chunk, S)
-    h0 = torch.zeros((B, D), dtype=torch.float32, device=x.device)
+    h0 = torch.zeros((B, h_in.shape[-1]), dtype=torch.float32,
+                     device=x.device)
     hs = []
     for t in range(0, S, c):
-        a, u = _gates(params, h_in[:, t:t + c])           # f32 (B, c, D)
+        a, u = _gates(w, h_all[:, t:t + c], h_in[:, t:t + c])  # f32 (B, c, D)
         u = torch.cat([u[:, :1] + a[:, :1] * h0[:, None], u[:, 1:]], dim=1)
         h = _scan(a, u)
         h0 = h[:, -1]
         hs.append(h.to(x.dtype))
     y = torch.cat(hs, dim=1) * gate
-    return dense(y, params["wo"])
+    out = dense(y, w["wo"])
+    return out if lay is None else lay.reduce(out)
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, device) -> dict:
@@ -111,13 +134,17 @@ def init_rglru_state(cfg: ModelConfig, batch: int, device) -> dict:
     }
 
 
-def rglru_decode(params, cfg: ModelConfig, x, state: dict):
-    """One-token step. x: (B, 1, D); returns the output and a new state."""
-    gate = F.gelu(dense(x, params["wy"]), approximate="tanh")
-    xr = dense(x, params["wx"])
-    h_in = _conv1d_causal(xr, params["conv"], state=state["conv"])
+def rglru_decode(params, cfg: ModelConfig, x, state: dict, lay=None):
+    """One-token step. x: (B, 1, D); returns the output and a new state
+    (under a layout, of this rank's channels)."""
+    w = _weights(params, cfg, lay)
+    gate = F.gelu(dense(x, w["wy"]), approximate="tanh")
+    xr = dense(x, w["wx"])
+    h_in = _conv1d_causal(xr, w["conv"], state=state["conv"])
     new_conv = torch.cat([state["conv"], xr], dim=1)[:, 1:]
-    a, u = _gates(params, h_in)                           # (B, 1, D)
+    a, u = _gates(w, h_in if lay is None else lay.gather(h_in), h_in)
     h = a[:, 0] * state["h"] + u[:, 0]
     y = h[:, None].to(x.dtype) * gate
-    return dense(y, params["wo"]), {"h": h, "conv": new_conv}
+    out = dense(y, w["wo"])
+    return (out if lay is None else lay.reduce(out)), {"h": h,
+                                                        "conv": new_conv}

@@ -15,6 +15,21 @@ forward only.
 
 The functions take `p` as any mapping of name to tensor: a dict, or the
 `ParameterDict` of a `models.model.Transformer` block.
+
+Given a `models.sharded.Layout` (`lay`), they run sharded by the
+reference's specs (`src/repro/models/rwkv.py:34-55`): the token shift
+and the mixes on the whole (replicated) input, whose μ vectors every
+"model" rank uses whole; wr, wk, wv, wg, the decay LoRA's wb and w0
+column-parallel, the LoRA's wa whole; wo row-parallel.  Where "model"
+divides the heads, the rank's columns are its H/m heads and the wkv
+runs on them; where it does not, r, k, v and the decay are gathered
+into whole heads, the wkv and the group norm run on the rank's share of
+the B·H (row, head) units, and the outputs gathered back give the
+rank's columns.  The channel mix reduce-scatters the row-parallel wv
+product onto the rank's columns, multiplies it by the rank's
+sigmoid(r) and gathers the product whole.  Decode runs the wkv step on
+every head on every rank, as the state (B·H, N, N) is split over the dp
+dims only, and keeps the rank's columns of the token-shift buffers.
 """
 from __future__ import annotations
 
@@ -113,9 +128,36 @@ def wkv_train(r, k, v, w, u, block_t: int = _TRAIN_BLOCK_T):
     return torch.cat(ys, dim=1)
 
 
-def rwkv_time_mix(p, cfg: ModelConfig, x, *, train: bool = False):
+def _weights(p, cfg: ModelConfig, part: str, lay, whole=()):
+    """The weights of `part` ("time" or "channel") as the block reads
+    them: as they are, or under a layout the μ vectors and wa whole
+    (`Layout.shared`), the names in `whole` too, every other weight this
+    rank's block gathered over the dp dims."""
+    if lay is None:
+        return p
+    descr = rwkv_params(cfg)[part]
+    shared = {n for n in descr if n.startswith("mu_")} | {"wa", *whole}
+    return {n: (lay.shared if n in shared else lay.param)(p[n], d)
+            for n, d in descr.items()}
+
+
+def _to_bh(a, H: int, N: int):
+    """(B, S, H·N) -> (B·H, S, N), contiguous."""
+    B, S = a.shape[:2]
+    return a.reshape(B, S, H, N).transpose(1, 2).reshape(B * H, S, N)
+
+
+def rwkv_time_mix(p, cfg: ModelConfig, x, *, train: bool = False,
+                  lay=None):
+    """x: (B, S, D); under a layout (module docstring) replicated over
+    "model", and so is the output."""
     B, S, D = x.shape
     H, N = cfg.rwkv_heads, cfg.rwkv_head_dim
+    by_heads = lay is None or H % lay.m == 0
+    p = _weights(p, cfg, "time", lay,
+                 whole=() if by_heads else ("u", "ln_scale"))
+    if lay is not None:
+        x = lay.copy(x)
     sx = _shift(x) - x
     xr = x + sx * p["mu_r"]
     xk = x + sx * p["mu_k"]
@@ -127,27 +169,55 @@ def rwkv_time_mix(p, cfg: ModelConfig, x, *, train: bool = False):
     v = dense(xv, p["wv"])
     g = F.silu(dense(xg, p["wg"]))
     w = _decay(p, xw)                                       # (B,S,D) in (0,1)
-
-    def to_bh(a):  # (B,S,D) -> (B*H, S, N), contiguous
-        return a.reshape(B, S, H, N).transpose(1, 2).reshape(B * H, S, N)
-
-    u = p["u"][None].expand(B, H, N).reshape(B * H, N)
     # the decay stays f32: bf16-rounding w compounds through the state;
     # u is rounded to the working type, as the reference passes it
     wkv = wkv_train if train else rwkv6_wkv
-    y = wkv(to_bh(r), to_bh(k), to_bh(v), to_bh(w),
-            u.to(r.dtype).contiguous())                     # (B*H, S, N)
-    y = y.reshape(B, H, S, N).transpose(1, 2)               # (B,S,H,N)
-    y = _group_norm(y, p["ln_scale"], H, N)
-    return dense(y * g, p["wo"])
+    if by_heads:                    # this rank's columns are whole heads
+        Hl = p["u"].shape[0]
+        u = p["u"][None].expand(B, Hl, N).reshape(B * Hl, N)
+        y = wkv(_to_bh(r, Hl, N), _to_bh(k, Hl, N), _to_bh(v, Hl, N),
+                _to_bh(w, Hl, N), u.to(r.dtype).contiguous())  # (B*Hl, S, N)
+        y = y.reshape(B, Hl, S, N).transpose(1, 2)           # (B,S,Hl,N)
+        y = _group_norm(y, p["ln_scale"], Hl, N)
+    else:
+        y = _wkv_units(p, lay, wkv, *(lay.gather(a) for a in (r, k, v, w)),
+                       H, N)
+    out = dense(y * g, p["wo"])
+    return out if lay is None else lay.reduce(out)
 
 
-def rwkv_channel_mix(p, cfg: ModelConfig, x):
-    sx = _shift(x) - x
+def _wkv_units(p, lay, wkv, r, k, v, w, H: int, N: int):
+    """The wkv and the group norm on this rank's share of the B·H (row,
+    head) units of whole r, k, v, w (B, S, D), u and ln_scale whole;
+    the normalised outputs gathered back, this rank's columns (B, S,
+    D/m) returned."""
+    B, S, D = r.shape
+    start, stop, counts = lay.units(B * H)
+    head = torch.arange(start, stop, device=r.device) % H
+    u = p["u"][head].to(r.dtype).contiguous()
+    y = wkv(*(_to_bh(a, H, N)[start:stop] for a in (r, k, v, w)), u)
+    # each unit's head alone, with its head's scale
+    y = _group_norm(y[:, :, None], p["ln_scale"].reshape(H, N)[head][:, None],
+                    1, N)
+    y = lay.gather(y, 0, counts)                            # (B*H, S, N)
+    return lay.block(y.reshape(B, H, S, N).transpose(1, 2).reshape(B, S, D))
+
+
+def rwkv_channel_mix(p, cfg: ModelConfig, x, *, lay=None, prev=None):
+    """x: (B, S, D); `prev` (B, 1, D) the token before x (zeros unless
+    given).  Under a layout (module docstring) x and `prev` are
+    replicated over "model", and so is the output."""
+    p = _weights(p, cfg, "channel", lay)
+    if lay is not None:
+        x = lay.copy(x)
+    sx = _shift(x, prev) - x
     xk = x + sx * p["mu_k"]
     xr = x + sx * p["mu_r"]
     k = torch.square(torch.relu(dense(xk, p["wk"])))
-    return torch.sigmoid(dense(xr, p["wr"])) * dense(k, p["wv"])
+    if lay is None:
+        return torch.sigmoid(dense(xr, p["wr"])) * dense(k, p["wv"])
+    kv = lay.reduce_scatter(dense(k, p["wv"]))              # (B,S,D/m)
+    return lay.gather(torch.sigmoid(dense(xr, p["wr"])) * kv, summed=False)
 
 
 # ------------------------------ decode --------------------------------
@@ -163,18 +233,23 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device) -> dict:
     }
 
 
-def rwkv_time_mix_decode(p, cfg: ModelConfig, x, state: dict):
-    """x: (B, 1, D); O(1) state update."""
+def rwkv_time_mix_decode(p, cfg: ModelConfig, x, state: dict, lay=None):
+    """x: (B, 1, D); O(1) state update.  Under a layout (module
+    docstring) every head on every rank: the rank's column blocks of r,
+    k, v, g and the decay gathered whole."""
     B, _, D = x.shape
     H, N = cfg.rwkv_heads, cfg.rwkv_head_dim
-    sx = state["tm_prev"] - x
+    p = _weights(p, cfg, "time", lay, whole=("u", "ln_scale"))
+    whole = (lambda a: a) if lay is None else lay.gather  # noqa: E731
+    prev = whole(state["tm_prev"])
+    sx = prev - x
     xr, xk, xv, xg = (x + sx * p[m] for m in ("mu_r", "mu_k", "mu_v", "mu_g"))
     xw = (x + sx * p["mu_w"]).float()
-    r = dense(xr, p["wr"]).reshape(B * H, N)
-    k = dense(xk, p["wk"]).reshape(B * H, N).float()
-    v = dense(xv, p["wv"]).reshape(B * H, N).float()
-    g = F.silu(dense(xg, p["wg"]))
-    w = _decay(p, xw).reshape(B * H, N)
+    r = whole(dense(xr, p["wr"])).reshape(B * H, N)
+    k = whole(dense(xk, p["wk"])).reshape(B * H, N).float()
+    v = whole(dense(xv, p["wv"])).reshape(B * H, N).float()
+    g = F.silu(whole(dense(xg, p["wg"])))
+    w = whole(_decay(p, xw)).reshape(B * H, N)
     u = p["u"][None].expand(B, H, N).reshape(B * H, N).float()
     s = state["wkv"]                                        # (BH, N, N)
     kv = k[:, :, None] * v[:, None, :]
@@ -182,14 +257,19 @@ def rwkv_time_mix_decode(p, cfg: ModelConfig, x, state: dict):
     s_new = w[:, :, None] * s + kv
     y = y.reshape(B, 1, H, N).to(x.dtype)
     y = _group_norm(y, p["ln_scale"], H, N)
-    out = dense((y * g).to(x.dtype), p["wo"])
-    return out, {**state, "tm_prev": x, "wkv": s_new}
+    yg = (y * g).to(x.dtype)
+    if lay is None:
+        return dense(yg, p["wo"]), {**state, "tm_prev": x, "wkv": s_new}
+    out = lay.reduce(dense(lay.block(yg), p["wo"]))
+    return out, {**state, "tm_prev": lay.block(x), "wkv": s_new}
 
 
-def rwkv_channel_mix_decode(p, cfg: ModelConfig, x, state: dict):
-    sx = state["cm_prev"] - x
-    xk = x + sx * p["mu_k"]
-    xr = x + sx * p["mu_r"]
-    k = torch.square(torch.relu(dense(xk, p["wk"])))
-    out = torch.sigmoid(dense(xr, p["wr"])) * dense(k, p["wv"])
-    return out, {**state, "cm_prev": x}
+def rwkv_channel_mix_decode(p, cfg: ModelConfig, x, state: dict, lay=None):
+    """x: (B, 1, D); under a layout `state` holds this rank's columns of
+    the previous token, and so does the new state."""
+    if lay is None:
+        out = rwkv_channel_mix(p, cfg, x, prev=state["cm_prev"])
+        return out, {**state, "cm_prev": x}
+    out = rwkv_channel_mix(p, cfg, x, lay=lay,
+                           prev=lay.gather(state["cm_prev"]))
+    return out, {**state, "cm_prev": lay.block(x)}

@@ -26,18 +26,37 @@ with FSDP:
   "model".  The reference's P(dp, None, "model") there is a memory
   layout of the same function.
 
+Where "model" divides the KV heads, each rank attends with its H/m
+query and Hkv/m KV heads (`Layout.local_cfg`).  Where it does not, the
+attention is split by units (`Layout.units`): the rank's column blocks
+of q, k and v are gathered over "model" into whole heads
+(`Layout.gather`), the rank attends over its share of the B_local·H
+(row, query head) pairs, each with its KV head, and the outputs are
+gathered back whole, of which the rank's row block feeds the
+row-parallel wo.  A gather inside the tensor-parallel region sums every
+rank's gradient in backward and keeps the rank's block; the KV cache is
+then split over its sequence (`cache_spec`), and decode combines each
+rank's partial softmax over its positions by a pmax and a psum.  The
+rwkv and RG-LRU blocks are split by channel (rwkv's heads where "model"
+divides them, else by (row, head) units as attention is); a product of
+the block's output that the replicated hidden state takes back is
+reduce-scattered (`Layout.reduce_scatter`) or gathered without a sum.
+
 A gradient is summed over a dim only where the ranks along it compute
 different contributions: the data-parallel dims, and "model" for the
-input of a column-parallel product.  The reference's `constrain_act`,
-`_constrain_heads`, `_constrain` and the MoE constraints have no
-counterpart: the layout they hint is the one written out here.
+input of a column-parallel product and for a weight that every "model"
+rank uses whole on its own share of the work (`Layout.shared`).  The
+reference's `constrain_act`, `_constrain_heads`, `_constrain` and the
+MoE constraints have no counterpart: the layout they hint is the one
+written out here.
 
 `layout(cfg, dp)` gives the sharded layout of a call, or None when no
 mesh is in context (`launch.mesh.set_mesh`) or `dp` is None: the model
 then runs unsharded, as without a mesh.  It raises NotImplementedError
-for what is not sharded yet (ROADMAP Queue A): rwkv and rglru blocks,
-mixtures of experts, the encoder-decoder, and head counts that the
-"model" size does not divide.
+for what is not sharded yet (ROADMAP Queue A): mixtures of experts, the
+encoder-decoder, rwkv or RG-LRU blocks whose widths "model" does not
+divide, and attention whose KV heads and projection widths it does not
+divide.
 
 The collectives are `dist.collectives`' (counted in its account) on the
 process groups the mesh was built over; nothing here picks a backend or
@@ -54,16 +73,15 @@ import torch
 from ..dist import collectives as C
 from ..launch.mesh import mesh_shape
 from .config import ModelConfig
-from .layers import P_, current_mesh
+from .layers import P_, current_mesh, dense
 
 __all__ = [
     "Layout", "layout", "sanitize_spec", "shard_params", "gather_params",
     "gather_param", "gather_model", "gather_act", "copy_to_model",
     "reduce_from_model", "reduce_from", "vocab_parallel_nll", "local_block",
-    "sharded_dims",
+    "sharded_dims", "gather_blocks", "reduce_scatter", "cache_spec",
 ]
 
-SHARDED_KINDS = ("attn", "local")
 _QUEUE = "is not sharded yet (ROADMAP Queue A)"
 
 
@@ -216,6 +234,71 @@ def reduce_from(x: torch.Tensor, mesh, dims) -> torch.Tensor:
     return _Reduce.apply(x, mesh, tuple(dims))
 
 
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, counts, summed, dims):
+        ctx.mesh, ctx.dim, ctx.counts = mesh, dim, counts
+        ctx.summed, ctx.dims = summed, dims
+        n = max(counts)
+        xm = x.movedim(dim, 0)
+        if xm.shape[0] < n:
+            xm = torch.cat([xm, xm.new_zeros((n - xm.shape[0],)
+                                             + xm.shape[1:])])
+        parts = C.all_gather(xm, mesh, dims)
+        if min(counts) < n:
+            parts = torch.cat([parts[r * n:r * n + c]
+                               for r, c in enumerate(counts)])
+        return parts.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = _psum(g, ctx.mesh, ctx.dims)
+        j = C.axis_index(ctx.mesh, ctx.dims)
+        start = sum(ctx.counts[:j])
+        return (g.narrow(ctx.dim, start, ctx.counts[j]).contiguous(), None,
+                None, None, None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, dims):
+        ctx.mesh, ctx.dim, ctx.dims = mesh, dim, dims
+        n = C.axis_size(mesh, dims)
+        size = x.shape[dim] // n
+        return _psum(x, mesh, dims).narrow(
+            dim, C.axis_index(mesh, dims) * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        counts = (g.shape[ctx.dim],) * C.axis_size(ctx.mesh, ctx.dims)
+        return (_GatherBlocks.apply(g, ctx.mesh, ctx.dim, counts, False,
+                                    ctx.dims), None, None, None)
+
+
+def gather_blocks(x: torch.Tensor, mesh, dim: int, counts=None,
+                  summed: bool = True, dims=("model",)) -> torch.Tensor:
+    """The blocks of `x` along `dim` of the ranks along the mesh dims
+    `dims`, concatenated in rank order; rank r's block holds
+    ``counts[r]`` entries (all equal when None).  Backward: the rank's
+    block of the gradient, summed over `dims` first when `summed` (the
+    gathered value feeds each rank's own share of the work), unsummed
+    where every rank computes the same gradient (the value joins the
+    replicated hidden state)."""
+    dim, dims = dim % x.dim(), tuple(dims)
+    if counts is None:
+        counts = (x.shape[dim],) * C.axis_size(mesh, dims)
+    return _GatherBlocks.apply(x, mesh, dim, tuple(counts), summed, dims)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, dim: int,
+                   dims=("model",)) -> torch.Tensor:
+    """The rank's block along `dim` of the sum of `x` over the mesh dims
+    `dims` (bf16 summed in f32); backward: the gradient's blocks
+    gathered, unsummed."""
+    return _ReduceScatter.apply(x, mesh, dim % x.dim(), tuple(dims))
+
+
 class _VocabNLL(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels, mesh, start):
@@ -301,6 +384,18 @@ class Layout:
         """Whether descriptor `d`'s weight is split over "model"."""
         return "model" in sharded_dims(self.spec(d))
 
+    def fsdp_dims(self, d: P_, dim: int) -> tuple:
+        """The data-parallel dims that split dim `dim` of descriptor `d`'s
+        weight."""
+        return tuple(a for a in _axes(self.spec(d)[dim]) if a in self.dp)
+
+    def local(self, w, d: P_, fsdp: tuple):
+        """Weight block `w` with its dp dims other than `fsdp` gathered;
+        its gradient summed over those (the rank's work covers the rows
+        of every rank along `fsdp` itself)."""
+        rest = tuple(a for a in self.dp if a not in fsdp)
+        return gather_param(w, self.mesh, self.spec(d), rest)
+
     def param(self, w, d: P_):
         """Weight block `w` of descriptor `d` with its dp dims gathered."""
         return gather_param(w, self.mesh, self.spec(d), self.dp)
@@ -315,46 +410,117 @@ class Layout:
         return gather_model(gather_param(w, self.mesh, spec, self.dp),
                             self.mesh, spec)
 
+    def shared(self, w, d: P_):
+        """`w` gathered along every dim, for a weight that each "model"
+        rank uses whole on its own share of the work: its gradient is
+        summed over the dp dims and "model", this rank's block kept."""
+        dims = self.dp + (("model",) if "model" in self.sizes else ())
+        return gather_param(w, self.mesh, self.spec(d), dims)
+
     def copy(self, x):
         return copy_to_model(x, self.mesh) if self.m > 1 else x
 
     def reduce(self, x):
         return reduce_from_model(x, self.mesh) if self.m > 1 else x
 
+    def gather(self, x, dim: int = -1, counts=None, summed: bool = True):
+        """`gather_blocks` over "model" (`x` itself when m is 1)."""
+        if self.m == 1:
+            return x
+        return gather_blocks(x, self.mesh, dim, counts, summed)
+
+    def reduce_scatter(self, x, dim: int = -1):
+        """`reduce_scatter` over "model" (`x` itself when m is 1)."""
+        return reduce_scatter(x, self.mesh, dim) if self.m > 1 else x
+
+    def block(self, x, dim: int = -1):
+        """This rank's block along `dim` of a value replicated over
+        "model", split evenly."""
+        size = x.shape[dim] // self.m
+        return x.narrow(dim, self.model_index() * size, size)
+
     def model_index(self) -> int:
         return C.axis_index(self.mesh, "model") if "model" in self.sizes else 0
 
+    def units(self, n: int) -> tuple[int, int, tuple]:
+        """(start, stop, counts): this rank's share [start, stop) of `n`
+        work units split over "model" as evenly as `n` allows, and every
+        rank's count (they differ by at most one)."""
+        m, j = self.m, self.model_index()
+        counts = tuple((r + 1) * n // m - r * n // m for r in range(m))
+        return j * n // m, (j + 1) * n // m, counts
+
+    def columns(self, x, w, d: P_):
+        """``x @ w`` whole on every "model" rank, `x` being the input of a
+        column-parallel product (after `copy`): the rank's column block
+        gathered."""
+        return self.gather(dense(x, self.param(w, d)))
+
+    def rows(self, x, w, d: P_):
+        """The rank's partial sum of ``x @ w`` over its row block of `w`,
+        `x` whole on every "model" rank; complete it with `reduce`."""
+        return dense(self.block(x), self.param(w, d))
+
+    def heads_divide(self, cfg: ModelConfig) -> bool:
+        """Whether "model" divides the KV heads (then the query heads
+        too): each rank attends with its own heads."""
+        return cfg.kv_heads % self.m == 0
+
     def local_cfg(self, cfg: ModelConfig) -> ModelConfig:
-        """The config of this rank's heads: H / m query and Hkv / m KV
-        heads, `head_dim` pinned to the full config's head width (so the
-        width and the attention's scale stay the model's)."""
+        """The config of this rank's heads where `heads_divide`: H / m
+        query and Hkv / m KV heads, `head_dim` pinned to the full
+        config's head width (so the width and the attention's scale stay
+        the model's)."""
+        if not self.heads_divide(cfg):
+            raise ValueError(f"{cfg.kv_heads} KV heads do not divide over "
+                             f"'model' {self.m}")
         m = self.m
-        _check_heads(cfg, m)
         return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
                                    num_kv_heads=cfg.kv_heads // m,
                                    head_dim=cfg.head_width)
 
 
-def _check_heads(cfg: ModelConfig, m: int) -> None:
-    if cfg.num_heads % m or cfg.kv_heads % m:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_heads} query and {cfg.kv_heads} KV heads "
-            f"on a 'model' dim of {m}: a KV cache sharded over its sequence "
-            f"{_QUEUE}")
+def cache_spec(name: str, shape: tuple, mesh, dp) -> tuple:
+    """The reference's name-based rule for one leaf of a layer's decode
+    state (`src/repro/launch/specs.py`), sanitized: a KV cache over its
+    KV heads, or over its sequence where "model" does not divide them
+    (flash-decode); the rwkv state over dp only; the RG-LRU's `h` and
+    the token-shift and conv buffers over their channels."""
+    model = mesh_shape(mesh).get("model", 1)
+    if name in ("k", "v"):                           # (B, Hkv, L, dh)
+        if shape[1] % model == 0:
+            return sanitize_spec((dp, "model", None, None), shape, mesh)
+        return sanitize_spec((dp, None, "model", None), shape, mesh)
+    if name == "pos":                                # (B, L)
+        return sanitize_spec((dp, None), shape, mesh)
+    if name == "wkv":                                # (B*H, N, N)
+        return sanitize_spec((dp, None, None), shape, mesh)
+    if name == "h":                                  # (B, D)
+        return sanitize_spec((dp, "model"), shape, mesh)
+    if name in ("conv", "tm_prev", "cm_prev"):       # (B, w, D)
+        return sanitize_spec((dp, None, "model"), shape, mesh)
+    return (None,) * len(shape)
 
 
 def check_config(cfg: ModelConfig, m: int) -> None:
     """Raise NotImplementedError for a config this slice does not shard."""
-    kinds = sorted(set(cfg.layer_kinds()) - set(SHARDED_KINDS))
-    if kinds:
-        raise NotImplementedError(f"{cfg.name}: the {kinds} block kinds "
-                                  f"{_QUEUE}")
     if cfg.num_experts:
         raise NotImplementedError(f"{cfg.name}: the mixture of experts "
                                   f"{_QUEUE}")
     if cfg.encoder_layers:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder {_QUEUE}")
-    _check_heads(cfg, m)
+    kinds = set(cfg.layer_kinds())
+    qkv = (cfg.num_heads * cfg.head_width, cfg.kv_heads * cfg.head_width)
+    widths = {"rwkv": (cfg.d_model, cfg.d_ff), "rglru": (cfg.d_model,),
+              # where "model" does not divide the KV heads, the q, k and
+              # v projections split by columns
+              "attn": () if cfg.kv_heads % m == 0 else qkv}
+    widths["local"] = widths["attn"]
+    for kind in sorted(kinds & set(widths)):
+        if any(w % m for w in widths[kind]):
+            raise NotImplementedError(
+                f"{cfg.name}: {kind} blocks of widths {widths[kind]} on a "
+                f"'model' dim of {m} {_QUEUE}")
 
 
 def layout(cfg: Optional[ModelConfig], dp) -> Optional[Layout]:
