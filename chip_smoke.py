@@ -88,8 +88,15 @@ KV head does not divide "model", so each rank's local layer attends
 over its share of the (row, query head) units in one bf16 flash launch)
 and S5 rwkv6-3b (4 layers, 20 heads a rank, one wkv launch a layer),
 each prefilling 4 x 4096 at full width, then an f32 copy's blocks and 8
-decode steps from a sharded cache against the unsharded model.  None of
-them times a collective.  Any failed check raises,
+decode steps from a sharded cache against the unsharded model; S2A one
+sharded Adafactor step (S2's model) against the unsharded one; S6
+grok-1-314b (2 layers, 4 x 4096 on 2 x 2, its 8 experts split by d_ff),
+S7 llama4-maverick (1 layer with all 128 experts, 2 x 4096 on 1 x 4, 32
+experts a rank) and S8 whisper-tiny uncut (4 x 4096 over 1500 frames on
+2 x 2), each with its bf16 flash launches counted and an f32 copy's
+blocks and 8 decode steps against the unsharded model, which the
+parent runs and frees first.  None of them times a collective.  Any
+failed check raises,
 and the script exits non-zero.
 
 Output: progress lines, the card's name and power limit, one JSON line
@@ -292,6 +299,45 @@ SHARD = dict(ranks=4, mesh=(2, 2), restore_mesh=(4, 1), prefill_layers=4,
 SHARD_KINDS = {
     "S4": ("recurrentgemma-9b", 3, 3, {"flash_attention": 1}),
     "S5": ("rwkv6-3b", 4, 2, {"rwkv6": 4}),
+}
+# S2A: one sharded Adafactor step on S2's model and batch against the
+# unsharded Adafactor step on the card: every vr and vc block and every
+# parameter block of a matrix within SHARD["train_tol"] of its leaf's
+# largest element; the 1-D leaves (the norm scales, zero-initialised,
+# and their v) are reported only: Adafactor's first step moves each by
+# about 1.3 lr times the sign of its gradient (the update's RMS clip
+# scales a leaf of equal magnitudes to 1), so where this random model's
+# gradient of such a scale is at rounding level its sign, and so the
+# step, flips.  No kernel launch.  S6-S8 (SHARD_WIDE): the mixtures of
+# experts and whisper-tiny at full width, their depth cut, on the
+# listed mesh: prefill in bf16, each rank's logits block f32 and finite,
+# exactly the listed bf16 flash launches a rank (grok-1-314b's 24 query
+# and 4 KV heads with softcap 30, llama4-maverick's 10 and 2, whisper-
+# tiny's 3 a decoder layer; its encoder and cross-attentions at 1500
+# keys stay under the flash route's threshold) and 0 of the f32 one and
+# of every other kernel; then an f32 copy at the listed depth, shape and
+# config cut: each rank's hidden state and logits blocks allclose at
+# SHARD["prefill_tol"] to the unsharded model's on its rows, and
+# SHARD["decode_steps"] decode steps from a sharded init_cache (whisper:
+# through the memory encoded on the rank's rows).  The unsharded f32
+# model is drawn, run and freed by the parent before the rank group
+# starts (grok-1-314b's f32 layer is ~26 GB): its hidden state, logits
+# and decode logits go to a temp dir.  The weights of these phases are
+# drawn block by block, each block of each parameter from its own seed
+# (`_draw_block`), so a rank draws only its blocks and the parent
+# assembles the same model whole; bf16 routing flips on near ties, so
+# the MoE agreement is gated in f32 only.
+# phase: arch, mesh, bf16 layers (None: all), prefill (B, S), bf16 flash
+# launches a rank, f32 layers, f32 shape, f32 config changes
+SHARD_WIDE = {
+    "S6": dict(arch="grok-1-314b", mesh=(2, 2), layers=2, prefill=PREFILL,
+               flash=2, agree_layers=1, agree=(4, 512), agree_changes={}),
+    "S7": dict(arch="llama4-maverick-400b-a17b", mesh=(1, 4), layers=1,
+               prefill=(2, 4096), flash=1, agree_layers=1, agree=(2, 512),
+               agree_changes={"num_experts": 16}),
+    "S8": dict(arch="whisper-tiny", mesh=(2, 2), layers=None,
+               prefill=PREFILL, flash=4, agree_layers=None, agree=(4, 512),
+               agree_changes={}),
 }
 # the serving fleet.  P1: the legacy per-tick schedule on the n=10^5 FI
 # plan, backend "ref" (the plain tick scan) and "cuda" (each chunk's
@@ -3571,9 +3617,10 @@ class Smoke:
 # running main) can unpickle them.
 
     def sharded_model(self) -> dict:
-        """S1-S5 (SHARD, SHARD_KINDS): the parent's unsharded AdamW step
-        first (its loss and parameters written to a temp dir), then one
-        group of 4 ranks.  Returns each phase's launches of each kernel
+        """S1-S5, S2A and S6-S8 (SHARD, SHARD_KINDS, SHARD_WIDE): the
+        parent's unsharded AdamW and Adafactor steps and S6-S8's
+        unsharded f32 runs first (written to a temp dir), then one group
+        of 4 ranks.  Returns each phase's launches of each kernel
         in rank 0."""
         torch = self.torch
         from repro_torch.dist.ranks import run_ranks
@@ -3598,6 +3645,15 @@ class Smoke:
             row["s2_reference_s"] = time.perf_counter() - t0
             log(f"[shard S2] unsharded AdamW step on the card: loss "
                 f"{want_loss!r}, {row['s2_reference_s']:.1f} s")
+            t0 = time.perf_counter()
+            want_s2a = _shard_adafactor_reference(torch, self.dev, tmp)
+            row["s2a_reference_s"] = time.perf_counter() - t0
+            row["wide_reference_s"] = {
+                phase: _shard_wide_reference(torch, phase, self.dev, tmp)
+                for phase in SHARD_WIDE}
+            log(f"[shard S2A] unsharded Adafactor step on the card: loss "
+                f"{want_s2a!r}, {row['s2a_reference_s']:.1f} s; S6-S8's "
+                f"unsharded f32 runs {row['wide_reference_s']} s")
             t0 = time.perf_counter()
             ranks = run_ranks(_shard_rank, SHARD["ranks"], tmp,
                               backend="gloo", timeout=MESH["timeout"],
@@ -3675,22 +3731,102 @@ class Smoke:
             f"{max(row['S3']['restore_s']):.1f} s, the check's gathers "
             f"{max(row['S3']['check_s']):.1f} s")
         paths["S2"] = ranks[0]["S2"]["counts"]
+        row["S2A"] = self._check_adafactor([out["S2A"] for out in ranks],
+                                           want_s2a)
+        paths["S2A"] = ranks[0]["S2A"]["counts"]
+        for phase in SHARD_WIDE:
+            row[phase] = self._check_shard_wide(phase, [out[phase]
+                                                        for out in ranks])
+            paths[phase] = ranks[0][phase]["counts"]
         for phase in SHARD_KINDS:
             paths[phase] = self._check_shard_kind(
                 phase, [out[phase] for out in ranks])
             row[phase] = {k: [out[phase][k] for out in ranks]
                           for k in ("seconds", "err", "agree_s",
                                     "agree_split", "cache_shapes")}
-        row["account_rank0"] = {n: ranks[0][n]["account"]
-                                for n in ("S1", "S2", "S3", *SHARD_KINDS)}
+        row["account_rank0"] = {n: ranks[0][n]["account"] for n in (
+            "S1", "S2", "S3", "S2A", *SHARD_KINDS, *SHARD_WIDE)}
         row["account_rank0"].update({f"{n} f32": ranks[0][n]["agree_account"]
-                                     for n in SHARD_KINDS})
+                                     for n in (*SHARD_KINDS, *SHARD_WIDE)})
         row["total_s"] = time.perf_counter() - t_all
-        log(f"[shard] S1-S5 took {row['total_s']:.1f} s: the unsharded step "
-            f"{row['s2_reference_s']:.1f} s, the 4-rank group "
-            f"{row['group_s']:.1f} s")
+        log(f"[shard] S1-S8 took {row['total_s']:.1f} s: the unsharded "
+            f"steps {row['s2_reference_s']:.1f} + "
+            f"{row['s2a_reference_s']:.1f} s, S6-S8's unsharded f32 runs "
+            f"{sum(row['wide_reference_s'].values()):.1f} s, the 4-rank "
+            f"group {row['group_s']:.1f} s")
         self.report["shard"] = row
         return paths
+
+    def _check_adafactor(self, got: list, want_loss: float) -> dict:
+        """S2A's gates over every rank's result (SHARD_WIDE's comment)."""
+        worst = {"matrix": 0.0, "one_d": 0.0}
+        for rank, g in enumerate(got):
+            err = abs(g["loss"] - want_loss) / abs(want_loss)
+            check(err <= SHARD["train_tol"],
+                  f"S2A rank {rank}: loss {g['loss']!r} vs {want_loss!r}")
+            for key, e in g["rel"].items():
+                if key.split("/", 1)[1] in g["one_d"]:
+                    worst["one_d"] = max(worst["one_d"], e)  # reported
+                    continue
+                check(e <= SHARD["train_tol"],
+                      f"S2A rank {rank}: {key} differs by {e} of its "
+                      f"largest element")
+                worst["matrix"] = max(worst["matrix"], e)
+            self.check_idle(g["counts"], None, f"S2A rank {rank}")
+            check(not any(g["flash"].values()),
+                  f"S2A rank {rank} launched {g['flash']}")
+        log(f"[shard S2A] Adafactor step {SHARD['train'][0]}x"
+            f"{SHARD['train'][1]} on {SHARD['mesh']}: losses "
+            f"{[g['loss'] for g in got]} vs {want_loss!r}; every vr, vc and "
+            f"matrix parameter block within {worst['matrix']:.3g} of its "
+            f"leaf's largest element; the 1-D leaves (reported only) within "
+            f"{worst['one_d']:.3g}; {got[0]['seconds']:.2f} s a rank, "
+            f"collectives {got[0]['account']}; no kernel launch")
+        return dict(loss=[g["loss"] for g in got], want_loss=want_loss,
+                    worst_rel=worst, seconds=[g["seconds"] for g in got])
+
+    def _check_shard_wide(self, phase: str, got: list) -> dict:
+        """S6-S8's gates over every rank's result (SHARD_WIDE)."""
+        spec = SHARD_WIDE[phase]
+        for rank, g in enumerate(got):
+            check(g["counts"]["flash_attention"] == spec["flash"]
+                  and g["flash"] == {"flash_attention_sm90": spec["flash"],
+                                     "flash_attention": 0},
+                  f"{phase} rank {rank}: the sharded prefill launched "
+                  f"{g['counts']} {g['flash']}, not {spec['flash']} bf16 "
+                  f"flash launches")
+            self.check_idle(g["counts"], "flash_attention",
+                            f"{phase} rank {rank}")
+            check(g["finite"] and g["shape"] == g["want_shape"]
+                  and g["dtype"] == "torch.float32",
+                  f"{phase} rank {rank}: logits block {g['shape']} "
+                  f"{g['dtype']} (want {g['want_shape']} f32), finite "
+                  f"{g['finite']}")
+            for what, ok in g["close"].items():
+                check(ok, f"{phase} rank {rank}: the f32 {what} differ from "
+                          f"the unsharded model's by {g['err'][what]} (max "
+                          f"abs)")
+            log(f"[shard {phase}] rank {rank}: {g['seconds']:.2f} s, f32 "
+                f"copy {g['agree_s']:.2f} s, expert buffers {g['buffers']} "
+                f"(global {g['global_rows']} rows), collectives "
+                f"{g['account']}, the f32 copy's {g['agree_account']}")
+        worst = {k: max(g["err"][k] for g in got) for k in got[0]["err"]}
+        log(f"[shard {phase}] {spec['arch']} "
+            f"{spec['layers'] or 'all'} layers bf16 prefill "
+            f"{spec['prefill'][0]}x{spec['prefill'][1]} on {spec['mesh']}: "
+            f"each rank {got[0]['want_shape']} logits, {spec['flash']} bf16 "
+            f"flash launches; f32 at {spec['agree']} "
+            f"{spec['agree_changes'] or ''}: hidden within "
+            f"{worst['hidden']:.3g}, logits within {worst['logits']:.3g}, "
+            f"{SHARD['decode_steps']} decode steps within "
+            f"{worst['decode']:.3g} (max abs)")
+        return {"seconds": [g["seconds"] for g in got],
+                "agree_s": [g["agree_s"] for g in got], "err": worst,
+                "buffers": [g["buffers"] for g in got],
+                "global_rows": got[0]["global_rows"],
+                "cache_memory": got[0]["cache_memory"],
+                "all_gather_bytes": [g["account"].get("all_gather", {}).get(
+                    "bytes", 0) for g in got]}
 
     def _check_shard_kind(self, phase: str, got: list) -> dict:
         """S4 / S5's gates over every rank's result; rank 0's launches."""
@@ -4244,8 +4380,309 @@ def _shard_kind(torch, smoke, mesh, phase: str) -> dict:
     return out
 
 
+def _shard_adafactor_reference(torch, dev, tmp) -> float:
+    """S2A's unsharded Adafactor step on the card, its state written to
+    `tmp`; returns its loss."""
+    from repro_torch.optim import adafactor
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg, model, batch = _shard_train_setup(torch, dev)
+    opt = adafactor()
+    state = init_train_state(model, opt)
+    state, m = make_train_step(cfg, opt, _shard_lr(), device=dev)(state,
+                                                                   batch)
+    out = {f"params/{k}": p.cpu() for k, p in state["params"].items()}
+    out.update({f"{part}/{k}": a.cpu() for k, v in state["opt"]["v"].items()
+                for part, a in v.items()})
+    torch.save(out, Path(tmp) / "s2a_state.pt")
+    return float(m["loss"])
+
+
+def _shard_adafactor(torch, smoke, mesh, tmp) -> dict:
+    """S2A in one rank: the sharded Adafactor step, each block's error
+    relative to its leaf's largest element."""
+    from repro_torch.data import shard_batch
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch import batch_axes, set_mesh
+    from repro_torch.launch.specs import state_shardings
+    from repro_torch.models import sharded as SH
+    from repro_torch.models.model import param_specs
+    from repro_torch.optim import adafactor
+    from repro_torch.train import init_train_state, make_train_step
+
+    dev = torch.device("cuda", 0)
+    dp = batch_axes(mesh)
+    cfg, model, batch = _shard_train_setup(torch, dev)
+    p_abs, specs = model.abstract(), model.specs()
+    local = SH.shard_params(model, mesh, param_specs(cfg, mesh))
+    del model
+    torch.cuda.empty_cache()
+    opt = adafactor()
+    state = init_train_state(local, opt)
+    step = make_train_step(cfg, opt, _shard_lr(), device=dev, dp=dp)
+    smoke.zero_counts()
+    C.reset_account()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with set_mesh(mesh):
+        state, m = step(state, shard_batch(batch, mesh, dp))
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, loss=float(m["loss"]),
+               counts=smoke.read_counts(), flash=dict(smoke.flash_kernels()),
+               account=C.account())
+    want = torch.load(Path(tmp) / "s2a_state.pt", mmap=True)
+    sh = state_shardings(mesh, p_abs, specs, opt.init(p_abs))
+    rel = {}
+    trees = [("params", k, p, sh["params"][k])
+             for k, p in state["params"].items()]
+    trees += [(part, k, a, sh["opt"]["v"][k][part])
+              for k, v in state["opt"]["v"].items() for part, a in v.items()]
+    for part, k, got, spec in trees:
+        w = SH.local_block(want[f"{part}/{k}"], mesh, spec).to(dev)
+        rel[f"{part}/{k}"] = float((got - w).abs().max()
+                                   / w.abs().max().clamp_min(1e-30))
+    out["rel"] = rel
+    out["one_d"] = sorted(k for k, a in p_abs.items() if a.dim() == 1)
+    del want, state, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def _wide_cfg(phase: str, f32: bool = False):
+    """S6-S8's config (SHARD_WIDE): bf16 at its depth, or its f32 copy."""
+    from repro_torch.configs import get_config
+
+    spec = SHARD_WIDE[phase]
+    cfg = get_config(spec["arch"])
+    if not f32:
+        return (cfg if spec["layers"] is None else
+                dataclasses.replace(cfg, num_layers=spec["layers"]))
+    changes = dict(spec["agree_changes"], dtype="float32")
+    if spec["agree_layers"] is not None:
+        changes["num_layers"] = spec["agree_layers"]
+    return dataclasses.replace(cfg, **changes)
+
+
+def _wide_batch(cfg, phase: str, B: int, S: int, steps: int) -> dict:
+    """Host tokens (B, S), `steps` decode tokens a row (B, steps) and,
+    for whisper, frames (B, encoder_seq, D) in f32, from MODEL_SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng([MODEL_SEED, int(phase[1:])])
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)),
+           "steps": rng.integers(0, cfg.vocab_size, (B, steps))}
+    if cfg.encoder_layers:
+        out["frames"] = rng.normal(size=(B, cfg.encoder_seq, cfg.d_model)
+                                   ).astype(np.float32)
+    return out
+
+
+def _leaves(cfg, sizes: dict):
+    """(index, name, descriptor, sanitized spec) of every parameter."""
+    from repro_torch.models.model import flat_tree, model_params
+    from repro_torch.models.sharded import sanitize_spec
+
+    for i, (name, d) in enumerate(flat_tree(model_params(cfg))):
+        yield i, name, d, sanitize_spec(d.spec, d.shape, sizes)
+
+
+def _draw_block(torch, cfg, i: int, d, spec: tuple, sizes: dict,
+                coord: dict, dev):
+    """(block, its offset in each dim) of parameter `i` at the mesh
+    coordinate `coord`: zeros or ones, or f32 normals times the
+    descriptor's std drawn from a seed of the parameter, the block and
+    (for a 3-D leaf) each slice along dim 0, cast to the parameter's
+    dtype.  Ranks holding the same block draw the same values."""
+    from repro_torch.models.layers import DTYPES
+    from repro_torch.models.sharded import _axes
+
+    shape, idx = [], []
+    for dim, n in enumerate(d.shape):
+        k, j = 1, 0
+        for a in _axes(spec[dim] if dim < len(spec) else None):
+            k, j = k * sizes[a], j * sizes[a] + coord[a]
+        shape.append(n // k)
+        idx.append(j)
+    offsets = [j * n for j, n in zip(idx, shape)]
+    dtype = d.resolve_dtype(DTYPES[cfg.dtype])
+    if d.init in ("zeros", "ones"):
+        return torch.full(shape, float(d.init == "ones"), dtype=dtype,
+                          device=dev), offsets
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    rows = out if len(shape) == 3 else out[None]
+    for e in range(rows.shape[0]):
+        seed = hash((MODEL_SEED, i, *idx, e)) & (2**63 - 1)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        rows[e].copy_(torch.randn(rows.shape[1:], generator=gen, device=dev)
+                      * d.std())
+    return out, offsets
+
+
+def _block_params(torch, cfg, mesh, dev) -> dict:
+    """This rank's block of every parameter (`_draw_block`)."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch import mesh_shape
+
+    sizes = mesh_shape(mesh)
+    coord = {n: C.axis_index(mesh, n) for n in sizes}
+    return {name: _draw_block(torch, cfg, i, d, spec, sizes, coord, dev)[0]
+            for i, name, d, spec in _leaves(cfg, sizes)}
+
+
+def _whole_params(torch, cfg, sizes: dict, dev) -> dict:
+    """Every parameter whole, its blocks at every mesh coordinate drawn
+    as the ranks draw them (`_draw_block`)."""
+    import itertools
+
+    from repro_torch.models.layers import DTYPES
+
+    coords = [dict(zip(sizes, c)) for c in
+              itertools.product(*(range(n) for n in sizes.values()))]
+    out = {}
+    for i, name, d, spec in _leaves(cfg, sizes):
+        full = torch.empty(d.shape, dtype=d.resolve_dtype(DTYPES[cfg.dtype]),
+                           device=dev)
+        for coord in coords:
+            block, offsets = _draw_block(torch, cfg, i, d, spec, sizes,
+                                         coord, dev)
+            full[tuple(slice(o, o + n) for o, n in
+                       zip(offsets, block.shape))] = block
+            del block
+        out[name] = full
+    return out
+
+
+def _shard_wide_reference(torch, phase: str, dev, tmp) -> float:
+    """S6-S8's unsharded f32 model on its whole batch, run on the card and
+    freed: its hidden state, logits and decode logits written to `tmp`.
+    Returns the seconds."""
+    from repro_torch._tf32 import no_tf32
+    from repro_torch.models import decode_step, forward, init_cache
+    from repro_torch.models.model import _hidden, _tree
+
+    t0 = time.perf_counter()
+    spec = SHARD_WIDE[phase]
+    cfg = _wide_cfg(phase, f32=True)
+    full = _whole_params(torch, cfg, dict(zip(("data", "model"),
+                                              spec["mesh"])), dev)
+    B, S = spec["agree"]
+    batch = _wide_batch(cfg, phase, B, S, SHARD["decode_steps"])
+    frames = batch.get("frames")
+    data = {"tokens": batch["tokens"]}
+    if frames is not None:
+        data["frames"] = frames
+    with no_tf32(), torch.no_grad():
+        hidden = _hidden(_tree(full), cfg, data).cpu()
+    logits = forward(full, cfg, data).cpu()
+    cache = init_cache(full, cfg, B, SHARD["decode_steps"], frames=frames)
+    dec = []
+    for tok in batch["steps"].T:
+        lg, cache = decode_step(full, cfg, cache, tok)
+        dec.append(lg.cpu())
+    torch.save({"hidden": hidden, "logits": logits,
+                "decode": torch.stack(dec)}, Path(tmp) / f"{phase}.pt")
+    del full, cache
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def _shard_wide(torch, smoke, phase: str, tmp) -> dict:
+    """S6-S8 (SHARD_WIDE) in one rank."""
+    from repro_torch._tf32 import no_tf32
+    from repro_torch.data import shard_batch
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch import batch_axes, make_host_mesh, set_mesh
+    from repro_torch.models import decode_step, forward, init_cache, moe
+    from repro_torch.models import sharded as SH
+    from repro_torch.models.model import _hidden, _tree
+
+    spec = SHARD_WIDE[phase]
+    dev = torch.device("cuda", 0)
+    mesh = make_host_mesh(*spec["mesh"], device_type="cuda")
+    dp = batch_axes(mesh)
+    n_dp, m = spec["mesh"]
+    cfg = _wide_cfg(phase)
+    B, S = spec["prefill"]
+    rows = shard_batch(_wide_batch(cfg, phase, B, S, 0), mesh, dp)
+    data = {k: v for k, v in rows.items() if k != "steps"}
+    local = _block_params(torch, cfg, mesh, dev)
+    torch.cuda.empty_cache()
+    # the expert buffer of each MoE layer: (experts, rows) on this rank
+    buffers, experts = [], moe._experts
+
+    def spy(params, descr, h, lay):
+        buffers.append(tuple(h.shape[:2]))
+        return experts(params, descr, h, lay)
+
+    moe._experts = spy
+    smoke.zero_counts()
+    C.reset_account()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with set_mesh(mesh):
+            logits = forward(local, cfg, data, dp=dp)
+        torch.cuda.synchronize()
+    finally:
+        moe._experts = experts
+    V = cfg.vocab_size
+    out = dict(seconds=time.perf_counter() - t0, counts=smoke.read_counts(),
+               flash=dict(smoke.flash_kernels()), account=C.account(),
+               shape=tuple(logits.shape), dtype=str(logits.dtype),
+               want_shape=(B // n_dp, S, V // m if V % m == 0 else V),
+               finite=bool(torch.isfinite(logits).all()), buffers=buffers,
+               global_rows=(cfg.num_experts * moe.capacity(
+                   cfg, min(B * S, 131_072)) if cfg.num_experts else 0))
+    del logits, local
+    torch.cuda.empty_cache()
+    # the f32 copy against the parent's unsharded run (SHARD_WIDE)
+    t0 = time.perf_counter()
+    cfg32 = _wide_cfg(phase, f32=True)
+    B, S = spec["agree"]
+    steps = SHARD["decode_steps"]
+    rows = shard_batch(_wide_batch(cfg32, phase, B, S, steps), mesh, dp)
+    data = {k: v for k, v in rows.items() if k != "steps"}
+    local = _block_params(torch, cfg32, mesh, dev)
+    want = torch.load(Path(tmp) / f"{phase}.pt", mmap=True)
+    tol = SHARD["prefill_tol"]
+    err, close = {}, {}
+
+    def hold(name, got, full, spec_):
+        w = SH.local_block(full, mesh, SH.sanitize_spec(
+            spec_, tuple(full.shape), mesh)).to(dev)
+        e = float((got - w).abs().max())
+        err[name] = max(err.get(name, 0.0), e)
+        close[name] = close.get(name, True) and bool(
+            torch.allclose(got, w, rtol=tol, atol=tol))
+
+    C.reset_account()
+    with set_mesh(mesh), no_tf32(), torch.no_grad():
+        hidden = _hidden(_tree(local), cfg32, data,
+                         lay=SH.layout(cfg32, dp))
+    hold("hidden", hidden, want["hidden"], (dp, None, None))
+    del hidden
+    with set_mesh(mesh):
+        logits = forward(local, cfg32, data, dp=dp)
+    hold("logits", logits, want["logits"], (dp, None, "model"))
+    del logits
+    with set_mesh(mesh):
+        cache = init_cache(local, cfg32, B // n_dp, steps,
+                           frames=data.get("frames"), dp=dp)
+        out["cache_memory"] = (None if cache["memory"] is None
+                               else tuple(cache["memory"].shape))
+        for t, tok in enumerate(rows["steps"].T):
+            lg, cache = decode_step(local, cfg32, cache, tok, dp=dp)
+            hold("decode", lg, want["decode"][t], (dp, "model"))
+    del local, cache, want
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out.update(err=err, close=close, agree_s=time.perf_counter() - t0,
+               agree_account=C.account())
+    return out
+
+
 def _shard_rank(rank, world, tmp):
-    """S1-S5 in one rank of the 4-rank group."""
+    """S1-S5, S2A and S6-S8 in one rank of the 4-rank group."""
     import torch
 
     from repro_torch.launch import make_host_mesh
@@ -4255,8 +4692,11 @@ def _shard_rank(rank, world, tmp):
     mesh = make_host_mesh(*SHARD["mesh"], device_type="cuda")
     out = {"S1": _shard_prefill(torch, smoke, mesh)}
     out["S2"], out["S3"] = _shard_train(torch, smoke, mesh, tmp)
+    out["S2A"] = _shard_adafactor(torch, smoke, mesh, tmp)
     for phase in SHARD_KINDS:
         out[phase] = _shard_kind(torch, smoke, mesh, phase)
+    for phase in SHARD_WIDE:
+        out[phase] = _shard_wide(torch, smoke, phase, tmp)
     return out
 
 
@@ -4305,7 +4745,7 @@ def main() -> int:
         f"(trials, nodes) mesh (gloo, one card), backend cuda, each rank":
             mesh["m2"]}
     del g5, plan5
-    # S1-S5: model sharding over a (data, model) mesh, ranks on this card
+    # S1-S8: model sharding over a (data, model) mesh, ranks on this card
     torch.cuda.empty_cache()
     shard = smoke.sharded_model()
     g6, plan6, x06, graph6, pl6 = smoke.setup(1_000_000)
@@ -4503,6 +4943,16 @@ def main() -> int:
         phase: (f"forward {arch} {layers} layers {PREFILL[0]}x{PREFILL[1]} "
                 f"on a 2 x 2 (data, model) mesh (gloo, one card), each rank")
         for phase, (arch, layers, _, _) in SHARD_KINDS.items()}
+    kind_paths["S2A"] = (f"make_train_step llama3.2-3b width, "
+                         f"{SHARD['train_layers']} layers, f32, Adafactor, "
+                         f"{SHARD['train'][0]}x{SHARD['train'][1]} on a 2 x 2 "
+                         f"(data, model) mesh, each rank")
+    kind_paths.update({
+        phase: (f"forward {w['arch']} {w['layers'] or 'all'} layers "
+                f"{w['prefill'][0]}x{w['prefill'][1]} on a "
+                f"{w['mesh'][0]} x {w['mesh'][1]} (data, model) mesh (gloo, "
+                f"one card), each rank")
+        for phase, w in SHARD_WIDE.items()})
     for name, row in smoke.kernels.items():
         row["launches_by_path"][m4_path] = mesh["m4"][name]
         row["launches_by_path"][s1_path] = shard["S1"][name]

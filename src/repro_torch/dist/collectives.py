@@ -20,7 +20,8 @@ axis names and the reference's replica order.
                           or stacked along a new leading dim
 
 A reduction over several dims runs one dim at a time, finest last dim
-first; a gather likewise, so its result is in row-major order.  The
+first; a gather likewise, so its result is in row-major order.  A dim
+of size 1 is skipped: its collective is the identity.  The
 process group is the caller's: collectives go to the groups the mesh
 was built over (gloo, NCCL), and nothing here picks a backend or
 catches a failed collective.  Point-to-point transfers address global
@@ -144,6 +145,8 @@ def _to_device(host: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 def _all_reduce(x: torch.Tensor, dims: tuple, mesh, op, kind: str):
     out = x.clone()
     for d in reversed(dims):
+        if mesh.size(_index(mesh, d)) == 1:
+            continue
         group = mesh.get_group(_index(mesh, d))
         _count(kind, out)
         if _staged(out, "all_reduce", group):
@@ -179,6 +182,8 @@ def bcast_from_zero(x: torch.Tensor, mesh, dims: Dims) -> torch.Tensor:
     kept."""
     out = x.clone()
     for d in _dims(dims):
+        if mesh.size(_index(mesh, d)) == 1:
+            continue
         group = mesh.get_group(_index(mesh, d))
         src = dist.get_global_rank(group, 0)
         _count("broadcast", out)
@@ -197,6 +202,8 @@ def all_gather(x: torch.Tensor, mesh, dims: Dims,
     concatenated along dim 0 (``tiled``) or stacked on a new dim 0."""
     out = x.contiguous() if tiled else x.unsqueeze(0).contiguous()
     for d in reversed(_dims(dims)):
+        if mesh.size(_index(mesh, d)) == 1:
+            continue
         group = mesh.get_group(_index(mesh, d))
         _count("all_gather", out)
         staged = _staged(out, "all_gather", group)

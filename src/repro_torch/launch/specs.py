@@ -11,8 +11,7 @@ name-to-size mapping; building a cell starts no process group.
 
 A cell's `fn` is the sharded step: it runs under `launch.mesh.set_mesh`
 of a `DeviceMesh` of these dims, in every rank, on the rank's blocks of
-the arguments (`models.sharded.shard_params`, `local_block`).  The
-configs the port does not shard yet raise there, not here.
+the arguments (`models.sharded.shard_params`, `local_block`).
 """
 from __future__ import annotations
 
@@ -95,7 +94,7 @@ def _cache_shardings(cfg: ModelConfig, cache_abs: dict, mesh, dp) -> dict:
                    for layer in cache_abs["layers"]],
         "step": (),
         "memory": (None if memory is None else
-                   sanitize_spec((dp, None, None), tuple(memory.shape), mesh)),
+                   cache_spec("memory", tuple(memory.shape), mesh, dp)),
     }
 
 

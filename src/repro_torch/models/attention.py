@@ -45,8 +45,12 @@ into whole heads and the rank attends over its share of the (row, query
 head) units, each unit one batch entry of the route's call with its KV
 head, so the flash kernel's index masks stay whole-sequence; its cache
 holds its block of every KV head's positions, and decode combines the
-ranks' partial softmaxes (flash-decode).  The reference's
-`_constrain_heads` is not ported: that layout is written out here.
+ranks' partial softmaxes (flash-decode).  A cross-attention follows the
+same two rules, its k and v projected from the memory (this rank's
+rows, replicated over "model"), without rotary or mask; a decode step
+recomputes them from the memory, as the reference does.  The
+reference's `_constrain_heads` is not ported: that layout is written
+out here.
 """
 from __future__ import annotations
 
@@ -266,20 +270,16 @@ def attention(
     as biases.
 
     `dp` (the data-parallel dims, or a `sharded.Layout`) under a mesh:
-    sharded (module docstring); x is this rank's rows, replicated over
-    "model", and so is the output.  Cross-attention does not shard
-    yet."""
+    sharded (module docstring); x (and `memory`) are this rank's rows,
+    replicated over "model", and so is the output."""
     lay = sharded.layout(None, dp)
+    route = dict(kind=kind, causal=causal, memory=memory,
+                 memory_positions=memory_positions,
+                 chunk_threshold=chunk_threshold, train=train)
     if lay is None:
-        return _attention(params, cfg, x, positions, kind=kind,
-                          causal=causal, memory=memory,
-                          memory_positions=memory_positions,
-                          chunk_threshold=chunk_threshold, train=train)
+        return _attention(params, cfg, x, positions, **route)
     if memory is not None:
-        raise NotImplementedError("cross-attention is not sharded yet "
-                                  "(ROADMAP Queue A)")
-    route = dict(kind=kind, causal=causal, chunk_threshold=chunk_threshold,
-                 train=train)
+        route["memory"] = lay.copy(memory)
     if not lay.heads_divide(cfg):
         return _attention_units(params, cfg, x, positions, lay, **route)
     w = lay.params(params, attn_params(cfg))
@@ -323,12 +323,14 @@ def _attention(params, cfg: ModelConfig, x, positions, *, kind, causal,
 
 
 def _attention_units(params, cfg: ModelConfig, x, positions, lay, *, kind,
-                     causal, chunk_threshold, train):
-    """Sharded self-attention where "model" does not divide the KV heads
-    (module docstring): q, k and v whole on every rank (`Layout.columns`),
-    rotated; the rank's units of the B·H (row, query head) pairs attend,
-    each as one batch entry with its KV head, on the route `_attention`
-    takes; their outputs gathered whole feed the rank's rows of wo."""
+                     causal, memory, memory_positions, chunk_threshold,
+                     train):
+    """Sharded attention where "model" does not divide the KV heads
+    (module docstring): q, k and v whole on every rank (`Layout.columns`;
+    k and v from `memory` in a cross-attention, else rotated with q);
+    the rank's units of the B·H (row, query head) pairs attend, each as
+    one batch entry with its KV head, on the route `_attention` takes;
+    their outputs gathered whole feed the rank's rows of wo."""
     descr = attn_params(cfg)
     H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
     B, S = x.shape[:2]
@@ -336,24 +338,32 @@ def _attention_units(params, cfg: ModelConfig, x, positions, lay, *, kind,
     if index:
         positions = _index_positions(cfg, x)
     x = lay.copy(x)
-    q, k, v = (_heads(lay.columns(x, params[n], descr[n]), h, dh)
-               for n, h in (("wq", H), ("wk", Hkv), ("wv", Hkv)))
-    q = _apply_rope(cfg, q, positions)
-    k = _apply_rope(cfg, k, positions)
+    src = x if memory is None else memory
+    q = _heads(lay.columns(x, params["wq"], descr["wq"]), H, dh)
+    k, v = (_heads(lay.columns(src, params[n], descr[n]), Hkv, dh)
+            for n in ("wk", "wv"))
     pos = positions if positions.dim() == 2 else positions[..., 0]
+    if memory is None:
+        q = _apply_rope(cfg, q, positions)
+        k = _apply_rope(cfg, k, positions)
+        k_pos = pos
+    else:
+        k_pos = (memory_positions if memory_positions is not None
+                 else torch.arange(src.shape[1], device=src.device)
+                 [None].expand(src.shape[:2]))
     start, stop, counts = lay.units(B * H)
     unit = torch.arange(start, stop, device=x.device)
     row, kv = unit // H, unit % H // (H // Hkv)
     qu = q.reshape(B * H, S, dh)[start:stop, None]
     ku, vu = k[row, kv][:, None], v[row, kv][:, None]
     if stop > start:
-        o = _attend(cfg, qu, ku, vu, pos[row], pos[row], kind=kind,
-                    causal=causal, cross=False, index=index,
+        o = _attend(cfg, qu, ku, vu, pos[row], k_pos[row], kind=kind,
+                    causal=causal, cross=memory is not None, index=index,
                     chunk_threshold=chunk_threshold, train=train)
     else:
         # no unit here: the empty output still depends on q, k and v, so
         # this rank takes part in their gathers' backward
-        o = qu + ku + vu
+        o = qu + (ku + vu).sum(2, keepdim=True)
     o = lay.gather(o[:, 0], 0, counts)                      # (B*H, S, dh)
     return lay.reduce(lay.rows(_unheads(o.reshape(B, H, S, dh)),
                                params["wo"], descr["wo"]))
@@ -452,17 +462,19 @@ def decode_attention(params, cfg: ModelConfig, x, cache: dict, step: int, *,
     `dp` under a mesh: sharded as `attention`; the cache holds this
     rank's rows and its block of the KV heads, or where "model" does not
     divide them its block of every head's positions (`sharded.cache_spec`,
-    as `models.model.init_cache` builds it)."""
+    as `models.model.init_cache` builds it).  `memory_kv` then holds the
+    rank's rows and its Hkv/m KV heads, or where "model" does not divide
+    them every KV head, of which the rank attends with its (row, query
+    head) units."""
     lay = sharded.layout(None, dp)
     if lay is not None:
-        if memory_kv is not None:
-            raise NotImplementedError("cross-attention is not sharded yet "
-                                      "(ROADMAP Queue A)")
+        if memory_kv is not None and not lay.heads_divide(cfg):
+            return _decode_memory_units(params, cfg, x, memory_kv, lay), cache
         if not lay.heads_divide(cfg):
             return _decode_positions(params, cfg, x, cache, step, kind, lay)
         w = lay.params(params, attn_params(cfg))
         h, new = decode_attention(w, lay.local_cfg(cfg), lay.copy(x), cache,
-                                  step, kind=kind)
+                                  step, kind=kind, memory_kv=memory_kv)
         return lay.reduce(h), new
     if memory_kv is not None:
         k, v, _ = memory_kv
@@ -483,6 +495,29 @@ def decode_attention(params, cfg: ModelConfig, x, cache: dict, step: int, *,
         keep &= pos > (pos_b[:, None] - cfg.window)
     return (_decode_attend(params, cfg, q, k, v, keep),
             {"k": k, "v": v, "pos": pos})
+
+
+def _decode_memory_units(params, cfg: ModelConfig, x, memory_kv, lay):
+    """`decode_attention(memory_kv=)` where "model" does not divide the
+    KV heads: q whole on every rank, the rank's (row, query head) units
+    attend over the whole memory k and v of their KV head, the outputs
+    gathered whole feed the rank's rows of wo."""
+    descr = attn_params(cfg)
+    B = x.shape[0]
+    H, Hkv, dh = cfg.num_heads, cfg.kv_heads, cfg.head_width
+    k, v, _ = memory_kv
+    q = _heads(lay.columns(lay.copy(x), params["wq"], descr["wq"]), H, dh)
+    start, stop, counts = lay.units(B * H)
+    unit = torch.arange(start, stop, device=x.device)
+    row, kv = unit // H, unit % H // (H // Hkv)
+    qu = q.reshape(B * H, 1, dh)[start:stop, None]
+    bias = torch.zeros((stop - start, 1, k.shape[2]), dtype=torch.float32,
+                       device=x.device)
+    o = full_attention(qu, k[row, kv][:, None], v[row, kv][:, None], bias,
+                       softcap=cfg.attn_logit_softcap, scale=_scale(cfg))
+    o = lay.gather(o[:, 0], 0, counts)                      # (B*H, 1, dh)
+    h = lay.rows(_unheads(o.reshape(B, H, 1, dh)), params["wo"], descr["wo"])
+    return lay.reduce(h)
 
 
 def _decode_positions(params, cfg: ModelConfig, x, cache: dict, step: int,

@@ -23,10 +23,11 @@ rows, the hidden state between blocks is (B/dp, S, D) replicated over
 "model", and the logits come back as this rank's vocabulary block
 (B/dp, S, V/m).  The reference's `_constrain` of the hidden state to
 P(dp, None, "model") is not ported: it is a memory layout of the same
-function.  Attention ("attn", "local", for any head count), rwkv and
-RG-LRU blocks shard; mixtures of experts and the encoder-decoder raise
-NotImplementedError.  Without a mesh, or with `dp=None`, everything
-runs unsharded.
+function.  Every block kind shards: attention ("attn", "local", for
+any head count), rwkv, RG-LRU, the mixtures of experts (`models.moe`)
+and the encoder-decoder, whose encoder runs on the rank's rows of
+frames and whose cross-attentions read that memory.  Without a mesh,
+or with `dp=None`, everything runs unsharded.
 
 Training (`loss_fn`) runs the same blocks with gradients on, each
 block recomputed in backward when `cfg.remat`, through differentiable
@@ -276,10 +277,10 @@ def _attn_block_rest(p, cfg: ModelConfig, x, h, memory=None, positions=None,
         h = _apply_norm(p["post1"], cfg, h, lay)
     x = x + h
     if memory is not None and "xattn" in p:
-        x = x + attention(p["xattn"], cfg, _apply_norm(p["lnx"], cfg, x),
-                          positions, memory=memory, **cross)
+        x = x + attention(p["xattn"], cfg, _apply_norm(p["lnx"], cfg, x, lay),
+                          positions, memory=memory, dp=lay, **cross)
     z = _apply_norm(p["ln2"], cfg, x, lay)
-    h = (moe_ffn(p["moe"], cfg, z) if cfg.num_experts
+    h = (moe_ffn(p["moe"], cfg, z, dp=lay) if cfg.num_experts
          else _mlp(p["mlp"], cfg, z, lay))
     if cfg.post_norms:
         h = _apply_norm(p["post2"], cfg, h, lay)
@@ -429,12 +430,14 @@ def _train_block(p, cfg, kind, x, positions, memory, causal, lay):
                           causal=causal, train=True, lay=lay)
 
 
-def _encode(params, cfg: ModelConfig, frames, *, train: bool = False):
+def _encode(params, cfg: ModelConfig, frames, *, train: bool = False,
+            lay=None):
     """The whisper encoder over precomputed frame embeddings (B, Se, D)
     (the stub frontend): sinusoidal positions added in f32, then the
     non-causal self-attention blocks (rotary at 0..Se-1, as the
     reference applies it) and the encoder's final norm.  None for a
-    decoder-only config."""
+    decoder-only config.  Under a layout, on this rank's rows of frames;
+    the memory comes back replicated over "model"."""
     if not cfg.encoder_layers:
         return None
     if frames is None:
@@ -452,8 +455,8 @@ def _encode(params, cfg: ModelConfig, frames, *, train: bool = False):
     pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
     x = (frames.float() + pe[None]).to(DTYPES[cfg.dtype])
     x = _blocks(enc["blocks"], ("attn",) * len(enc["blocks"]), cfg, x, None,
-                causal=False, train=train)
-    return _apply_norm(enc["final_norm"], cfg, x)
+                causal=False, train=train, lay=lay)
+    return _apply_norm(enc["final_norm"], cfg, x, lay)
 
 
 def _hidden(params, cfg: ModelConfig, batch: dict, *, train: bool = False,
@@ -465,7 +468,7 @@ def _hidden(params, cfg: ModelConfig, batch: dict, *, train: bool = False,
     rows (B/dp, S, D), replicated over "model"."""
     tokens = _tokens(params, batch["tokens"])
     positions = _positions(cfg, batch, tokens)
-    memory = _encode(params, cfg, batch.get("frames"), train=train)
+    memory = _encode(params, cfg, batch.get("frames"), train=train, lay=lay)
     x = _embed(params, cfg, tokens, lay)
     x = _blocks(params["blocks"], cfg.layer_kinds(), cfg, x, positions,
                 memory=memory, train=train, lay=lay)
@@ -566,12 +569,13 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
     (`sharded.cache_spec`): an attention layer's Hkv/m KV heads, or
     where "model" does not divide them its block of every head's
     positions; the rwkv state whole, the token-shift, conv and RG-LRU
-    buffers the rank's channels."""
+    buffers the rank's channels; the memory is encoded from the rank's
+    rows of `frames`, replicated over "model"."""
     params = _tree(params)
     device = params["embed"].device
     lay = sharded.layout(cfg, dp)
     with no_tf32(), torch.no_grad():
-        memory = _encode(params, cfg, frames)
+        memory = _encode(params, cfg, frames, lay=lay)
     return {
         "layers": [layer_state(cfg, kind, batch, max_len, device)
                    if lay is None else
@@ -634,8 +638,9 @@ def decode_step(params, cfg: ModelConfig, cache: dict, tokens, *,
                 dp=DP_DEFAULT):
     """One serving step: tokens (B,) -> logits (B, V), updated cache.
     Attention layers write their KV cache in place; an encoder-decoder's
-    blocks cross-attend to the cache's memory.  Under a mesh with `dp`:
-    this rank's rows of tokens and cache, and its logits block
+    blocks cross-attend to the cache's memory, their k and v projected
+    from it each step.  Under a mesh with `dp`: this rank's rows of
+    tokens and cache (its memory too), and its logits block
     (B/dp, V/m)."""
     step, memory = cache["step"], cache.get("memory")
     params = _tree(params)

@@ -41,6 +41,13 @@ rwkv and RG-LRU blocks are split by channel (rwkv's heads where "model"
 divides them, else by (row, head) units as attention is); a product of
 the block's output that the replicated hidden state takes back is
 reduce-scattered (`Layout.reduce_scatter`) or gathered without a sum.
+A cross-attention splits as the self-attention does, its k and v
+projected from the encoder's memory (B/dp, Se, D), which is replicated
+over "model" like the hidden state and goes through `copy_to_model`
+too; the encoder's blocks run under the same layout.  The mixture of
+experts keeps the unsharded capacity and ranks over each chunk of the
+global token order, and splits its experts over "model" where "model"
+divides E, else each expert's d_ff (`models.moe`).
 
 A gradient is summed over a dim only where the ranks along it compute
 different contributions: the data-parallel dims, and "model" for the
@@ -53,10 +60,10 @@ written out here.
 `layout(cfg, dp)` gives the sharded layout of a call, or None when no
 mesh is in context (`launch.mesh.set_mesh`) or `dp` is None: the model
 then runs unsharded, as without a mesh.  It raises NotImplementedError
-for what is not sharded yet (ROADMAP Queue A): mixtures of experts, the
-encoder-decoder, rwkv or RG-LRU blocks whose widths "model" does not
-divide, and attention whose KV heads and projection widths it does not
-divide.
+for a config whose widths "model" does not divide where the layout
+needs them to (`check_config`): rwkv or RG-LRU blocks, and attention
+whose KV heads and q, k and v projection widths it does not divide.  No
+config of the registry is refused at a "model" of 2, 4 or 16.
 
 The collectives are `dist.collectives`' (counted in its account) on the
 process groups the mesh was built over; nothing here picks a backend or
@@ -81,9 +88,6 @@ __all__ = [
     "reduce_from_model", "reduce_from", "vocab_parallel_nll", "local_block",
     "sharded_dims", "gather_blocks", "reduce_scatter", "cache_spec",
 ]
-
-_QUEUE = "is not sharded yet (ROADMAP Queue A)"
-
 
 def _axes(entry) -> tuple:
     """The mesh dims of one spec entry: () for None."""
@@ -138,10 +142,11 @@ def local_block(full: torch.Tensor, mesh, spec: tuple,
 
 def _gather_dims(x: torch.Tensor, mesh, spec: tuple, dims) -> torch.Tensor:
     """`x` all-gathered along each dim of `spec` whose entry names only
-    mesh dims in `dims`."""
+    mesh dims in `dims` (`x` itself where those have one rank)."""
     for d, entry in enumerate(spec):
         axes = _axes(entry)
-        if axes and set(axes) <= set(dims):
+        if (axes and set(axes) <= set(dims)
+                and C.axis_size(mesh, axes) > 1):
             x = C.all_gather(x.movedim(d, 0), mesh, axes).movedim(0, d)
     return x
 
@@ -485,12 +490,15 @@ def cache_spec(name: str, shape: tuple, mesh, dp) -> tuple:
     state (`src/repro/launch/specs.py`), sanitized: a KV cache over its
     KV heads, or over its sequence where "model" does not divide them
     (flash-decode); the rwkv state over dp only; the RG-LRU's `h` and
-    the token-shift and conv buffers over their channels."""
+    the token-shift and conv buffers over their channels; the encoder's
+    memory over dp."""
     model = mesh_shape(mesh).get("model", 1)
     if name in ("k", "v"):                           # (B, Hkv, L, dh)
         if shape[1] % model == 0:
             return sanitize_spec((dp, "model", None, None), shape, mesh)
         return sanitize_spec((dp, None, "model", None), shape, mesh)
+    if name == "memory":                             # (B, Se, D)
+        return sanitize_spec((dp, None, None), shape, mesh)
     if name == "pos":                                # (B, L)
         return sanitize_spec((dp, None), shape, mesh)
     if name == "wkv":                                # (B*H, N, N)
@@ -503,12 +511,9 @@ def cache_spec(name: str, shape: tuple, mesh, dp) -> tuple:
 
 
 def check_config(cfg: ModelConfig, m: int) -> None:
-    """Raise NotImplementedError for a config this slice does not shard."""
-    if cfg.num_experts:
-        raise NotImplementedError(f"{cfg.name}: the mixture of experts "
-                                  f"{_QUEUE}")
-    if cfg.encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder {_QUEUE}")
+    """Raise NotImplementedError for a config whose widths a "model" dim
+    of `m` does not divide where the layout splits them (the module
+    docstring)."""
     kinds = set(cfg.layer_kinds())
     qkv = (cfg.num_heads * cfg.head_width, cfg.kv_heads * cfg.head_width)
     widths = {"rwkv": (cfg.d_model, cfg.d_ff), "rglru": (cfg.d_model,),
@@ -519,8 +524,8 @@ def check_config(cfg: ModelConfig, m: int) -> None:
     for kind in sorted(kinds & set(widths)):
         if any(w % m for w in widths[kind]):
             raise NotImplementedError(
-                f"{cfg.name}: {kind} blocks of widths {widths[kind]} on a "
-                f"'model' dim of {m} {_QUEUE}")
+                f"{cfg.name}: {kind} blocks of widths {widths[kind]} do not "
+                f"split over a 'model' dim of {m}")
 
 
 def layout(cfg: Optional[ModelConfig], dp) -> Optional[Layout]:

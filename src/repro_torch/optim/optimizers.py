@@ -21,6 +21,17 @@ copy).  Both run the same per-leaf arithmetic and give the same bits.
 With ``stacked=True`` every leaf (and `count`) carries a leading replica
 axis R, as the decentralized train state does: each replica row is
 updated on its own, as the reference's `jax.vmap` of the optimizer.
+
+With ``sharding=(mesh, specs)`` (a model-sharded train state,
+`models.sharded`: `specs` the parameters' sanitized specs by name) each
+leaf is this rank's block.  AdamW and SGDM are elementwise and ignore
+it.  Adafactor's means over a whole leaf become a local sum, a psum over
+exactly the mesh dims that shard the reduced dims (none where the leaf
+is replicated), and a division by the global size: the row and column
+means of the squared gradient, the row mean in the denominator, and the
+update's RMS for the clip.  Its `vr` and `vc` blocks are the ones
+`launch.specs.state_shardings` gives.  Without `sharding` the update is
+the one-device arithmetic, bit for bit.
 """
 from __future__ import annotations
 
@@ -29,6 +40,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from ..dist import collectives as C
+from ..models.sharded import sharded_dims
 
 __all__ = [
     "Optimizer", "adamw", "adafactor", "sgdm",
@@ -44,8 +58,9 @@ _NORM_PIECE = 1 << 27
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable     # (params, stacked=False) -> state
-    update: Callable   # (grads, state, params, lr, stacked=False) -> (updates, state)
-    update_: Callable  # (grads, state, params, lr, stacked=False) -> None
+    # (grads, state, params, lr, stacked=False, sharding=None)
+    update: Callable   # -> (updates, state)
+    update_: Callable  # -> None
 
 
 def _leaves(tree):
@@ -135,9 +150,10 @@ def _build(init_leaf, step_leaf, tree_names) -> Optimizer:
 
     init_leaf(p, ndim) -> the leaf's state dict of zeros shaped after p
     (a leaf, or its R rows stacked), `ndim` the dims of one row;
-    step_leaf(g, s, p, lr, c) -> u: updates the leaf state dicts `s` in
-    place and returns the f32 (or momentum-dtype) update of the leaf.
-    tree_names: the names of the state's per-leaf trees.
+    step_leaf(g, s, p, lr, c, shard) -> u: updates the leaf state dicts
+    `s` in place and returns the f32 (or momentum-dtype) update of the
+    leaf; `shard` is (mesh, the leaf's spec) for a sharded leaf, else
+    None.  tree_names: the names of the state's per-leaf trees.
     """
 
     def init(params: dict, stacked: bool = False) -> dict:
@@ -155,18 +171,21 @@ def _build(init_leaf, step_leaf, tree_names) -> Optimizer:
     def _leaf_state(state, k, row):
         return {name: _map(row, state[name][k]) for name in tree_names}
 
+    def _shard(sharding, k):
+        return None if sharding is None else (sharding[0], sharding[1][k])
+
     def update_(grads: dict, state: dict, params: dict, lr,
-                stacked: bool = False) -> None:
+                stacked: bool = False, sharding=None) -> None:
         for r, row in _rows(stacked, params):
             c = _count(state, stacked, r)
             for k, p in params.items():
                 u = step_leaf(row(grads[k]), _leaf_state(state, k, row),
-                              row(p), lr, c)
+                              row(p), lr, c, _shard(sharding, k))
                 row(p).add_(u.to(p.dtype))
         state["count"].add_(1)
 
     def update(grads: dict, state: dict, params: dict, lr,
-               stacked: bool = False):
+               stacked: bool = False, sharding=None):
         new = _clone(state)
         updates = {}
         for k, p in params.items():
@@ -175,7 +194,7 @@ def _build(init_leaf, step_leaf, tree_names) -> Optimizer:
                 c = _count(state, stacked, r)
                 outs.append(step_leaf(row(grads[k]),
                                       _leaf_state(new, k, row), row(p),
-                                      lr, c))
+                                      lr, c, _shard(sharding, k)))
             updates[k] = torch.stack(outs) if stacked else outs[0]
         new["count"] = state["count"] + 1
         return updates, new
@@ -201,7 +220,7 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
         return {"m": torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                 "v": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
 
-    def step_leaf(g, s, p, lr, c):
+    def step_leaf(g, s, p, lr, c, shard):
         gf = g.float()
         m, v = s["m"], s["v"]
         m.mul_(b1).add_((1 - b1) * gf)
@@ -242,22 +261,26 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30,
                                   device=p.device)
         return st
 
-    def step_leaf(g, s, p, lr, c):
+    def step_leaf(g, s, p, lr, c, shard):
         beta = 1.0 - (c.float() + 1.0) ** (-decay)
         gf = g.float()
         g2 = gf.square() + eps
         v = s["v"]
+        nd = g.dim()
         if "vr" in v:
-            v["vr"].copy_(beta * v["vr"] + (1 - beta) * g2.mean(-1))
-            v["vc"].copy_(beta * v["vc"] + (1 - beta) * g2.mean(-2))
-            denom = torch.clamp_min(v["vr"].mean(-1, keepdim=True), eps)
+            v["vr"].copy_(beta * v["vr"] + (1 - beta)
+                          * _mean(g2, shard, -1, (nd - 1,)))
+            v["vc"].copy_(beta * v["vc"] + (1 - beta)
+                          * _mean(g2, shard, -2, (nd - 2,)))
+            denom = torch.clamp_min(_mean(v["vr"], shard, -1, (nd - 2,),
+                                          keepdim=True), eps)
             rfac = torch.rsqrt(v["vr"] / denom)[..., None]
             cfac = torch.rsqrt(v["vc"])[..., None, :]
             u = gf * rfac * cfac
         else:
             v["v"].copy_(beta * v["v"] + (1 - beta) * g2)
             u = gf * torch.rsqrt(v["v"])
-        rms = torch.sqrt(u.square().mean() + 1e-30)
+        rms = torch.sqrt(_mean(u.square(), shard, None, range(nd)) + 1e-30)
         u = u / torch.clamp_min(rms / clip_threshold, 1.0)
         u = -lr * u
         if momentum:
@@ -270,6 +293,28 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30,
     return _build(init_leaf, step_leaf, names)
 
 
+def _mean(x, shard, dim, leaf_dims, keepdim: bool = False):
+    """The mean of x over its dim `dim` (every dim when None).  With
+    `shard` = (mesh, spec), x is a block of a leaf sharded as `spec` and
+    `leaf_dims` are the leaf's dims that the mean reduces: the block's
+    sum is summed over the mesh dims that shard them and divided by the
+    global count."""
+    if shard is None:
+        if dim is None:
+            return x.mean()
+        return x.mean(dim, keepdim=keepdim)
+    mesh, spec = shard
+    axes = sharded_dims(tuple(spec[d] for d in leaf_dims if d < len(spec)))
+    if dim is None:
+        total, count = x.sum(), x.numel()
+    else:
+        total, count = x.sum(dim, keepdim=keepdim), x.shape[dim]
+    if axes:
+        total = C.psum(total, mesh, axes)
+        count *= C.axis_size(mesh, axes)
+    return total / count
+
+
 # -------------------------------- sgdm --------------------------------
 
 
@@ -277,7 +322,7 @@ def sgdm(momentum: float = 0.9) -> Optimizer:
     def init_leaf(p, ndim):
         return {"m": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
 
-    def step_leaf(g, s, p, lr, c):
+    def step_leaf(g, s, p, lr, c, shard):
         m = s["m"]
         m.mul_(momentum).add_(g.float())
         return -lr * m

@@ -41,9 +41,10 @@ block of every parameter (`init_train_state` of the blocks, so the
 optimizer's moments mirror them) and the batch its rows.  The gradients
 come back as blocks of the global mean's; the clip norm sums each
 block's f32 squares over every mesh dim the leaf is sharded on (and
-none it is replicated on); AdamW and SGDM update the blocks as they
-are, elementwise.  Adafactor's update reduces over whole leaves, so a
-sharded Adafactor raises NotImplementedError (ROADMAP Queue A).
+none it is replicated on); the optimizer gets the mesh and the
+parameters' specs (`sharding=`): AdamW and SGDM update the blocks as
+they are, elementwise, and Adafactor sums its means over whole leaves
+across the mesh dims that shard them.
 """
 from __future__ import annotations
 
@@ -155,13 +156,6 @@ def _sharded_norm(grads: dict, lay, specs: dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _check_sharded_optimizer(opt_state: dict) -> None:
-    if any(isinstance(v, dict) for v in opt_state.get("v", {}).values()):
-        raise NotImplementedError(
-            "a sharded Adafactor (its update reduces over whole leaves) is "
-            "not ported yet (ROADMAP Queue A)")
-
-
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                     lr_fn: Callable, *, clip_norm: float = 1.0,
                     device="cuda", dp=DP_DEFAULT) -> Callable:
@@ -174,17 +168,17 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
 
     def step(state, batch):
         lay = sharded.layout(cfg, dp)
-        if lay is not None:
-            _check_sharded_optimizer(state["opt"])
         loss, grads = _value_and_grad(cfg, state["params"], _on(batch, dev),
                                       dp=dp)
         with torch.no_grad():
-            norm = (None if lay is None else
-                    _sharded_norm(grads, lay, param_specs(cfg, lay.mesh)))
+            specs = None if lay is None else param_specs(cfg, lay.mesh)
+            norm = None if lay is None else _sharded_norm(grads, lay, specs)
             grads, gnorm = clip_by_global_norm(grads, clip_norm, inplace=True,
                                                norm=norm)
             lr = lr_fn(state["step"])
-            optimizer.update_(grads, state["opt"], state["params"], lr)
+            optimizer.update_(grads, state["opt"], state["params"], lr,
+                              sharding=None if lay is None
+                              else (lay.mesh, specs))
         del grads
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
