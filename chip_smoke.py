@@ -79,7 +79,7 @@ and `pair_apply` in each rank; M4 `make_decentralized_step` on a
 R=4 (in the same group); M3 `execute_sync_sharded` on 8 ranks in eight
 sync modes against `execute_sync` on the card.  Then model sharding over
 a (data, model) mesh, in one more 4-rank group: S1 llama3.2-3b's sharded
-prefill at full width (4 layers, 4 x 4096 on 2 x 2, one bf16 flash
+prefill at full width (2 layers, 4 x 4096 on 2 x 2, one bf16 flash
 launch a layer in each rank on its heads; an f32 copy's blocks against
 the unsharded model), S2 one sharded AdamW step (2 layers, f32) against
 the unsharded step, S3 its state saved and restored onto a 4 x 1 mesh,
@@ -209,15 +209,18 @@ FLASH_SDPA_LIMIT = 3.0
 # shape and at recurrentgemma-9b's local shape (Z0)
 FLASH_F32_LIMIT = {"llama3.2-3b": 1.6, "recurrentgemma-9b local": 2.0}
 # training (src/repro/configs/llama3_2_3b.py; the port has no JAX
-# backward kernel to hold, so no kernel runs here).  T1 at full size
-# (28 layers, d 3072, vocab 128256, bf16, remat on): AdamW (weight decay
-# 0.01) on a cosine schedule, SyntheticLM sequences of 1024 tokens, global
-# batch 2, the Trainer run for 3 steps with a checkpoint every 2 and killed
-# at the start of step 4, then a second Trainer that resumes at step 2 and
-# takes step 3 again, killed there too.  Each kill comes before the final
-# save: the chip machine lets a call write 45 GiB to its disk, and one
-# checkpoint of this state is 38.5 GB (35.9 GiB)
-TRAIN = dict(seq=1024, batch=2, steps=3, save_every=2)
+# backward kernel to hold, so no kernel runs here).  T1 at full width
+# (d 3072, vocab 128256, bf16, remat on), its depth cut to TRAIN["layers"]
+# of 28 layers: AdamW (weight decay 0.01) on a cosine schedule,
+# SyntheticLM sequences of 1024 tokens, global batch 2, the Trainer run
+# for 3 steps with a checkpoint every 2 and killed at the start of step
+# 4, then a second Trainer that resumes at step 2 and takes step 3 again,
+# killed there too.  Each kill comes before the final save: the chip
+# machine lets a call write 45 GiB to its disk.  One checkpoint of this
+# state is 9.6 GB; at all 28 layers it is 38.5 GB, and its save and
+# restore take ~100 s of the script's time limit on a slow host, so the
+# depth is cut (T1L trains the full size)
+TRAIN = dict(layers=4, seq=1024, batch=2, steps=3, save_every=2)
 TRAIN_LR = (3e-5, 1, 10)  # cosine_schedule(base_lr, warmup, total)
 # the resumed step 3's loss against the uninterrupted run's, relative: not
 # bitwise in general, since the gradient sums on the card (the embedding
@@ -291,7 +294,7 @@ MESH_TRAIN = dict(R=4, steps=2, rtol=1e-5)
 # init_cache (recurrentgemma-9b's local cache split over its positions,
 # flash-decode) against the unsharded decode, each step's logits block
 # at the same tolerance.  The group has MESH["timeout"].
-SHARD = dict(ranks=4, mesh=(2, 2), restore_mesh=(4, 1), prefill_layers=4,
+SHARD = dict(ranks=4, mesh=(2, 2), restore_mesh=(4, 1), prefill_layers=2,
              agree_layers=2, prefill_tol=1e-4, train_layers=2,
              train=(4, 512), lr=1e-5, train_tol=1e-5, decode_steps=8,
              logits_chunk=1024)
@@ -372,13 +375,13 @@ FLEET_LARGE_R = 256
 # tokens and budgets of 8-32 new tokens from default_rng(0), greedy,
 # eos_id -1, so slots retire and refill mid-stream; REPLAYS of the
 # refilled requests (the shortest first) again alone in a fresh engine.
-# Each engine step is one paged_decode_step of the whole model (~55 ms,
-# bound by the host's launches) and a prefill runs one a prompt
-# position, so rwkv6-3b takes fewer requests: 12, the fewest that give 4
+# Each engine step is one paged_decode_step of the whole model (~55-105
+# ms, bound by the host's launches) and a prefill runs one a prompt
+# position, so each model takes 12 requests, the fewest that give 4
 # refills with 8 slots.
 PAGED = dict(slots=8, page_size=16, pages_per_slot=6, pool=48,
              prompt=(8, 65), budget=(8, 33))
-PAGED_REQUESTS = {"llama3.2-3b": 32, "rwkv6-3b": 12, "recurrentgemma-9b": 12}
+PAGED_REQUESTS = {"llama3.2-3b": 12, "rwkv6-3b": 12, "recurrentgemma-9b": 12}
 REPLAYS = 4
 # the zoo's other block kinds.  Z0: the flash kernels at the prefill
 # shapes the three models below give them, (B, Hq, Hkv, S, D), causal,
@@ -2928,12 +2931,12 @@ class Smoke:
         return fingerprint(self.torch, tree)
 
     def train(self):
-        """T1: llama3.2-3b at full size through the port's Trainer: 3
-        AdamW steps with a checkpoint at step 2, killed at the start of
-        step 4 (before its final save); a second Trainer resumes at step
-        2 (the state bitwise the saved one), takes step 3 again (traced)
-        and is killed as the first, and its loss is held to the first
-        run's."""
+        """T1: llama3.2-3b at full width and TRAIN["layers"] layers through
+        the port's Trainer: 3 AdamW steps with a checkpoint at step 2,
+        killed at the start of step 4 (before its final save); a second
+        Trainer resumes at step 2 (the state bitwise the saved one), takes
+        step 3 again (traced) and is killed as the first, and its loss is
+        held to the first run's."""
         torch = self.torch
         from repro_torch.configs import get_config
         from repro_torch.data import SyntheticLM
@@ -2943,7 +2946,8 @@ class Smoke:
             Trainer, init_train_state, latest_step, make_train_step,
         )
 
-        cfg = get_config("llama3.2-3b")
+        cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                                  num_layers=TRAIN["layers"])
         check(cfg.remat and cfg.dtype == "bfloat16",
               f"{cfg.name}: remat {cfg.remat}, dtype {cfg.dtype}")
         B, S = TRAIN["batch"], TRAIN["seq"]
@@ -3039,14 +3043,16 @@ class Smoke:
         peak = torch.cuda.max_memory_allocated() / 2**30
         save_s = hist[TRAIN["save_every"] - 1]["sec_per_step"] - \
             ms[TRAIN["save_every"] - 1] / 1e3
-        log(f"[train T1 llama3.2-3b {B}x{S}] losses {losses}, resumed step "
+        log(f"[train T1 llama3.2-3b {cfg.num_layers} layers {B}x{S}] losses "
+            f"{losses}, resumed step "
             f"3 {again} (relative gap {gap:.3e}, bitwise "
             f"{again == losses[-1]}); step ms {[round(x, 2) for x in ms]}, "
             f"{B * S / warm_ms * 1e3:.0f} tokens/s; peak "
             f"{peak_first:.2f} GiB; checkpoint {ckpt_gb:.2f} GB saved in "
             f"about {save_s:.1f} s, restored bitwise in {restore_s:.1f} s; "
             f"phase {total_s:.1f} s")
-        row = dict(batch=B, seq=S, losses=losses, resumed_loss=again,
+        row = dict(layers=cfg.num_layers, batch=B, seq=S, losses=losses,
+                   resumed_loss=again,
                    resume_gap=gap, restored_bitwise=restored_bitwise,
                    step_ms=ms, tokens_per_s=B * S / warm_ms * 1e3,
                    peak_gib=peak, peak_first_gib=peak_first,
@@ -4717,7 +4723,15 @@ def main() -> int:
     sys.path.insert(0, str(src))
     t_start = time.perf_counter()
     smoke = Smoke(torch)
+    timeline = smoke.report["timeline"] = {}
+
+    def stamp(label):
+        # seconds since the start at the end of each group of phases
+        timeline[label] = time.perf_counter() - t_start
+        log(f"[time] {label} done at {timeline[label]:.1f} s")
+
     smoke.build()
+    stamp("build")
 
     g5, plan5, x05, graph5, pl5 = smoke.setup(100_000)
     lp0 = plan5.levels[0]
@@ -4735,8 +4749,10 @@ def main() -> int:
     main5 = smoke.large_n(100_000, g5, plan5, x05, graph5, pl5)
     scen = smoke.scenarios(g5, plan5, x05)
     per_tick = smoke.per_tick(g5, plan5, x05)
+    stamp("gossip n=1e5 and n=20000 kernels, main path, scenarios, per-tick")
     # M1-M4: the sharded executors, ranks of one gloo group on this card
     mesh = smoke.meshes(plan5, x05)
+    stamp("M1-M4")
     mesh_paths = {
         f"execute_plan FI n=100000, {MESH['trials']} trials on a "
         f"{MESH['ranks']}-rank trial mesh (gloo, one card), backend cuda, "
@@ -4748,6 +4764,7 @@ def main() -> int:
     # S1-S8: model sharding over a (data, model) mesh, ranks on this card
     torch.cuda.empty_cache()
     shard = smoke.sharded_model()
+    stamp("S1-S8")
     g6, plan6, x06, graph6, pl6 = smoke.setup(1_000_000)
     main6 = smoke.large_n(1_000_000, g6, plan6, x06, graph6, pl6)
     del g6, plan6
@@ -4765,6 +4782,7 @@ def main() -> int:
                       "backend cuda": fig5}
     control = smoke.control_plane()
     fleet = smoke.fleet()
+    stamp("n=1e6, matmul, synchronous, baselines, control plane, fleet")
     fleet_paths = {
         **{f"ControlPlane R={R} full view, one round, backend cuda": n
            for R, n in control.items()},
@@ -4822,6 +4840,7 @@ def main() -> int:
     smoke.agreement(model32, cfg32, checked=True)
     del model32
     torch.cuda.empty_cache()
+    stamp("rwkv6-3b serving")
 
     # the llama3.2-3b serving path; the rwkv6-3b models are freed first
     smoke.flash()
@@ -4858,9 +4877,10 @@ def main() -> int:
     smoke.agreement(model32, cfg32, checked=True)
     del model32
     torch.cuda.empty_cache()
+    stamp("flash kernels, llama3.2-3b serving")
 
     # training, after the serving models are freed: T1 (llama3.2-3b at
-    # full size through the Trainer, checkpoint and resume), T1b (card vs
+    # full width through the Trainer, checkpoint and resume), T1b (card vs
     # CPU), T2 (R=8 replicas, four sync modes) and T3 (the failure
     # matrix).  The training route launches none of the kernels: each
     # kernel's count over the four phases together must stay 0.
@@ -4886,6 +4906,7 @@ def main() -> int:
     smoke.check_idle(train_long, None, "T1L")
     check(not any(smoke.flash_kernels().values()),
           f"T1L launched {smoke.flash_kernels()}")
+    stamp("T1-T3, T1L")
 
     # the zoo's other block kinds, after training's state is freed: Z0 the
     # flash kernels at their prefill shapes; Z1 recurrentgemma-9b at full
@@ -4916,6 +4937,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         smoke.zoo_agree(arch)
     smoke.kernels["flash_attention"]["launches_by_path"].update(zoo_paths)
+    stamp("Z0-Z4")
 
     # chunked_attention (X1), whisper-tiny at full size (W1) and
     # qwen2-vl-72b at M-RoPE positions (Q1)
@@ -4929,6 +4951,7 @@ def main() -> int:
                              "bound_ms", "bound_by", "plain_ms", "library_ms",
                              "max_abs_err")}
         for row in smoke.report["flash_zoo"]]
+    stamp("X1, W1, Q1")
 
     m4_path = (f"make_decentralized_step llama3.2-3b width, 1 layer, sgdm, "
                f"{MESH_TRAIN['R']}-rank replica mesh (gloo, one card), each "

@@ -107,8 +107,9 @@
 // grid too small to fill the card, where the host allots none) takes a
 // device atomic in the same pass, so any layout is counted right.  Under
 // congestion pricing each graph's attempt bits of a tile are one word a
-// half of the tile, ORed in shared memory, counted by column with warp
-// ballots into the attempts a tick, added to `conc` once a block, and
+// half of the tile, ORed in shared memory, counted by column (a lane a
+// tick, each warp a share of the words) into the attempts a tick, added
+// to `conc` once a block, and
 // written for the congestion kernel, which stages each trial's weights
 // max(conc - 1, 0) in shared memory.
 //
@@ -120,9 +121,10 @@
 // hashes, and its stores cost a fifth of its time; so the kernel spends
 // none it can avoid: no division or device atomic a draw, no tagged hash
 // twice, one update-bit tensor on the main path; the retransmission
-// count is estimated from the special function unit's log2 and computed
-// exactly (logf, a correctly rounded division) only near an integer
-// (`retries`).
+// count is estimated from the special function unit's log2, without a
+// branch a word, and computed exactly (logf, a correctly rounded
+// division) only for the rare word near an integer, after the item's
+// estimates (`retries_estimate`, `retries_exact`).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -222,20 +224,36 @@ __device__ __forceinline__ void lost_hops(float u, float log_p, int h,
 // extra attempts of one hop slot from its retransmission word:
 // floor(logf(u) / log_q), u = max(uniform(w), 1e-12).  The integer is
 // first estimated as x' = log2(u) * (ln 2 / log_q) from the special
-// function unit (scale = ln 2 / log_q); only where x' lies within
-// 2e-5 (|x'| + 1) + 2e-6 |scale| of an integer is the exact quotient (the
+// function unit (scale = ln 2 / log_q; u is a normal float, so the log2
+// needs no denormal scaling); only where x' lies within 2e-5 (|x'| + 1) +
+// 2e-6 |scale| of an integer (`near`) is the exact quotient (the
 // library's logf, a correctly rounded division) taken.  x' and the exact
 // quotient differ by less than 7e-7 |x'| (log2's 2 ulps, logf's 1, three
 // roundings) plus 2^-22.6 |scale| (log2's absolute error on [0.5, 2]),
 // at least 8 times inside that margin.  Either way the count is the
-// exact quotient's floor.
-__device__ __forceinline__ int retries(uint32_t w, float log_q, float scale) {
+// exact quotient's floor.  `inner` is 0.5 - 2e-5 - 2e-6 |scale|: x' is
+// near an integer where its fraction lies within the margin of 0 or 1.
+__device__ __forceinline__ int retries_estimate(uint32_t w, float scale,
+                                                float inner, bool& near) {
   const float u = fmaxf(uniform(w), 1e-12f);
-  const float x = __log2f(u) * scale;
+  float l2;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l2) : "f"(u));
+  const float x = l2 * scale;
   const float k = floorf(x);
-  const float margin = 2e-5f * (fabsf(x) + 1.0f) + 2e-6f * fabsf(scale);
-  if (x - k > margin && k + 1.0f - x > margin) return (int)k;
+  near = fabsf(x - k - 0.5f) >= fmaf(-2e-5f, fabsf(x), inner);
+  return (int)k;
+}
+
+__device__ __noinline__ int retries_exact(uint32_t w, float log_q) {
+  const float u = fmaxf(uniform(w), 1e-12f);
   return (int)floorf(__fdiv_rn(logf(u), log_q));
+}
+
+__device__ __forceinline__ int retries(uint32_t w, float log_q, float scale,
+                                       float inner) {
+  bool near;
+  const int k = retries_estimate(w, scale, inner, near);
+  return near ? retries_exact(w, log_q) : k;
 }
 
 struct Args {
@@ -297,6 +315,7 @@ struct Run {
   int* hist;           // window k's counts at hist + k * window
   int lo[2], size[2];  // each run's window
   float log_p, scale;  // log of the loss p; ln 2 / log_q
+  float inner;         // `retries_estimate`'s bound on a fraction
 };
 
 // A counter pair p of the block's run: graphs c and c + half.
@@ -521,11 +540,31 @@ __device__ __forceinline__ void draw_item(const Args& a, const Run& run,
           y2[q] = y1[q] + size2;
         }
         threefry_n<4>(q1, q2, y1, y2);
+        // the eight estimates without a branch; bit 2q + v of `near`: word
+        // v of hash q is counted and lies near an integer
+        uint32_t near = 0;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int k = q >> 1, mm = m + (q & 1);
-          if (mm < hs[0][k]) rx[k] += retries(y1[q], a.log_q, run.scale);
-          if (mm < hs[1][k]) rx[k] += retries(y2[q], a.log_q, run.scale);
+          bool n1, n2;
+          const int e1 = retries_estimate(y1[q], run.scale, run.inner, n1);
+          const int e2 = retries_estimate(y2[q], run.scale, run.inner, n2);
+          const bool g1 = mm < hs[0][k], g2 = mm < hs[1][k];
+          rx[k] += (g1 ? e1 : 0) + (g2 ? e2 : 0);
+          near |= ((g1 && n1) ? 1u : 0u) << (2 * q);
+          near |= ((g2 && n2) ? 2u : 0u) << (2 * q);
+        }
+        if (near) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+              if (!((near >> (2 * q + v)) & 1u)) continue;
+              const uint32_t w = v ? y2[q] : y1[q];
+              bool n;
+              rx[q >> 1] += retries_exact(w, a.log_q) -
+                            retries_estimate(w, run.scale, run.inner, n);
+            }
         }
       }
     } else {
@@ -537,30 +576,27 @@ __device__ __forceinline__ void draw_item(const Args& a, const Run& run,
           const long long base = ((long long)t[u] * B + b[k]) * a.two_h;
           for (int m = 0; m < hs[u][k]; ++m)
             rx[k] += retries(word(sh.tag + 2, base + m, size), a.log_q,
-                             run.scale);
+                             run.scale, run.inner);
         }
     }
   }
 }
 
 // The attempts of each tick of the tile: the set bits of each column of
-// the block's attempt words (word (k, u) of pair p: bit s for tick
-// s0 + s + u*span), counted a warp of 32 words at a time by ballots;
-// lane s adds its columns' counts.
+// the block's attempt words (word (k, u) of pair p, row 2k + u: bit s
+// for tick s0 + s + u*span).  Each warp takes a share of every row's
+// words, and lane s adds bit s of each (a broadcast read), so no warp
+// waits on a serial count; lane s then adds its two columns' counts.
 template <bool kFull>
 __device__ __forceinline__ void count_attempts(const Run& run,
                                                Shared<kFull>& sh, int ns) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per_row = (run.np + 31) / 32, pieces = 4 * per_row;
+  const int warps = blockDim.x >> 5;
   int count[2] = {0, 0};
-  for (int pc = warp; pc < pieces; pc += blockDim.x >> 5) {
-    const int ku = pc / per_row, p = (pc - ku * per_row) * 32 + lane;
-    const uint32_t w = p < run.np ? sh.att[(kFull ? 1 : 0) * ku][p] : 0u;
-    for (int s = 0; s < ns; ++s) {
-      const unsigned m = __ballot_sync(0xFFFFFFFFu, (w >> s) & 1u);
-      if (lane == s) count[ku & 1] += __popc(m);
-    }
-  }
+#pragma unroll
+  for (int ku = 0; ku < 4; ++ku)
+    for (int p = warp; p < run.np; p += warps)
+      count[ku & 1] += (sh.att[(kFull ? 1 : 0) * ku][p] >> lane) & 1u;
 #pragma unroll
   for (int u = 0; u < 2; ++u)
     if (lane < ns && count[u]) atomicAdd(&sh.conc[u * ns + lane], count[u]);
@@ -640,6 +676,7 @@ __global__ void __launch_bounds__(kMode ? kFullThreads : kMaxThreads, 1)
   // on the device, as torch takes log(clamp_min(p, 1e-12)) there
   run.log_p = kMode == 2 && a.lossy ? logf(fmaxf(a.p, 1e-12f)) : 0.0f;
   run.scale = kFull && a.retx ? 0.693147182f / a.log_q : 0.0f;
+  run.inner = 0.5f - 2e-5f - 2e-6f * fabsf(run.scale);
   const uint32_t k1 = (uint32_t)__ldg(a.keys + 2 * run.r);
   const uint32_t k2 = (uint32_t)__ldg(a.keys + 2 * run.r + 1);
   const long long rb = (long long)run.r * a.B;
