@@ -95,8 +95,16 @@ S7 llama4-maverick (1 layer with all 128 experts, 2 x 4096 on 1 x 4, 32
 experts a rank) and S8 whisper-tiny uncut (4 x 4096 over 1500 frames on
 2 x 2), each with its bf16 flash launches counted and an f32 copy's
 blocks and 8 decode steps against the unsharded model, which the
-parent runs and frees first.  None of them times a collective.  Any
-failed check raises,
+parent runs and frees first.  None of them times a collective.  Then
+D1, the dry run (`repro_torch.launch.dryrun`, host-only, its traces in a
+process of its own): S1's cell traced on a fake process group of 4,
+held against S1's rank 0 (the flash launches a rank and the collective
+account equal, the predicted peak within 25% of the measured one), and
+`run_cell` at full size on the 16 x 16 mesh for llama3.2-3b's
+prefill_32k and train_4k, each ending "ok".  Last, E1: the six example
+scripts (`examples/torch_*.py`) in-process on the card at tools/ci.sh's
+smoke sizes, each with its own checks, train_lm resuming from its saved
+step, every figure finite.  Any failed check raises,
 and the script exits non-zero.
 
 Output: progress lines, the card's name and power limit, one JSON line
@@ -457,6 +465,31 @@ QWEN_LAYOUT = dict(text=256, grid=32)
 # T1) on train_4k's sequence of 4096 tokens, its global batch cut from
 # 256 to 1: every layer trains through chunked_attention
 TRAIN_LONG = dict(seq=4096, batch=1)
+# D1: the dry run (`repro_torch.launch.dryrun`), host-only, in a process
+# of its own: S1's cell traced on a fake group of S1's world size and
+# held against S1's rank 0 (its predicted peak within `peak_tol` of the
+# measured one), then `run_cell` at full size on the 16 x 16 mesh
+DRYRUN = dict(peak_tol=0.25, arch="llama3.2-3b",
+              cells=("prefill_32k", "train_4k"))
+# E1: the six example scripts on the card, in-process through their
+# `main`, at tools/ci.sh's smoke sizes; train_lm runs twice into one
+# checkpoint directory, the second auto-resuming at the first's last
+# step (30 keeps its own loss-decrease check on the resumed steps)
+EXAMPLE_RUNS = (
+    ("decentralized_consensus", ["--strategy", "multiscale", "--compress",
+                                 "topk", "--rotate", "4", "--replicas", "8",
+                                 "--steps", "2"]),
+    ("decentralized_consensus", ["--strategy", "multiscale", "--overlap",
+                                 "--replicas", "8", "--steps", "3"]),
+    ("serve_fleet", ["--replicas", "16", "--ticks", "120"]),
+    ("robust_training", ["--replicas", "8", "--steps", "8", "--churn",
+                         "0.25", "--byzantine", "0.125", "--aggregation",
+                         "trimmed_mean", "--compress", "topk"]),
+    ("train_lm", ["--preset", "smoke", "--steps", "20"]),
+    ("train_lm", ["--preset", "smoke", "--steps", "30"]),
+    ("serve_decode", []),
+    ("quickstart", ["--n", "1000"]),
+)
 # published H100 peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores; the
 # PCIe part is slower.  The int32 rate is the card's SMs x 64 int32
@@ -3690,7 +3723,11 @@ class Smoke:
                       f"S1 rank {rank}: the f32 {what} differ from the "
                       f"unsharded model's by {got[f'{what}_err']} (max abs)")
         row["S1"] = {k: [g[k] for g in s1] for k in (
-            "seconds", "hidden_err", "logits_err", "agree_s")}
+            "seconds", "hidden_err", "logits_err", "agree_s", "peak_bytes",
+            "held_bytes")}
+        # what D1's dry run of S1's cell is held against
+        self.s1_rank0 = {k: s1[0][k] for k in ("account", "flash",
+                                               "peak_bytes", "held_bytes")}
         log(f"[shard S1] llama3.2-3b {SHARD['prefill_layers']} layers bf16 "
             f"prefill {PREFILL[0]}x{PREFILL[1]} on {SHARD['mesh']}: each rank "
             f"{s1[0]['want_shape']} logits, {SHARD['prefill_layers']} bf16 "
@@ -3761,6 +3798,146 @@ class Smoke:
             f"{sum(row['wide_reference_s'].values()):.1f} s, the 4-rank "
             f"group {row['group_s']:.1f} s")
         self.report["shard"] = row
+        return paths
+
+    def dryrun(self) -> dict:
+        """D1 (DRYRUN): (a) S1's cell traced by the dry run against what
+        S1's rank 0 measured, (b) full-size cells on the 16 x 16 mesh,
+        (c) the dry run's device memory against the card's.  Every trace
+        runs in the dry run's own process."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch import dryrun as D
+
+        row = {}
+        t_all = time.perf_counter()
+        s1 = self.s1_rank0
+        cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                                  num_layers=SHARD["prefill_layers"])
+        B, S = PREFILL
+        sizes = dict(zip(("data", "model"), SHARD["mesh"]))
+        t0 = time.perf_counter()
+        tr = D.trace_cell(cfg, (S, B, "prefill"), sizes, device="cuda")
+        row["s1_trace_s"] = time.perf_counter() - t0
+        launches = {k: v["launches"] for k, v in tr["kernels"].items()}
+        measured = {k: n for k, n in s1["flash"].items() if n}
+        check(launches == measured,
+              f"D1(a): the dry run predicts {launches} launches a rank, S1's "
+              f"rank 0 made {measured}")
+        want = {k: v for k, v in s1["account"].items() if k != "host_copy"}
+        check(tr["account"] == want,
+              f"D1(a): the traced account {tr['account']} differs from S1's "
+              f"rank 0's {want}")
+        peak, real = tr["memory"]["peak_bytes"], s1["peak_bytes"]
+        check(abs(peak / real - 1.0) <= DRYRUN["peak_tol"],
+              f"D1(a): predicted peak {peak} B against S1's measured {real} "
+              f"B, beyond {DRYRUN['peak_tol']:.0%}")
+        row["s1"] = dict(predicted_peak_bytes=peak, measured_peak_bytes=real,
+                         argument_bytes=tr["memory"]["argument_bytes"],
+                         held_bytes=s1["held_bytes"], launches=launches,
+                         account=tr["account"], flops=tr["flops"],
+                         bytes=tr["bytes"])
+        log(f"[dryrun D1] S1's cell traced in {row['s1_trace_s']:.1f} s: "
+            f"peak {peak / 2**30:.3f} GiB predicted, {real / 2**30:.3f} GiB "
+            f"measured in S1's rank 0 ({peak / real - 1:+.1%}); arguments "
+            f"{tr['memory']['argument_bytes'] / 2**30:.3f} GiB predicted, "
+            f"{s1['held_bytes'] / 2**30:.3f} GiB held; {launches} launches "
+            f"and the account equal S1's: {tr['account']}")
+        out_dir = str(ROOT / "chiprun_out" / "dryrun_torch")
+        row["cells"] = {}
+        for shape in DRYRUN["cells"]:
+            rec = D.run_cell(DRYRUN["arch"], shape, False, out_dir=out_dir)
+            check(rec["status"] == "ok",
+                  f"D1(b): {DRYRUN['arch']} x {shape} on pod16x16 ended "
+                  f"{rec['status']}: {rec.get('error')}\n"
+                  f"{rec.get('traceback')}")
+            r, mem = rec["roofline"], rec["memory"]
+            row["cells"][shape] = dict(
+                peak_gib=mem["peak_bytes"] / 2**30, fits=mem["fits"],
+                dominant=r["dominant"], trace_seconds=rec["trace_seconds"],
+                compute_s=r["compute_s"], memory_s=r["memory_s"],
+                collective_s=r["collective_s"], kernels=rec["kernels"])
+            log(f"[dryrun D1] {DRYRUN['arch']} x {shape} on pod16x16: "
+                f"{mem['peak_bytes'] / 2**30:.2f} GiB a device, fits "
+                f"{mem['fits']}, dominant {r['dominant']} (compute "
+                f"{r['compute_s'] * 1e3:.1f} ms, memory "
+                f"{r['memory_s'] * 1e3:.1f} ms, collective "
+                f"{r['collective_s'] * 1e3:.2f} ms), traced in "
+                f"{rec['trace_seconds']:.1f} s; fake launches "
+                f"{ {k: v['launches'] for k, v in rec['kernels'].items()} }")
+        D.close()
+        total = torch.cuda.get_device_properties(0).total_memory
+        check(D.DEVICE_BYTES == total,
+              f"D1(c): the dry run's DEVICE_BYTES {D.DEVICE_BYTES} is not "
+              f"the card's {total}")
+        row["device_bytes"] = total
+        row["total_s"] = time.perf_counter() - t_all
+        log(f"[dryrun D1] DEVICE_BYTES = the card's {total} B; D1 took "
+            f"{row['total_s']:.1f} s")
+        self.report["dryrun"] = row
+        return row
+
+    def examples(self) -> dict:
+        """E1 (EXAMPLE_RUNS): the example scripts in-process on the card,
+        each run's kernel launches counted on their own.  Returns
+        {run label: counts}."""
+        import importlib.util
+
+        def load(name):
+            spec = importlib.util.spec_from_file_location(
+                f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            return mod
+
+        def finite(x) -> bool:
+            if isinstance(x, dict):
+                return all(finite(v) for v in x.values())
+            if isinstance(x, (list, tuple)):
+                return all(finite(v) for v in x)
+            if isinstance(x, float):
+                return math.isfinite(x)
+            if hasattr(x, "__dataclass_fields__"):
+                return finite(dataclasses.asdict(x))
+            return True
+
+        row, paths = {}, {}
+        t_all = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_e1_") as tmp:
+            for name, argv in EXAMPLE_RUNS:
+                label = " ".join([f"examples/torch_{name}.py", *argv])
+                if name == "train_lm":
+                    argv = [*argv, "--ckpt-dir", tmp]
+                self.zero_counts()
+                t0 = time.perf_counter()
+                out = load(name).main(argv)
+                self.torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                paths[label] = self.read_counts()
+                check(finite(out), f"E1 {label}: a figure is not finite")
+                row[label] = dict(seconds=secs, launches=paths[label])
+                if name == "quickstart":
+                    check(out["messages"] < out["pa_messages"],
+                          f"E1 {label}: multiscale's {out['messages']} "
+                          f"messages not below path averaging's "
+                          f"{out['pa_messages']}")
+                    row[label].update(messages=out["messages"],
+                                      pa_messages=out["pa_messages"],
+                                      error=out["error"])
+                if name == "train_lm":
+                    row[label]["start_step"] = out["start_step"]
+                    row[label]["last_step"] = out["history"][-1]["step"]
+                log(f"[examples E1] {label}: {secs:.1f} s, launches "
+                    f"{ {k: n for k, n in paths[label].items() if n} }")
+        runs = [row[k] for k in row if "torch_train_lm.py" in k]
+        check(runs[1]["start_step"] == runs[0]["last_step"] > 0,
+              f"E1: train_lm's second run started at step "
+              f"{runs[1]['start_step']}, not at the first's saved step "
+              f"{runs[0]['last_step']}")
+        total = time.perf_counter() - t_all
+        log(f"[examples E1] six scripts, {len(EXAMPLE_RUNS)} runs in "
+            f"{total:.1f} s (host clock, not gated)")
+        self.report["examples"] = dict(runs=row, total_s=total)
         return paths
 
     def _check_adafactor(self, got: list, want_loss: float) -> dict:
@@ -4141,11 +4318,16 @@ def _shard_prefill(torch, smoke, mesh) -> dict:
     smoke.zero_counts()
     C.reset_account()
     torch.cuda.synchronize()
+    # the peak from here holds the rank's blocks, as the dry run's does
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     with set_mesh(mesh):
         logits = forward(local, cfg, rows, dp=dp)
     torch.cuda.synchronize()
     out = dict(seconds=time.perf_counter() - t0, counts=smoke.read_counts(),
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               held_bytes=held,
                flash=dict(smoke.flash_kernels()), account=C.account(),
                shape=tuple(logits.shape),
                want_shape=(B // 2, S, cfg.vocab_size // 2),
@@ -4765,6 +4947,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     shard = smoke.sharded_model()
     stamp("S1-S8")
+    # D1: the dry run of S1's cell and of two full-size cells
+    smoke.dryrun()
+    stamp("D1")
     g6, plan6, x06, graph6, pl6 = smoke.setup(1_000_000)
     main6 = smoke.large_n(1_000_000, g6, plan6, x06, graph6, pl6)
     del g6, plan6
@@ -4982,6 +5167,14 @@ def main() -> int:
         row["launches_by_path"][s2_path] = shard["S2"][name]
         for phase, path in kind_paths.items():
             row["launches_by_path"][path] = shard[phase][name]
+
+    # E1: the example scripts on the card
+    torch.cuda.empty_cache()
+    example_paths = smoke.examples()
+    stamp("E1")
+    for name, row in smoke.kernels.items():
+        for path, counts in example_paths.items():
+            row["launches_by_path"][path] = counts[name]
 
     total = time.perf_counter() - t_start
     smoke.report["total_s"] = total

@@ -35,8 +35,14 @@ the card.
 The account: every call adds one to its kind's count and the bytes
 this rank puts in (a reduction's or a broadcast's tensor, a gather's
 input, a permutation's sent rows), and every host copy does the same
-under ``"host_copy"``.  `account()` reads it and `reset_account()` sets
-it to zero; it stands in for the reference's HLO collective count.
+under ``"host_copy"``.  Each entry also sums the bytes of the call's
+result (a gather's whole output; for the others, as many as go in),
+which is what the reference's HLO count reads off an op's result shape,
+and splits the calls by the group they ran over: its mesh dims and its
+global ranks (``"groups"``), so a call across pods can be told from one
+inside a pod.  `account()` reads it and `reset_account()` sets it to
+zero; it stands in for the reference's HLO collective count
+(`launch.trace_analysis` turns it into that count's statistics).
 """
 from __future__ import annotations
 
@@ -65,7 +71,8 @@ Dims = Union[str, int, Sequence[Union[str, int]]]
 # table); the rest are staged through the host
 _GLOO_CUDA = frozenset({"all_reduce", "broadcast"})
 
-_ACCOUNT: dict[str, list[int]] = {}
+# kind -> (dims, ranks) -> [calls, bytes in, result bytes]
+_ACCOUNT: dict[str, dict[tuple, list[int]]] = {}
 
 
 def reset_account() -> None:
@@ -74,15 +81,34 @@ def reset_account() -> None:
 
 
 def account() -> dict:
-    """{kind: {"calls": n, "bytes": b}} since the last reset."""
-    return {k: {"calls": c, "bytes": b} for k, (c, b) in
-            sorted(_ACCOUNT.items())}
+    """{kind: {"calls": n, "bytes": b, "result_bytes": r, "groups":
+    [{"dims": [...], "ranks": [...], "calls", "bytes", "result_bytes"},
+    ...]}} since the last reset; a host copy's group is empty."""
+    out = {}
+    for kind, groups in sorted(_ACCOUNT.items()):
+        rows = [{"dims": list(d), "ranks": list(r), "calls": c, "bytes": b,
+                 "result_bytes": rb}
+                for (d, r), (c, b, rb) in sorted(groups.items())]
+        out[kind] = {k: sum(g[k] for g in rows)
+                     for k in ("calls", "bytes", "result_bytes")}
+        out[kind]["groups"] = rows
+    return out
 
 
-def _count(kind: str, x: torch.Tensor) -> None:
-    entry = _ACCOUNT.setdefault(kind, [0, 0])
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _count(kind: str, x: torch.Tensor, group: tuple = ((), ()),
+           result: int = None) -> None:
+    """One call of `kind` putting in `x`, over `group` = (dims, global
+    ranks), with a result of `result` bytes (as many as `x` by
+    default)."""
+    entry = _ACCOUNT.setdefault(kind, {}).setdefault(group, [0, 0, 0])
+    nbytes = _nbytes(x)
     entry[0] += 1
-    entry[1] += x.numel() * x.element_size()
+    entry[1] += nbytes
+    entry[2] += nbytes if result is None else result
 
 
 def _dims(dims: Dims) -> tuple:
@@ -117,13 +143,38 @@ def axis_index(mesh, dims: Dims) -> int:
 
 def _group_ranks(mesh, dims: tuple) -> list[int]:
     """Global ranks of this rank's group along `dims`, row-major."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
     axes = [_index(mesh, d) for d in dims]
     coord = mesh.get_coordinate()
-    sub = mesh.mesh[tuple(slice(None) if i in axes else c
-                          for i, c in enumerate(coord))]
-    # `sub` keeps the mesh's dim order; put it in the order of `dims`
-    kept = sorted(axes)
-    return sub.permute([kept.index(a) for a in axes]).reshape(-1).tolist()
+    # the mesh's rank table is a real tensor: read it outside any mode
+    # that traces (a fake-tensor trace of the caller's program)
+    with _disable_current_modes():
+        sub = mesh.mesh[tuple(slice(None) if i in axes else c
+                              for i, c in enumerate(coord))]
+        # `sub` keeps the mesh's dim order; put it in the order of `dims`
+        kept = sorted(axes)
+        return sub.permute([kept.index(a) for a in axes]).reshape(
+            -1).tolist()
+
+
+def _group(mesh, dims: tuple, ranks) -> tuple:
+    """The account's key of a call over `dims` among global `ranks`:
+    (dim names, ranks)."""
+    return (tuple(d if isinstance(d, str) else mesh.mesh_dim_names[d]
+                  for d in dims), tuple(ranks))
+
+
+def _key(mesh, d, group) -> tuple:
+    """The account's key of a call over the one dim `d`'s `group`."""
+    return _group(mesh, (d,), dist.get_process_group_ranks(group))
+
+
+def _moves(group) -> bool:
+    """Whether a collective over `group` moves data: the fake backend (a
+    traced dry run, `launch.dryrun`) moves nothing, so there a call is
+    counted and its result keeps its shape, and no transfer is made."""
+    return dist.get_backend(group) != "fake"
 
 
 def _staged(x: torch.Tensor, op: str, group) -> bool:
@@ -148,7 +199,9 @@ def _all_reduce(x: torch.Tensor, dims: tuple, mesh, op, kind: str):
         if mesh.size(_index(mesh, d)) == 1:
             continue
         group = mesh.get_group(_index(mesh, d))
-        _count(kind, out)
+        _count(kind, out, _key(mesh, d, group))
+        if not _moves(group):
+            continue
         if _staged(out, "all_reduce", group):
             host = _to_host(out)
             dist.all_reduce(host, op=op, group=group)
@@ -186,7 +239,9 @@ def bcast_from_zero(x: torch.Tensor, mesh, dims: Dims) -> torch.Tensor:
             continue
         group = mesh.get_group(_index(mesh, d))
         src = dist.get_global_rank(group, 0)
-        _count("broadcast", out)
+        _count("broadcast", out, _key(mesh, d, group))
+        if not _moves(group):
+            continue
         if _staged(out, "broadcast", group):
             host = _to_host(out)
             dist.broadcast(host, src=src, group=group)
@@ -205,11 +260,14 @@ def all_gather(x: torch.Tensor, mesh, dims: Dims,
         if mesh.size(_index(mesh, d)) == 1:
             continue
         group = mesh.get_group(_index(mesh, d))
-        _count("all_gather", out)
+        n = dist.get_world_size(group)
+        _count("all_gather", out, _key(mesh, d, group), n * _nbytes(out))
+        if not _moves(group):
+            out = out.new_empty((n * out.shape[0],) + tuple(out.shape[1:]))
+            continue
         staged = _staged(out, "all_gather", group)
         src = _to_host(out) if staged else out
-        parts = [torch.empty_like(src)
-                 for _ in range(dist.get_world_size(group))]
+        parts = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=group)
         cat = torch.cat(parts)
         out = (_to_device(cat, torch.empty_like(cat, device=x.device))
@@ -232,6 +290,7 @@ def ppermutes(x: torch.Tensor, mesh, dims: Dims,
     such as a ring round's two shifts, travel together."""
     dims = _dims(dims)
     ranks = _group_ranks(mesh, dims)
+    key = _group(mesh, dims, ranks)
     me = axis_index(mesh, dims)
     x = x.contiguous()
     staged = _staged(x, "send", None)
@@ -243,7 +302,7 @@ def ppermutes(x: torch.Tensor, mesh, dims: Dims,
             if src == me and dst == me:
                 out.copy_(x)
             elif src == me:
-                _count("ppermute", x)
+                _count("ppermute", x, key)
                 if send is None:
                     send = _to_host(x) if staged else x
                 ops.append(dist.P2POp(dist.isend, send, ranks[dst],
@@ -255,7 +314,8 @@ def ppermutes(x: torch.Tensor, mesh, dims: Dims,
                 if staged:
                     landed.append((recv, out))
         outs.append(out)
-    if ops:
+    # on the fake backend each receiver keeps its zeros (`_moves`)
+    if ops and _moves(None):
         for work in dist.batch_isend_irecv(ops):
             work.wait()
     for recv, out in landed:

@@ -9,6 +9,10 @@ Unlike the reference op, nothing is padded to block multiples: the
 kernels handle the ragged query and key tails themselves.
 `flash_attention.launches` counts the launches of both kernels,
 `flash_attention.kernel_launches` those of each, by source name.
+
+A fake q (a dry run's trace) launches nothing: the op returns a fake
+output and records a fake launch of the kernel of q's dtype with its
+`work` (`kernels._fake`); the counts above do not move.
 """
 from __future__ import annotations
 
@@ -16,13 +20,15 @@ import ctypes
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .._build import load
+from .._fake import FakeTensor, fake_launch
 from .._guard import refuse_autograd
 from .ref import attention_ref
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "work"]
 
 _HEAD_SIZES = (64, 128, 256)  # the kernels are compiled for these D
 # the source of the one CUDA kernel of each dtype
@@ -42,6 +48,31 @@ def kernel_for(device_type: str, dtype) -> Optional[str]:
         raise ValueError("q, k and v must share one dtype, float32 or "
                          "bfloat16")
     return KERNELS[dtype]
+
+
+def work(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, D: int, *,
+         causal: bool = True, window: Optional[int] = None,
+         itemsize: int = 2) -> dict:
+    """What the function needs: {"flops": two products of length D for
+    each (query, key) pair the masks keep, "bytes": q, k and v read once
+    and o written once}.  At (B, Hq, Hkv, S, D) = (4, 24, 8, 4096, 128)
+    causal: 4·B·Hq·D·S(S+1)/2 = 412.4 GFLOP."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window is not None else 0
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    return {"flops": 4 * D * B * Hq * pairs,
+            "bytes": itemsize * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)}
+
+
+def _fake(q, k, window, causal):
+    """The fake launch of a dry run (module docstring)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    fake_launch(kernel_for("cuda", q.dtype),
+                work(B, Hq, Hkv, Sq, Sk, D, causal=causal, window=window,
+                     itemsize=q.element_size()))
+    return torch.empty_like(q)
 
 
 def _lib(name: str):
@@ -95,6 +126,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``h // (Hq / Hkv)``.  f32 sums (bf16 products for bf16 inputs);
     returns (B, Hq, Sq, D) in q's dtype.
     """
+    if isinstance(q, FakeTensor):
+        return _fake(q, k, window, causal)
     if q.device.type != "cpu":
         refuse_autograd("flash_attention", q, k, v)
     name = kernel_for(q.device.type, q.dtype)

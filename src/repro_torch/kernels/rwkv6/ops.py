@@ -2,7 +2,10 @@
 tensor to the hand-written kernel (``csrc/rwkv6.cu``), anything else
 raises.
 
-`rwkv6_wkv.launches` counts the kernel's launches.
+`rwkv6_wkv.launches` counts the kernel's launches.  A fake r (a dry
+run's trace) launches nothing: the op returns a fake output and records
+a fake launch with its `work` (`kernels._fake`); the count does not
+move.
 """
 from __future__ import annotations
 
@@ -11,13 +14,24 @@ import ctypes
 import torch
 
 from .._build import load
+from .._fake import FakeTensor, fake_launch
 from .._guard import refuse_autograd
 from .ref import rwkv6_ref
 
-__all__ = ["rwkv6_wkv"]
+__all__ = ["rwkv6_wkv", "work"]
 
 _HEAD_SIZES = (16, 32, 64)  # the kernel is compiled for these N
 _IN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def work(BH: int, T: int, N: int, *, in_bytes: int = 2,
+         w_bytes: int = 4) -> dict:
+    """What the function needs: {"flops": (5·N² + 5·N) a step and head
+    (Sᵀr; diag(w)S + kᵀv; the bonus v·Σ u k r), "bytes": r, k, v, w and u
+    read once and y written once}.  At (160, 4096, 64): 13.63 GFLOP."""
+    elems = BH * T * N
+    return {"flops": (5 * N * N + 5 * N) * T * BH,
+            "bytes": elems * (4 * in_bytes + w_bytes) + BH * N * in_bytes}
 
 
 def _lib():
@@ -61,6 +75,11 @@ def rwkv6_wkv(r, k, v, w, u):
     in ``r.dtype``.  One pass over T: the reference op's time chunks
     carry the state exactly, so they change nothing here.
     """
+    if isinstance(r, FakeTensor):
+        BH, T, N = r.shape
+        fake_launch("rwkv6", work(BH, T, N, in_bytes=r.element_size(),
+                                  w_bytes=w.element_size()))
+        return torch.empty_like(r)
     if r.device.type == "cpu":
         if any(a.device.type != "cpu" for a in (k, v, w, u)):
             raise ValueError("r, k, v, w and u must lie on one device")

@@ -111,10 +111,11 @@ class Cell:
 
 def build_cell(cfg: ModelConfig, shape_name: str, mesh,
                model_axis: int = 16, device="cuda") -> Cell:
-    """The cell of `cfg` at `SHAPES[shape_name]` on `mesh` (module
-    docstring); its step runs on `device` (the card unless "cpu" is
-    asked for)."""
-    S, B, mode = SHAPES[shape_name]
+    """The cell of `cfg` at `SHAPES[shape_name]` (or at `shape_name`
+    itself, an (S, B, mode) tuple) on `mesh` (module docstring); its
+    step runs on `device` (the card unless "cpu" is asked for)."""
+    S, B, mode = (SHAPES[shape_name] if isinstance(shape_name, str)
+                  else tuple(shape_name))
     dp = batch_axes(mesh)
     model = Transformer(cfg, model_axis=model_axis)
     params_abs = model.abstract()

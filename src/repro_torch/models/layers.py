@@ -172,9 +172,10 @@ def mrope(x, positions, theta, sections):
     half = x.shape[-1] // 2
     assert sum(sections) == half, (sections, half)
     freq = _rope_freq(half, theta, x.device)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))            # (half,)
+    # each frequency's section, from the host's sizes (no size here
+    # depends on a tensor's values)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)  # (half,)
     pos = positions.float()                                     # (B, S, 3)
     ang = pos[..., sec_id] * freq                               # (B, S, half)
     return _rotate(x, torch.cos(ang)[:, None], torch.sin(ang)[:, None])

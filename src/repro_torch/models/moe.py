@@ -35,7 +35,11 @@ unsharded function on them, drops included:
   input's are summed over "model" (`Layout.shared`, `copy_to_model`);
 * each rank's expert buffer holds the kept tokens of its rows only,
   padded to the largest such count of any expert on any rank (a pmax),
-  never the global (E, C) buffer;
+  never the global (E, C) buffer.  On fake tensors (a dry run's trace,
+  `launch.dryrun`) no count is known, so the buffer takes the capacity
+  of the rank's chunks, the rows the reference's program allocates, and
+  the masked gathers run unmasked at the same shapes; the pmax is still
+  called, so the collectives are the real run's;
 * the FSDP ("data") split of the experts' width is gathered either as
   the weights, an expert at a time, or where that moves fewer bytes as
   the tokens: the buffers of the ranks along "data" are gathered, each
@@ -48,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dist import collectives as C
+from ..kernels._fake import FakeTensor, note
 from . import sharded
 from .config import ModelConfig
 from .layers import P_
@@ -190,12 +195,15 @@ def _moe_sharded(params, cfg: ModelConfig, x, token_chunk: int, lay):
              for c in range(o // tc, (o + T - 1) // tc + 1)]
     routed = [_route(router, cfg, zt[a:b]) for _, a, b in parts]
     prefix = torch.zeros((Tg // tc, E), dtype=torch.long, device=dev)
+    # a fake x is a dry run's trace (`launch.dryrun`): no size may
+    # depend on the data, so the buffer takes the capacity's rows
+    fake = isinstance(x, FakeTensor)
     if T % tc:
         # the chunks span ranks: each assignment's rank counts those of
         # the ranks before this one in its chunk
         counts = torch.zeros_like(prefix)
         for (c, _, _), (_, experts) in zip(parts, routed):
-            counts[c] = torch.bincount(experts.reshape(-1), minlength=E)
+            counts[c] = _bincount(experts.reshape(-1), E, fake)
         every = C.all_gather(counts[None], lay.mesh, lay.dp)
         prefix = every[:r].sum(0)
 
@@ -216,10 +224,16 @@ def _moe_sharded(params, cfg: ModelConfig, x, token_chunk: int, lay):
         mine = keep & (sorted_e >= e0) & (sorted_e < e0 + El)
         e_loc = torch.where(mine, sorted_e - e0, 0)
         slot = filled[e_loc] + rank
-        filled = filled + torch.bincount(e_loc[mine], minlength=El)
-        src.append((a + order // K)[mine])
-        e_mine.append(e_loc[mine])
-        s_mine.append(slot[mine])
+        if fake:    # the same shapes' work, every assignment kept
+            filled = filled + _bincount(e_loc, El, fake)
+            src.append(a + order // K)
+            e_mine.append(e_loc)
+            s_mine.append(slot)
+        else:
+            filled = filled + torch.bincount(e_loc[mine], minlength=El)
+            src.append((a + order // K)[mine])
+            e_mine.append(e_loc[mine])
+            s_mine.append(slot[mine])
         inv = torch.argsort(order)
         for key, v in (("gate", gates), ("e", e_loc[inv]),
                        ("slot", slot[inv]), ("keep", keep[inv]),
@@ -227,9 +241,16 @@ def _moe_sharded(params, cfg: ModelConfig, x, token_chunk: int, lay):
             cols[key].append(v.reshape(Tp, K))
     cols = {k: torch.cat(v) for k, v in cols.items()}
 
-    # one row count for every rank, so every rank builds the same graph
-    n = int(C.pmax(filled.max()[None], lay.mesh,
-                   lay.dp + (("model",) if "model" in lay.sizes else ())))
+    # one row count for every rank, so every rank builds the same graph;
+    # a trace bounds it by the capacity of the rank's chunks, the rows
+    # the reference's program allocates
+    n = C.pmax(filled.max()[None], lay.mesh,
+               lay.dp + (("model",) if "model" in lay.sizes else ()))
+    if fake:
+        n = cap * len(parts)
+        note("moe_rows", "capacity")
+    else:
+        n = int(n)
     idx = torch.full((El, n + 1), T, dtype=torch.long, device=dev)
     idx[torch.cat(e_mine), torch.cat(s_mine)] = torch.cat(src)
     h = torch.cat([zt, zt.new_zeros((1, D))])[idx[:, :n]]       # (El, n, D)
@@ -245,6 +266,14 @@ def _moe_sharded(params, cfg: ModelConfig, x, token_chunk: int, lay):
     if split:
         y = lay.reduce(y)
     return y.reshape(B, S, D)
+
+
+def _bincount(v, n: int, fake: bool):
+    """`torch.bincount(v, minlength=n)` of values below n; on a fake v
+    the n counts' tensor alone, since a trace reads no count."""
+    if fake:
+        return v.new_zeros((n,))
+    return torch.bincount(v, minlength=n)
 
 
 def _experts(params, descr: dict, h, lay):

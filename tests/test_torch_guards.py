@@ -425,3 +425,57 @@ def test_whisper_entry_points_raise_without_cuda(no_cuda):
     out = Generator(cfg, model, device="cpu").generate(tokens, 2,
                                                         frames=frames)
     assert out.shape[0] == 1
+
+
+EXAMPLES = ("quickstart", "serve_fleet", "decentralized_consensus",
+            "robust_training", "serve_decode", "train_lm")
+ROOT = SRC.parent
+
+
+def test_dryrun_and_examples_import_neither_jax_nor_reference():
+    code = (
+        "import importlib.util, sys\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.trace_analysis\n"
+        f"for name in {EXAMPLES!r}:\n"
+        f"    path = {str(ROOT / 'examples')!r} + f'/torch_{{name}}.py'\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_examples_and_chip_smoke_name_no_reference_import():
+    paths = [ROOT / "examples" / f"torch_{n}.py" for n in EXAMPLES]
+    for path in [*paths, ROOT / "chip_smoke.py"]:
+        text = path.read_text()
+        for bad in ("import jax", "from jax", "import repro\n", "from repro.",
+                    "from repro import", "import repro."):
+            assert bad not in text, (path, bad)
+
+
+@pytest.mark.parametrize(("name", "argv"), [
+    ("quickstart", ["--n", "50"]),
+    ("serve_fleet", ["--replicas", "2", "--ticks", "4"]),
+    ("decentralized_consensus", ["--steps", "1"]),
+    ("robust_training", ["--steps", "1"]),
+    ("serve_decode", ["--steps", "1"]),
+    ("train_lm", ["--steps", "1"]),
+])
+def test_examples_run_on_the_card_by_default(no_cuda, name, argv, tmp_path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if name == "train_lm":
+        argv = [*argv, "--ckpt-dir", str(tmp_path)]
+    args = mod.parse(argv)
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.run(args)
