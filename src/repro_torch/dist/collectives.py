@@ -170,6 +170,12 @@ def _key(mesh, d, group) -> tuple:
     return _group(mesh, (d,), dist.get_process_group_ranks(group))
 
 
+# torch's name for a gather into one tensor (older releases have only
+# the second)
+_gather_into = (getattr(dist, "all_gather_single", None)
+                or dist.all_gather_into_tensor)
+
+
 def _moves(group) -> bool:
     """Whether a collective over `group` moves data: the fake backend (a
     traced dry run, `launch.dryrun`) moves nothing, so there a call is
@@ -262,16 +268,18 @@ def all_gather(x: torch.Tensor, mesh, dims: Dims,
         group = mesh.get_group(_index(mesh, d))
         n = dist.get_world_size(group)
         _count("all_gather", out, _key(mesh, d, group), n * _nbytes(out))
-        if not _moves(group):
-            out = out.new_empty((n * out.shape[0],) + tuple(out.shape[1:]))
-            continue
-        staged = _staged(out, "all_gather", group)
-        src = _to_host(out) if staged else out
-        parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=group)
-        cat = torch.cat(parts)
-        out = (_to_device(cat, torch.empty_like(cat, device=x.device))
-               if staged else cat)
+        # the result is the one buffer the device holds: on every backend
+        # the parts land in it (through the host where staged), and on
+        # the fake one it is allocated alone
+        res = out.new_empty((n * out.shape[0],) + tuple(out.shape[1:]))
+        if _moves(group):
+            staged = _staged(out, "all_gather", group)
+            src = _to_host(out) if staged else out
+            buf = torch.empty_like(res, device="cpu") if staged else res
+            _gather_into(buf, src, group=group)
+            if staged:
+                _to_device(buf, res)
+        out = res
     return out
 
 

@@ -7,21 +7,15 @@ launches nothing: it returns a fake tensor of its output's shape and
 dtype and adds one launch, with the operations and bytes the kernel's
 function needs (its `work`), to this module's record.  A real tensor
 never takes that branch.
-
-Where a size depends on the data, which a fake tensor does not hold, the
-model sizes it from a static bound under fake inputs and says so here
-(`note`); the dry run's record carries the notes.
 """
 from __future__ import annotations
 
 from torch._subclasses.fake_tensor import FakeTensor
 
-__all__ = ["FakeTensor", "fake_launch", "fake_launches", "note", "notes",
-           "reset"]
+__all__ = ["FakeTensor", "fake_launch", "fake_launches", "reset"]
 
 # kernel name -> [launches, operations, bytes]
 _RECORD: dict[str, list] = {}
-_NOTES: dict[str, str] = {}
 
 
 def fake_launch(name: str, work: dict) -> None:
@@ -39,17 +33,6 @@ def fake_launches() -> dict:
             for k, (n, f, b) in sorted(_RECORD.items())}
 
 
-def note(key: str, value: str) -> None:
-    """Say that a fake trace sized `key` by `value` (module docstring)."""
-    _NOTES[key] = value
-
-
-def notes() -> dict:
-    """The notes since the last reset."""
-    return dict(_NOTES)
-
-
 def reset() -> None:
-    """Set the record to zero and drop the notes."""
+    """Set the record to zero."""
     _RECORD.clear()
-    _NOTES.clear()

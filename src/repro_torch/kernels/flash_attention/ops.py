@@ -10,7 +10,8 @@ kernels handle the ragged query and key tails themselves.
 `flash_attention.launches` counts the launches of both kernels,
 `flash_attention.kernel_launches` those of each, by source name.
 
-A fake q (a dry run's trace) launches nothing: the op returns a fake
+A fake q (a dry run's trace) launches nothing: after the checks the
+CUDA route makes, but for the data's alignment, the op returns a fake
 output and records a fake launch of the kernel of q's dtype with its
 `work` (`kernels._fake`); the counts above do not move.
 """
@@ -65,8 +66,11 @@ def work(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, D: int, *,
             "bytes": itemsize * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)}
 
 
-def _fake(q, k, window, causal):
-    """The fake launch of a dry run (module docstring)."""
+def _fake(q, k, v, window, causal, softcap):
+    """The fake launch of a dry run (module docstring), after the checks
+    the real launch makes, those of the data's addresses aside."""
+    refuse_autograd("flash_attention", q, k, v)
+    _check_args(q, k, v, window, softcap)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     fake_launch(kernel_for("cuda", q.dtype),
@@ -85,6 +89,15 @@ def _lib(name: str):
 
 
 def _check_cuda(q, k, v, window, softcap):
+    _check_args(q, k, v, window, softcap)
+    # what TMA needs: 16-byte aligned base addresses
+    if any(a.data_ptr() % 16 for a in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary")
+
+
+def _check_args(q, k, v, window, softcap):
+    """The kernels' checks that read no data (a fake tensor passes them
+    as the real one would)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be (B, H, S, D)")
     B, Hq, _, D = q.shape
@@ -103,9 +116,7 @@ def _check_cuda(q, k, v, window, softcap):
         raise ValueError("q, k and v must lie on one device")
     if not all(a.is_contiguous() for a in (q, k, v)):
         raise ValueError("q, k and v must be contiguous")
-    # what TMA needs: 16-byte aligned base addresses and row strides
-    if any(a.data_ptr() % 16 for a in (q, k, v)):
-        raise ValueError("q, k and v must start on a 16-byte boundary")
+    # what TMA needs: 16-byte aligned row strides
     if any(a.stride(2) * a.element_size() % 16 for a in (q, k, v)):
         raise ValueError("the rows of q, k and v must be 16-byte aligned")
     if B > 65535 or Hq > 65535:
@@ -127,7 +138,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     returns (B, Hq, Sq, D) in q's dtype.
     """
     if isinstance(q, FakeTensor):
-        return _fake(q, k, window, causal)
+        return _fake(q, k, v, window, causal, softcap)
     if q.device.type != "cpu":
         refuse_autograd("flash_attention", q, k, v)
     name = kernel_for(q.device.type, q.dtype)

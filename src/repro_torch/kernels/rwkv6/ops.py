@@ -3,7 +3,8 @@ tensor to the hand-written kernel (``csrc/rwkv6.cu``), anything else
 raises.
 
 `rwkv6_wkv.launches` counts the kernel's launches.  A fake r (a dry
-run's trace) launches nothing: the op returns a fake output and records
+run's trace) launches nothing: after the checks the CUDA route makes,
+but for the data's alignment, the op returns a fake output and records
 a fake launch with its `work` (`kernels._fake`); the count does not
 move.
 """
@@ -44,6 +45,14 @@ def _lib():
 
 
 def _check_cuda(r, k, v, w, u):
+    _check_args(r, k, v, w, u)
+    if any(a.data_ptr() % 16 for a in (r, k, v, w, u)):
+        raise ValueError("r, k, v, w and u must start 16-byte aligned")
+
+
+def _check_args(r, k, v, w, u):
+    """The kernel's checks that read no data (a fake tensor passes them
+    as the real one would)."""
     if r.dim() != 3:
         raise ValueError(f"r must be (BH, T, N), got {tuple(r.shape)}")
     BH, T, N = r.shape
@@ -63,8 +72,6 @@ def _check_cuda(r, k, v, w, u):
         raise ValueError("r, k, v, w and u must be contiguous")
     if N not in _HEAD_SIZES:
         raise ValueError(f"head size {N} is not one of {_HEAD_SIZES}")
-    if any(a.data_ptr() % 16 for a in (r, k, v, w, u)):
-        raise ValueError("r, k, v, w and u must start 16-byte aligned")
 
 
 def rwkv6_wkv(r, k, v, w, u):
@@ -76,6 +83,8 @@ def rwkv6_wkv(r, k, v, w, u):
     carry the state exactly, so they change nothing here.
     """
     if isinstance(r, FakeTensor):
+        refuse_autograd("rwkv6", r, k, v, w, u)
+        _check_args(r, k, v, w, u)
         BH, T, N = r.shape
         fake_launch("rwkv6", work(BH, T, N, in_bytes=r.element_size(),
                                   w_bytes=w.element_size()))

@@ -48,7 +48,7 @@ import torch
 
 from ..configs.registry import ARCH_IDS, SHAPES, cell_is_runnable, get_config
 from .mesh import mesh_shape
-from .trace_analysis import collective_stats, device_pod_map
+from .trace_analysis import DTYPE_BYTES, collective_stats, device_pod_map
 
 __all__ = ["HW", "DEVICE_BYTES", "active_params", "argument_bytes",
            "close", "local_shape", "main", "model_flops", "roofline_terms",
@@ -124,17 +124,16 @@ def _pool():
 
 
 def trace_cell(cfg, shape_name, mesh_shape, rank: int = 0,
-               device: str = "cuda", *, with_bytes: bool = True,
-               model_axis: int = 16) -> dict:
+               device: str = "cuda", *, with_bytes: bool = True) -> dict:
     """Trace rank `rank`'s step of `cfg` at `shape_name` (a `SHAPES`
     name or an (S, B, mode) tuple) on a mesh of `mesh_shape` ({dim name:
     size}), in a process of its own over a fake process group of the
-    mesh's world size (module docstring).  `model_axis` is
-    `build_cell`'s; `with_bytes` runs the byte-counting mode.
+    mesh's world size (module docstring).  `with_bytes` runs the
+    byte-counting mode.
 
     Returns {"flops", "bytes" (None without `with_bytes`), "account"
     (`dist.collectives.account()`), "kernels" (the fake launches),
-    "notes", "memory": {"argument_bytes", "output_bytes", "temp_bytes",
+    "memory": {"argument_bytes", "output_bytes", "temp_bytes",
     "peak_bytes"}, "mode", "num_params", "seconds"}; flops and bytes are
     this device's, the fake launches' work included."""
     from concurrent.futures.process import BrokenProcessPool
@@ -142,7 +141,7 @@ def trace_cell(cfg, shape_name, mesh_shape, rank: int = 0,
     sizes = {str(k): int(v) for k, v in dict(mesh_shape).items()}
     try:
         return _pool().submit(_traced, cfg, shape_name, sizes, rank, device,
-                              with_bytes, model_axis).result()
+                              with_bytes).result()
     except BrokenProcessPool:
         close()     # a new process for the next trace
         raise
@@ -219,7 +218,7 @@ def _tensors(tree) -> list:
 
 
 def _nbytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(t.numel() * DTYPE_BYTES[t.dtype] for t in tensors)
 
 
 def _byte_mode():
@@ -235,7 +234,8 @@ def _byte_mode():
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             if func.namespace == "aten" and not func.is_view:
-                self.total += _nbytes(_tensors((args, kwargs, out)))
+                self.total += sum(t.numel() * t.element_size() for t in
+                                  _tensors((args, kwargs, out)))
             return out
 
     return Bytes()
@@ -252,7 +252,7 @@ def _traced(*args):
 
 
 def _trace(cfg, shape_name, sizes: dict, rank: int, device: str,
-           with_bytes: bool, model_axis) -> dict:
+           with_bytes: bool) -> dict:
     """`trace_cell` in the trace process."""
     import contextlib
 
@@ -271,8 +271,7 @@ def _trace(cfg, shape_name, sizes: dict, rank: int, device: str,
         world *= s
     _fake_group(world, rank)
     mesh = _mesh(sizes, device)
-    cell = build_cell(cfg, shape_name, mesh, device=device,
-                      model_axis=model_axis)
+    cell = build_cell(cfg, shape_name, mesh, device=device)
     C.reset_account()
     _fake.reset()
     flops = FlopCounterMode(display=False)
@@ -302,7 +301,6 @@ def _trace(cfg, shape_name, sizes: dict, rank: int, device: str,
                   if with_bytes else None),
         "account": C.account(),
         "kernels": kernels,
-        "notes": _fake.notes(),
         "memory": {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
                    "temp_bytes": temp, "peak_bytes": arg_bytes + temp},
         "mode": cell.mode,
@@ -388,8 +386,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             memory=mem,
             kernels=tr["kernels"],
             collectives=coll.asdict(),
-            **tr["notes"],
         )
+        if cfg.num_experts:
+            # the sharded MoE's expert buffers, whose rows depend on the
+            # routing, are traced at the capacity (`models.moe`)
+            rec["moe_rows"] = "capacity"
         if with_roofline:
             terms = roofline_terms({"flops": tr["flops"],
                                     "bytes": tr["bytes"],

@@ -52,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dist import collectives as C
-from ..kernels._fake import FakeTensor, note
+from ..kernels._fake import FakeTensor
 from . import sharded
 from .config import ModelConfig
 from .layers import P_
@@ -203,7 +203,7 @@ def _moe_sharded(params, cfg: ModelConfig, x, token_chunk: int, lay):
         # the ranks before this one in its chunk
         counts = torch.zeros_like(prefix)
         for (c, _, _), (_, experts) in zip(parts, routed):
-            counts[c] = _bincount(experts.reshape(-1), E, fake)
+            counts[c] = _bincount(experts.reshape(-1), E)
         every = C.all_gather(counts[None], lay.mesh, lay.dp)
         prefix = every[:r].sum(0)
 
@@ -224,16 +224,12 @@ def _moe_sharded(params, cfg: ModelConfig, x, token_chunk: int, lay):
         mine = keep & (sorted_e >= e0) & (sorted_e < e0 + El)
         e_loc = torch.where(mine, sorted_e - e0, 0)
         slot = filled[e_loc] + rank
-        if fake:    # the same shapes' work, every assignment kept
-            filled = filled + _bincount(e_loc, El, fake)
-            src.append(a + order // K)
-            e_mine.append(e_loc)
-            s_mine.append(slot)
-        else:
-            filled = filled + torch.bincount(e_loc[mine], minlength=El)
-            src.append((a + order // K)[mine])
-            e_mine.append(e_loc[mine])
-            s_mine.append(slot[mine])
+        filled = filled + _bincount(e_loc, El, mine)
+        # a trace takes the same shapes' work, every assignment kept
+        sel = slice(None) if fake else mine
+        src.append((a + order // K)[sel])
+        e_mine.append(e_loc[sel])
+        s_mine.append(slot[sel])
         inv = torch.argsort(order)
         for key, v in (("gate", gates), ("e", e_loc[inv]),
                        ("slot", slot[inv]), ("keep", keep[inv]),
@@ -246,11 +242,7 @@ def _moe_sharded(params, cfg: ModelConfig, x, token_chunk: int, lay):
     # the reference's program allocates
     n = C.pmax(filled.max()[None], lay.mesh,
                lay.dp + (("model",) if "model" in lay.sizes else ()))
-    if fake:
-        n = cap * len(parts)
-        note("moe_rows", "capacity")
-    else:
-        n = int(n)
+    n = cap * len(parts) if fake else int(n)
     idx = torch.full((El, n + 1), T, dtype=torch.long, device=dev)
     idx[torch.cat(e_mine), torch.cat(s_mine)] = torch.cat(src)
     h = torch.cat([zt, zt.new_zeros((1, D))])[idx[:, :n]]       # (El, n, D)
@@ -268,12 +260,11 @@ def _moe_sharded(params, cfg: ModelConfig, x, token_chunk: int, lay):
     return y.reshape(B, S, D)
 
 
-def _bincount(v, n: int, fake: bool):
-    """`torch.bincount(v, minlength=n)` of values below n; on a fake v
-    the n counts' tensor alone, since a trace reads no count."""
-    if fake:
-        return v.new_zeros((n,))
-    return torch.bincount(v, minlength=n)
+def _bincount(v, n: int, where=None):
+    """`torch.bincount(v[where], minlength=n)` of values below n, at
+    shapes that do not depend on the data (a fake v's trace runs it)."""
+    ones = torch.ones_like(v) if where is None else where.to(v.dtype)
+    return v.new_zeros((n,)).scatter_add_(0, v, ones)
 
 
 def _experts(params, descr: dict, h, lay):

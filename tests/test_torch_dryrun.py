@@ -22,11 +22,14 @@ CPU.
   and the traced flops equal `FlopCounterMode`'s count of rank 0's real
   run.  The full-depth trace's flops, bytes and collectives equal
   `secant_totals` over its 1- and 2-layer variants.  A sharded MoE cell
-  traces with its buffer at the capacity (``moe_rows == "capacity"``).
+  traces with its buffer at the capacity, and `run_cell` records
+  ``moe_rows == "capacity"`` for a MoE config.
 * The flash and wkv ops' fake branch: output shapes and dtypes, one
   fake launch each with the `work` counts of `PERF.md`'s bound column
   (412.4 GFLOP at llama3.2-3b's prefill shape, 13.63 GFLOP at
-  rwkv6-3b's); a real CPU tensor never takes it.
+  rwkv6-3b's); a fake input that the real launch's checks refuse (head
+  size, gradient, dtype) raises there too; a real CPU tensor never
+  takes it.
 """
 import dataclasses
 import math
@@ -306,7 +309,7 @@ def test_trace_matches_real_ranks(traced):
     assert "host_copy" not in r0["account"]
     assert got["account"] == r0["account"]
     assert got["flops"] == r0["flops"] > 0
-    assert got["kernels"] == {} and got["notes"] == {}
+    assert got["kernels"] == {}
     mem = got["memory"]
     assert mem["argument_bytes"] > 0 and mem["temp_bytes"] > 0
     assert mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
@@ -332,12 +335,22 @@ def test_trace_is_linear_in_depth(traced):
     assert full["collectives"].count > cost(out[1])["collectives"].count
 
 
-def test_moe_traces_at_capacity(traced):
+def test_moe_traces_at_capacity(traced, monkeypatch, tmp_path):
+    """The sharded MoE traces on fake tensors (its buffer at the
+    capacity: a row count read off the data would raise there), and
+    `run_cell`'s record of a MoE config says so; a dense one's does
+    not."""
     _, out = traced
     moe = out["moe"]
-    assert moe["notes"] == {"moe_rows": "capacity"}
     assert moe["account"]["pmax"]["calls"] >= 1
     assert moe["memory"]["temp_bytes"] > 0
+    for arch, tr in (("llama4-maverick-400b-a17b", moe),
+                     ("llama3.2-3b", out["prefill"])):
+        monkeypatch.setattr(D, "trace_cell", lambda *a, tr=tr, **k: tr)
+        rec = D.run_cell(arch, "prefill_32k", False, out_dir=str(tmp_path))
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert rec.get("moe_rows") == ("capacity" if arch.startswith(
+            "llama4") else None)
 
 
 def test_train_trace_counts_the_backward(traced):
@@ -392,6 +405,49 @@ def test_fake_branch_of_the_kernel_ops():
     assert (FO.flash_attention.launches, WO.rwkv6_wkv.launches) == before
     _fake.reset()
     assert _fake.fake_launches() == {}
+
+
+def _fake_case(case):
+    """The kernel op of `case` on fake CUDA tensors that break one of the
+    real launch's checks (flash: (4, 8, 256, D) q over 2 KV heads; wkv:
+    (8, 256, N) streams)."""
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.rwkv6 import ops as WO
+
+    op, fault = case
+    D = N = 96 if fault == "head size" else 64
+    grad = fault == "gradient"
+    kv_dtype = torch.float32 if fault == "dtype" else torch.bfloat16
+
+    def t(shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="cuda",
+                           requires_grad=grad)
+
+    if op == "flash":
+        FO.flash_attention(t((4, 8, 256, D)), t((4, 2, 256, D), kv_dtype),
+                           t((4, 2, 256, D), kv_dtype))
+    else:
+        r = t((8, 256, N))
+        WO.rwkv6_wkv(r, t((8, 256, N), kv_dtype), t((8, 256, N)),
+                     t((8, 256, N), torch.float32), t((8, N)))
+
+
+@pytest.mark.parametrize("case", [
+    (op, fault) for op in ("flash", "wkv")
+    for fault in ("head size", "gradient", "dtype")])
+def test_fake_branch_makes_the_real_checks(case):
+    """A fake input that the real launch would refuse raises as the
+    real one does, and records no fake launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    _fake.reset()
+    with FakeTensorMode():
+        with pytest.raises((ValueError, RuntimeError),
+                           match="head size|forward only|dtype"):
+            _fake_case(case)
+        _fake_case((case[0], None))         # the same call, faultless
+    assert sum(k["launches"] for k in _fake.fake_launches().values()) == 1
+    _fake.reset()
 
 
 def test_work_counts_the_masks():
