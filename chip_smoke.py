@@ -99,9 +99,13 @@ parent runs and frees first.  None of them times a collective.  Then
 D1, the dry run (`repro_torch.launch.dryrun`, host-only, its traces in a
 process of its own): S1's cell traced on a fake process group of 4,
 held against S1's rank 0 (the flash launches a rank and the collective
-account equal, the predicted peak within 25% of the measured one), and
+account equal, the predicted peak within 25% of the measured one);
 `run_cell` at full size on the 16 x 16 mesh for llama3.2-3b's
-prefill_32k and train_4k, each ending "ok".  Last, E1: the six example
+prefill_32k and train_4k, each ending "ok", train_4k predicting at most
+9.0 GiB a device (the hidden state between blocks split over "model",
+so remat keeps 1/16 of each block's input); and S2's cell (the f32
+sharded train step) traced on a fake group of 4, held against S2's rank
+0 as S1's is.  Last, E1: the six example
 scripts (`examples/torch_*.py`) in-process on the card at tools/ci.sh's
 smoke sizes, each with its own checks, train_lm resuming from its saved
 step, every figure finite.  Any failed check raises,
@@ -466,11 +470,14 @@ QWEN_LAYOUT = dict(text=256, grid=32)
 # 256 to 1: every layer trains through chunked_attention
 TRAIN_LONG = dict(seq=4096, batch=1)
 # D1: the dry run (`repro_torch.launch.dryrun`), host-only, in a process
-# of its own: S1's cell traced on a fake group of S1's world size and
+# of its own: (a) S1's cell traced on a fake group of S1's world size and
 # held against S1's rank 0 (its predicted peak within `peak_tol` of the
-# measured one), then `run_cell` at full size on the 16 x 16 mesh
+# measured one), (b) `run_cell` at full size on the 16 x 16 mesh, each
+# cell of `max_gib` predicting at most that many GiB a device, (c) S2's
+# cell (the f32 sharded train step) held against S2's rank 0 as (a)
+# holds S1's
 DRYRUN = dict(peak_tol=0.25, arch="llama3.2-3b",
-              cells=("prefill_32k", "train_4k"))
+              cells=("prefill_32k", "train_4k"), max_gib={"train_4k": 9.0})
 # E1: the six example scripts on the card, in-process through their
 # `main`, at tools/ci.sh's smoke sizes; train_lm runs twice into one
 # checkpoint directory, the second auto-resuming at the first's last
@@ -3758,7 +3765,12 @@ class Smoke:
                   f"differs: {out['S3']}")
         row["S2"] = dict(loss=[o["S2"]["loss"] for o in ranks],
                          want_loss=want_loss, worst_rel=worst,
-                         seconds=[o["S2"]["seconds"] for o in ranks])
+                         seconds=[o["S2"]["seconds"] for o in ranks],
+                         peak_bytes=[o["S2"]["peak_bytes"] for o in ranks],
+                         held_bytes=[o["S2"]["held_bytes"] for o in ranks])
+        # what D1(c)'s dry run of S2's cell is held against
+        self.s2_rank0 = {k: ranks[0]["S2"][k] for k in (
+            "account", "flash", "peak_bytes", "held_bytes")}
         row["S3"] = {k: [o["S3"][k] for o in ranks] for k in (
             "seconds", "save_s", "restore_s", "check_s")}
         row["S3"]["leaves"] = ranks[0]["S3"]["leaves"]
@@ -3767,7 +3779,10 @@ class Smoke:
             f"{want_loss!r}; of each leaf's largest element, the first "
             f"moments within {worst['m']:.3g}, the parameters within "
             f"{worst['params']:.3g}, the zero-initialised norm scales "
-            f"within {worst['zero_init']:.3g}; no kernel launch")
+            f"within {worst['zero_init']:.3g}; no kernel launch; rank 0's "
+            f"peak {row['S2']['peak_bytes'][0] / 2**30:.3f} GiB "
+            f"(max_memory_allocated), "
+            f"{row['S2']['held_bytes'][0] / 2**30:.3f} GiB held before")
         log(f"[shard S3] state saved from {SHARD['mesh']} and restored on "
             f"{SHARD['restore_mesh']}: {row['S3']['leaves']} leaves bitwise; "
             f"save {max(row['S3']['save_s']):.1f} s, restore "
@@ -3791,6 +3806,11 @@ class Smoke:
             "S1", "S2", "S3", "S2A", *SHARD_KINDS, *SHARD_WIDE)}
         row["account_rank0"].update({f"{n} f32": ranks[0][n]["agree_account"]
                                      for n in (*SHARD_KINDS, *SHARD_WIDE)})
+        for name, acc in row["account_rank0"].items():
+            log(f"[shard {name}] rank 0's reduce-scatters / all-gathers "
+                f"(calls, bytes in, result bytes): "
+                f"{_calls(acc, 'reduce_scatter')} / "
+                f"{_calls(acc, 'all_gather')}")
         row["total_s"] = time.perf_counter() - t_all
         log(f"[shard] S1-S8 took {row['total_s']:.1f} s: the unsharded "
             f"steps {row['s2_reference_s']:.1f} + "
@@ -3803,46 +3823,21 @@ class Smoke:
     def dryrun(self) -> dict:
         """D1 (DRYRUN): (a) S1's cell traced by the dry run against what
         S1's rank 0 measured, (b) full-size cells on the 16 x 16 mesh,
-        (c) the dry run's device memory against the card's.  Every trace
-        runs in the dry run's own process."""
+        (c) S2's cell against S2's rank 0, (d) the dry run's device
+        memory against the card's.  Every trace runs in the dry run's own
+        process."""
         torch = self.torch
         from repro_torch.configs import get_config
         from repro_torch.launch import dryrun as D
 
         row = {}
         t_all = time.perf_counter()
-        s1 = self.s1_rank0
+        sizes = dict(zip(("data", "model"), SHARD["mesh"]))
         cfg = dataclasses.replace(get_config("llama3.2-3b"),
                                   num_layers=SHARD["prefill_layers"])
         B, S = PREFILL
-        sizes = dict(zip(("data", "model"), SHARD["mesh"]))
-        t0 = time.perf_counter()
-        tr = D.trace_cell(cfg, (S, B, "prefill"), sizes, device="cuda")
-        row["s1_trace_s"] = time.perf_counter() - t0
-        launches = {k: v["launches"] for k, v in tr["kernels"].items()}
-        measured = {k: n for k, n in s1["flash"].items() if n}
-        check(launches == measured,
-              f"D1(a): the dry run predicts {launches} launches a rank, S1's "
-              f"rank 0 made {measured}")
-        want = {k: v for k, v in s1["account"].items() if k != "host_copy"}
-        check(tr["account"] == want,
-              f"D1(a): the traced account {tr['account']} differs from S1's "
-              f"rank 0's {want}")
-        peak, real = tr["memory"]["peak_bytes"], s1["peak_bytes"]
-        check(abs(peak / real - 1.0) <= DRYRUN["peak_tol"],
-              f"D1(a): predicted peak {peak} B against S1's measured {real} "
-              f"B, beyond {DRYRUN['peak_tol']:.0%}")
-        row["s1"] = dict(predicted_peak_bytes=peak, measured_peak_bytes=real,
-                         argument_bytes=tr["memory"]["argument_bytes"],
-                         held_bytes=s1["held_bytes"], launches=launches,
-                         account=tr["account"], flops=tr["flops"],
-                         bytes=tr["bytes"])
-        log(f"[dryrun D1] S1's cell traced in {row['s1_trace_s']:.1f} s: "
-            f"peak {peak / 2**30:.3f} GiB predicted, {real / 2**30:.3f} GiB "
-            f"measured in S1's rank 0 ({peak / real - 1:+.1%}); arguments "
-            f"{tr['memory']['argument_bytes'] / 2**30:.3f} GiB predicted, "
-            f"{s1['held_bytes'] / 2**30:.3f} GiB held; {launches} launches "
-            f"and the account equal S1's: {tr['account']}")
+        row["s1"] = self._hold_trace("D1(a)", "S1", self.s1_rank0, cfg,
+                                     (S, B, "prefill"), sizes)
         out_dir = str(ROOT / "chiprun_out" / "dryrun_torch")
         row["cells"] = {}
         for shape in DRYRUN["cells"]:
@@ -3856,7 +3851,8 @@ class Smoke:
                 peak_gib=mem["peak_bytes"] / 2**30, fits=mem["fits"],
                 dominant=r["dominant"], trace_seconds=rec["trace_seconds"],
                 compute_s=r["compute_s"], memory_s=r["memory_s"],
-                collective_s=r["collective_s"], kernels=rec["kernels"])
+                collective_s=r["collective_s"], kernels=rec["kernels"],
+                collectives_by_kind=r["collectives_by_kind"])
             log(f"[dryrun D1] {DRYRUN['arch']} x {shape} on pod16x16: "
                 f"{mem['peak_bytes'] / 2**30:.2f} GiB a device, fits "
                 f"{mem['fits']}, dominant {r['dominant']} (compute "
@@ -3865,10 +3861,20 @@ class Smoke:
                 f"{r['collective_s'] * 1e3:.2f} ms), traced in "
                 f"{rec['trace_seconds']:.1f} s; fake launches "
                 f"{ {k: v['launches'] for k, v in rec['kernels'].items()} }")
+            limit = DRYRUN["max_gib"].get(shape)
+            check(limit is None or mem["peak_bytes"] <= limit * 2**30,
+                  f"D1(b): {DRYRUN['arch']} x {shape} predicts "
+                  f"{mem['peak_bytes'] / 2**30:.2f} GiB a device, above "
+                  f"{limit} GiB")
+        cfg = dataclasses.replace(get_config("llama3.2-3b"), dtype="float32",
+                                  num_layers=SHARD["train_layers"])
+        B, S = SHARD["train"]
+        row["s2"] = self._hold_trace("D1(c)", "S2", self.s2_rank0, cfg,
+                                     (S, B, "train"), sizes)
         D.close()
         total = torch.cuda.get_device_properties(0).total_memory
         check(D.DEVICE_BYTES == total,
-              f"D1(c): the dry run's DEVICE_BYTES {D.DEVICE_BYTES} is not "
+              f"D1(d): the dry run's DEVICE_BYTES {D.DEVICE_BYTES} is not "
               f"the card's {total}")
         row["device_bytes"] = total
         row["total_s"] = time.perf_counter() - t_all
@@ -3876,6 +3882,46 @@ class Smoke:
             f"{row['total_s']:.1f} s")
         self.report["dryrun"] = row
         return row
+
+    def _hold_trace(self, label: str, phase: str, real: dict, cfg, shape,
+                    sizes: dict) -> dict:
+        """The dry run's trace of a sharded phase's cell (`cfg` at
+        `shape`, an (S, B, mode) tuple, on a fake group of `sizes`)
+        against what the phase's rank 0 measured (`real`): the fake
+        launches a rank, the account without host copies call for call
+        and byte for byte, the predicted peak within DRYRUN["peak_tol"]
+        of `max_memory_allocated`."""
+        from repro_torch.launch import dryrun as D
+
+        t0 = time.perf_counter()
+        tr = D.trace_cell(cfg, shape, sizes, device="cuda")
+        seconds = time.perf_counter() - t0
+        launches = {k: v["launches"] for k, v in tr["kernels"].items()}
+        measured = {k: n for k, n in real["flash"].items() if n}
+        check(launches == measured,
+              f"{label}: the dry run predicts {launches} launches a rank, "
+              f"{phase}'s rank 0 made {measured}")
+        want = {k: v for k, v in real["account"].items() if k != "host_copy"}
+        check(tr["account"] == want,
+              f"{label}: the traced account {tr['account']} differs from "
+              f"{phase}'s rank 0's {want}")
+        peak, got = tr["memory"]["peak_bytes"], real["peak_bytes"]
+        check(abs(peak / got - 1.0) <= DRYRUN["peak_tol"],
+              f"{label}: predicted peak {peak} B against {phase}'s measured "
+              f"{got} B, beyond {DRYRUN['peak_tol']:.0%}")
+        log(f"[dryrun {label}] {phase}'s cell traced in {seconds:.1f} s: "
+            f"peak {peak / 2**30:.3f} GiB predicted, {got / 2**30:.3f} GiB "
+            f"measured in {phase}'s rank 0 ({peak / got - 1:+.1%}); "
+            f"arguments {tr['memory']['argument_bytes'] / 2**30:.3f} GiB "
+            f"predicted, {real['held_bytes'] / 2**30:.3f} GiB held; "
+            f"{launches} launches and the account equal {phase}'s: "
+            f"{tr['account']}")
+        return dict(trace_s=seconds, predicted_peak_bytes=peak,
+                    measured_peak_bytes=got,
+                    argument_bytes=tr["memory"]["argument_bytes"],
+                    held_bytes=real["held_bytes"], launches=launches,
+                    account=tr["account"], flops=tr["flops"],
+                    bytes=tr["bytes"])
 
     def examples(self) -> dict:
         """E1 (EXAMPLE_RUNS): the example scripts in-process on the card,
@@ -4042,6 +4088,13 @@ class Smoke:
             f"within {worst['decode']:.3g} (max abs); rank 0's cache blocks "
             f"{got[0]['cache_shapes']}")
         return got[0]["counts"]
+
+
+def _calls(account: dict, kind: str) -> tuple:
+    """(calls, bytes in, result bytes) of one kind of a collective
+    account (zeros where it made none)."""
+    e = account.get(kind, {})
+    return tuple(e.get(k, 0) for k in ("calls", "bytes", "result_bytes"))
 
 
 def _rank_threads(ranks: int) -> int:
@@ -4385,16 +4438,21 @@ def _shard_train(torch, smoke, mesh, tmp) -> dict:
     opt = adamw()
     state = init_train_state(local, opt)
     step = make_train_step(cfg, opt, _shard_lr(), device=dev, dp=dp)
+    rows = shard_batch(batch, mesh, dp)
     smoke.zero_counts()
     C.reset_account()
     torch.cuda.synchronize()
+    # the peak from here holds the rank's state, as the dry run's does
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     with set_mesh(mesh):
-        state, m = step(state, shard_batch(batch, mesh, dp))
+        state, m = step(state, rows)
     torch.cuda.synchronize()
     s2 = dict(seconds=time.perf_counter() - t0, loss=float(m["loss"]),
               counts=smoke.read_counts(), flash=dict(smoke.flash_kernels()),
-              account=C.account())
+              account=C.account(),
+              peak_bytes=torch.cuda.max_memory_allocated(), held_bytes=held)
     want = torch.load(Path(tmp) / "s2_state.pt", mmap=True)
     ps = param_specs(cfg, mesh)
     rel = {}
@@ -4947,7 +5005,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     shard = smoke.sharded_model()
     stamp("S1-S8")
-    # D1: the dry run of S1's cell and of two full-size cells
+    # D1: the dry run of S1's and S2's cells and of two full-size cells
     smoke.dryrun()
     stamp("D1")
     g6, plan6, x06, graph6, pl6 = smoke.setup(1_000_000)

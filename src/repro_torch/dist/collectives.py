@@ -18,10 +18,13 @@ axis names and the reference's replica order.
   bcast_from_zero         every rank adopts the value at index 0
   all_gather              the ranks' tensors concatenated (``tiled``)
                           or stacked along a new leading dim
+  reduce_scatter          the rank's block of the sum (a dim split
+                          evenly over the ranks, row-major)
 
 A reduction over several dims runs one dim at a time, finest last dim
-first; a gather likewise, so its result is in row-major order.  A dim
-of size 1 is skipped: its collective is the identity.  The
+first; a gather or a reduce-scatter likewise, so its blocks are in
+row-major order.  A dim of size 1 is skipped: its collective is the
+identity.  The
 process group is the caller's: collectives go to the groups the mesh
 was built over (gloo, NCCL), and nothing here picks a backend or
 catches a failed collective.  Point-to-point transfers address global
@@ -30,13 +33,16 @@ ranks in the default group.
 gloo moves CUDA tensors in some collectives only (`_GLOO_CUDA`); for
 the others this module copies the tensor to the host, runs the
 collective there and copies the result back.  The computation stays on
-the card.
+the card.  gloo has no reduce-scatter: there it is an all-reduce (on
+the card itself) and the rank's block, so its values are bitwise
+`psum`'s.
 
 The account: every call adds one to its kind's count and the bytes
 this rank puts in (a reduction's or a broadcast's tensor, a gather's
 input, a permutation's sent rows), and every host copy does the same
 under ``"host_copy"``.  Each entry also sums the bytes of the call's
-result (a gather's whole output; for the others, as many as go in),
+result (a gather's whole output, a reduce-scatter's block; for the
+others, as many as go in),
 which is what the reference's HLO count reads off an op's result shape,
 and splits the calls by the group they ran over: its mesh dims and its
 global ranks (``"groups"``), so a call across pods can be told from one
@@ -62,6 +68,7 @@ __all__ = [
     "ppermute",
     "ppermutes",
     "psum",
+    "reduce_scatter",
     "reset_account",
 ]
 
@@ -99,13 +106,13 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
-def _count(kind: str, x: torch.Tensor, group: tuple = ((), ()),
+def _count(kind: str, x, group: tuple = ((), ()),
            result: int = None) -> None:
-    """One call of `kind` putting in `x`, over `group` = (dims, global
-    ranks), with a result of `result` bytes (as many as `x` by
-    default)."""
+    """One call of `kind` putting in `x` (a tensor, or its bytes), over
+    `group` = (dims, global ranks), with a result of `result` bytes (as
+    many as `x` by default)."""
     entry = _ACCOUNT.setdefault(kind, {}).setdefault(group, [0, 0, 0])
-    nbytes = _nbytes(x)
+    nbytes = x if isinstance(x, int) else _nbytes(x)
     entry[0] += 1
     entry[1] += nbytes
     entry[2] += nbytes if result is None else result
@@ -281,6 +288,51 @@ def all_gather(x: torch.Tensor, mesh, dims: Dims,
                 _to_device(buf, res)
         out = res
     return out
+
+
+def reduce_scatter(x: torch.Tensor, mesh, dims: Dims,
+                   dim: int = 0) -> torch.Tensor:
+    """This rank's block along `dim` of the sum of `x` over the ranks
+    along `dims` (a new tensor): the dim split evenly into as many
+    blocks as ranks there, rank i taking block i of the row-major
+    order.  Each dim of more than one rank is one call, the finest
+    first (as `psum` sums), putting in what is left of `x` and giving
+    its block: NCCL's reduce-scatter; gloo's all-reduce (which runs on
+    CUDA tensors itself) and the block at the end; nothing moved on the
+    fake backend."""
+    dims, dim = _dims(dims), dim % x.dim()
+    n = axis_size(mesh, dims)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks of {dims}")
+    size = x.shape[dim] // n
+    live = [d for d in dims if mesh.size(_index(mesh, d)) > 1]
+    if not live:
+        return x.clone()
+    groups = [mesh.get_group(_index(mesh, d)) for d in live]
+    ks = [dist.get_world_size(g) for g in groups]
+    nbytes = _nbytes(x)
+    for d, group, k in reversed(list(zip(live, groups, ks))):
+        _count("reduce_scatter", nbytes, _key(mesh, d, group), nbytes // k)
+        nbytes //= k
+    # the fake backend allocates what gloo's route does: a copy of x
+    # and the block
+    if not _moves(groups[0]) or dist.get_backend(groups[0]) == "gloo":
+        out = x.clone()
+        for group in reversed(groups) if _moves(groups[0]) else ():
+            dist.all_reduce(out, group=group)
+        return out.narrow(dim, axis_index(mesh, dims) * size,
+                          size).contiguous()
+    # the dim as (n_1, ..., n_k, size) over the live dims; each call takes
+    # the finest remaining one's blocks off the front
+    y = x.movedim(dim, 0)
+    y = y.reshape(tuple(ks) + (size,) + tuple(y.shape[1:]))
+    for j in reversed(range(len(live))):
+        src = y.movedim(j, 0).contiguous()
+        res = src.new_empty(src.shape[1:])
+        dist.reduce_scatter_tensor(res, src, group=groups[j])
+        y = res
+    return y.movedim(0, dim).contiguous()
 
 
 def ppermute(x: torch.Tensor, mesh, dims: Dims,

@@ -33,6 +33,7 @@ import torch
 from .mesh import mesh_shape
 
 __all__ = [
+    "COLLECTIVES",
     "CollectiveStats",
     "collective_stats",
     "device_pod_map",
@@ -47,7 +48,11 @@ DTYPE_BYTES = {
     torch.complex128: 16, torch.float8_e4m3fn: 1, torch.float8_e5m2: 1,
 }
 
-# what the account counts that is not a collective
+# the account's kinds of collective (`dist.collectives`), the
+# reference's all-reduce (psum, pmax), all-gather, reduce-scatter,
+# broadcast and collective-permute; and what it counts that is not one
+COLLECTIVES = ("psum", "pmax", "all_gather", "reduce_scatter", "broadcast",
+               "ppermute")
 _NOT_COLLECTIVES = ("host_copy",)
 
 
@@ -133,11 +138,15 @@ def collective_stats(account: dict, pod_of) -> CollectiveStats:
     """`CollectiveStats` of a `dist.collectives.account()`: each call's
     result bytes, by kind, a call crossing pods where its group's ranks
     lie in more than one pod of `pod_of` (`device_pod_map`).  Host copies
-    are no collective and are left out."""
+    are no collective and are left out; a kind outside `COLLECTIVES`
+    raises."""
     stats = CollectiveStats()
     for kind, entry in account.items():
         if kind in _NOT_COLLECTIVES:
             continue
+        if kind not in COLLECTIVES:
+            raise ValueError(f"the account's kind {kind!r} is none of "
+                             f"{COLLECTIVES}")
         for g in entry["groups"]:
             cross = len({pod_of[r] for r in g["ranks"]}) > 1
             stats.add(kind, g["result_bytes"], cross, g["calls"])

@@ -36,7 +36,10 @@ or the `ParameterDict` of a `models.model.Transformer` block.
 Under a mesh (`launch.mesh.set_mesh`) and with `dp=`, `attention` and
 `decode_attention` run sharded (`models.sharded`): `params` hold this
 rank's blocks, gathered over the data-parallel dims at use, and the
-output projection's partial sums are added over "model".  Where "model"
+output projection's partial sums are added over "model": into the
+rank's block of D where the layout splits the hidden state
+(`Layout.leave`, `attention` on the `forward` / `loss_fn` route), else
+whole (decode).  Where "model"
 divides the KV heads, the rank computes its H/m query and Hkv/m KV
 heads (a config view with `head_dim` pinned to the model's head width,
 so the flash route launches the kernel on the rank's heads) and its
@@ -271,7 +274,9 @@ def attention(
 
     `dp` (the data-parallel dims, or a `sharded.Layout`) under a mesh:
     sharded (module docstring); x (and `memory`) are this rank's rows,
-    replicated over "model", and so is the output."""
+    replicated over "model"; the output is the hidden state's
+    (`Layout.leave`: the rank's block of D where the layout splits it,
+    else replicated)."""
     lay = sharded.layout(None, dp)
     route = dict(kind=kind, causal=causal, memory=memory,
                  memory_positions=memory_positions,
@@ -283,8 +288,8 @@ def attention(
     if not lay.heads_divide(cfg):
         return _attention_units(params, cfg, x, positions, lay, **route)
     w = lay.params(params, attn_params(cfg))
-    return lay.reduce(_attention(w, lay.local_cfg(cfg), lay.copy(x),
-                                 positions, **route))
+    return lay.leave(_attention(w, lay.local_cfg(cfg), lay.copy(x),
+                                positions, **route))
 
 
 def _index_positions(cfg: ModelConfig, x):
@@ -365,8 +370,8 @@ def _attention_units(params, cfg: ModelConfig, x, positions, lay, *, kind,
         # this rank takes part in their gathers' backward
         o = qu + (ku + vu).sum(2, keepdim=True)
     o = lay.gather(o[:, 0], 0, counts)                      # (B*H, S, dh)
-    return lay.reduce(lay.rows(_unheads(o.reshape(B, H, S, dh)),
-                               params["wo"], descr["wo"]))
+    return lay.leave(lay.rows(_unheads(o.reshape(B, H, S, dh)),
+                              params["wo"], descr["wo"]))
 
 
 def _attend(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, kind, causal, cross,

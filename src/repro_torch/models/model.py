@@ -19,14 +19,16 @@ Under a mesh (`launch.mesh.set_mesh`), `forward`, `loss_fn`,
 dims; the default is ("data",), as the reference's) run sharded as
 explicit SPMD (`models.sharded`): `params` are this rank's blocks
 (`sharded.shard_params` under `param_specs`), the batch is this rank's
-rows, the hidden state between blocks is (B/dp, S, D) replicated over
-"model", and the logits come back as this rank's vocabulary block
-(B/dp, S, V/m).  The reference's `_constrain` of the hidden state to
-P(dp, None, "model") is not ported: it is a memory layout of the same
-function.  Every block kind shards: attention ("attn", "local", for
-any head count), rwkv, RG-LRU, the mixtures of experts (`models.moe`)
-and the encoder-decoder, whose encoder runs on the rank's rows of
-frames and whose cross-attentions read that memory.  Without a mesh,
+rows, the hidden state between residual updates is the rank's block
+(B/dp, S, D/m) where "model" divides d_model (the reference's
+`_constrain` to P(dp, None, "model"); `sharded.Layout.for_hidden`),
+else (B/dp, S, D) replicated, and the logits come back as this rank's
+vocabulary block (B/dp, S, V/m).  Decode keeps the hidden state
+replicated, as the reference constrains nothing there.  Every block
+kind shards: attention ("attn", "local", for any head count), rwkv,
+RG-LRU, the mixtures of experts (`models.moe`) and the encoder-decoder,
+whose encoder runs on the rank's rows of frames and whose
+cross-attentions read that memory.  Without a mesh,
 or with `dp=None`, everything runs unsharded.
 
 Training (`loss_fn`) runs the same blocks with gradients on, each
@@ -100,11 +102,13 @@ def _norm_params(cfg: ModelConfig, kind: str) -> dict:
 
 
 def _apply_norm(p, cfg: ModelConfig, x, lay=None):
-    """The norm of `p`; under a layout its scale is gathered whole (the
-    hidden state is replicated over "model")."""
+    """The norm of `p` over the whole of x; under a layout its scale is
+    gathered whole, and so is x where the hidden state is split
+    (`Layout.enter`)."""
     if lay is not None:
         d = _norm_params(cfg, "rwkv" if "bias" in p else "attn")
         p = {k: lay.whole(p[k], d[k]) for k in d}
+        x = lay.enter(x)
     if "bias" in p:
         return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm(x, p["scale"], cfg.norm_eps)
@@ -246,7 +250,7 @@ def _block_forward(p, cfg: ModelConfig, kind: str, x, positions, *,
     attention's, self and cross (keys beyond it take the flash route or
     `chunked_attention`); `memory` (B, Se, D) feeds the block's
     cross-attention where it has one.  `lay`: the sharded layout, or
-    None."""
+    None: x is the hidden state of its `hidden_split`."""
     if kind == "rwkv":
         x = x + rwkv_time_mix(p["time"], cfg,
                               _apply_norm(p["ln1"], cfg, x, lay),
@@ -272,9 +276,11 @@ def _attn_block_rest(p, cfg: ModelConfig, x, h, memory=None, positions=None,
     where the block has a cross-attention and `memory` is given, that
     attention's residual (queries at `positions`, `attention`'s keywords
     `cross`); then the feed-forward's (the MLP, or the MoE), each with
-    its post-norm where the config has them."""
+    its post-norm where the config has them.  Under a layout each
+    branch output is the hidden state's (`Layout.leave`); a post-norm
+    normalises it whole and splits it back (`Layout.part`)."""
     if cfg.post_norms:
-        h = _apply_norm(p["post1"], cfg, h, lay)
+        h = _post_norm(p["post1"], cfg, h, lay)
     x = x + h
     if memory is not None and "xattn" in p:
         x = x + attention(p["xattn"], cfg, _apply_norm(p["lnx"], cfg, x, lay),
@@ -283,30 +289,38 @@ def _attn_block_rest(p, cfg: ModelConfig, x, h, memory=None, positions=None,
     h = (moe_ffn(p["moe"], cfg, z, dp=lay) if cfg.num_experts
          else _mlp(p["mlp"], cfg, z, lay))
     if cfg.post_norms:
-        h = _apply_norm(p["post2"], cfg, h, lay)
+        h = _post_norm(p["post2"], cfg, h, lay)
     return x + h
 
 
+def _post_norm(p, cfg: ModelConfig, h, lay=None):
+    """A branch output's post-norm: as the hidden state is laid out."""
+    h = _apply_norm(p, cfg, h, lay)
+    return h if lay is None else lay.part(h)
+
+
 def _mlp(p, cfg: ModelConfig, z, lay=None):
-    """The dense MLP; under a layout, column-parallel wi / wg and
-    row-parallel wo over "model" (replicated where "model" does not
-    divide d_ff)."""
+    """The dense MLP of the whole z; under a layout, column-parallel wi /
+    wg and row-parallel wo over "model", the output the hidden state's
+    (`Layout.leave`); replicated where "model" does not divide d_ff."""
     if lay is None:
         return mlp(z, p, cfg.mlp_kind)
     descr = mlp_params(cfg.d_model, cfg.d_ff, cfg.mlp_kind)
     w = lay.params(p, descr)
     if not lay.split(descr["wi"]):
-        return mlp(z, w, cfg.mlp_kind)
-    return lay.reduce(mlp(lay.copy(z), w, cfg.mlp_kind))
+        return lay.part(mlp(z, w, cfg.mlp_kind))
+    return lay.leave(mlp(lay.copy(z), w, cfg.mlp_kind))
 
 
 def _embed(params, cfg: ModelConfig, tokens, lay=None):
     """The tokens' embeddings.  Under a layout the rank looks up its
     vocabulary block (zeros for ids outside it) and the blocks are
-    summed over "model", which is exact.  The block's width is split
-    over "data" (FSDP): where the tokens of the ranks along it are fewer
-    than the block's rows, they are gathered instead of the weight, the
-    rank looks them all up in its columns and the looked-up columns are
+    summed over "model", which is exact, into the hidden state's layout
+    (`Layout.leave`; `Layout.part` of an unsplit vocabulary's lookup).
+    The block's width is split over "data" (FSDP): where the tokens of
+    the ranks along it are fewer than the block's rows, they are
+    gathered instead of the weight, the rank looks them all up in its
+    columns and the looked-up columns are
     gathered (each rank's gradient summed in backward); else the block
     is gathered whole."""
     if lay is None:
@@ -332,8 +346,7 @@ def _embed(params, cfg: ModelConfig, tokens, lay=None):
             e = sharded.gather_blocks(e, lay.mesh, -1, dims=fsdp).narrow(
                 0, C.axis_index(lay.mesh, fsdp) * tokens.shape[0],
                 tokens.shape[0])
-        if lay.split(d):
-            e = lay.reduce(e)
+        e = lay.leave(e) if lay.split(d) else lay.part(e)
     if cfg.scale_embeddings:
         e = e * torch.tensor(cfg.d_model**0.5, dtype=e.dtype)
     return e.to(DTYPES[cfg.dtype])
@@ -414,7 +427,8 @@ def _positions(cfg: ModelConfig, batch: dict, tokens):
 def _blocks(blocks, kinds, cfg: ModelConfig, x, positions, *, memory=None,
             causal: bool = True, train: bool = False, lay=None):
     """A stack of blocks, each recomputed in backward when `train` and
-    `cfg.remat`."""
+    `cfg.remat`, which then saves its input x: the rank's block under a
+    layout that splits the hidden state."""
     for p, kind in zip(blocks, kinds):
         if train and cfg.remat:
             x = checkpoint(_train_block, p, cfg, kind, x, positions, memory,
@@ -436,8 +450,10 @@ def _encode(params, cfg: ModelConfig, frames, *, train: bool = False,
     (the stub frontend): sinusoidal positions added in f32, then the
     non-causal self-attention blocks (rotary at 0..Se-1, as the
     reference applies it) and the encoder's final norm.  None for a
-    decoder-only config.  Under a layout, on this rank's rows of frames;
-    the memory comes back replicated over "model"."""
+    decoder-only config.  Under a layout, on this rank's rows of frames,
+    the hidden state laid out as the decoder's (`Layout.for_hidden`);
+    the memory, gathered by the final norm, comes back replicated over
+    "model"."""
     if not cfg.encoder_layers:
         return None
     if frames is None:
@@ -454,6 +470,9 @@ def _encode(params, cfg: ModelConfig, frames, *, train: bool = False,
                        device=frames.device)[:, None] * freq[None]
     pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
     x = (frames.float() + pe[None]).to(DTYPES[cfg.dtype])
+    if lay is not None:
+        lay = lay.for_hidden(cfg)
+        x = lay.part(x)
     x = _blocks(enc["blocks"], ("attn",) * len(enc["blocks"]), cfg, x, None,
                 causal=False, train=train, lay=lay)
     return _apply_norm(enc["final_norm"], cfg, x, lay)
@@ -464,8 +483,11 @@ def _hidden(params, cfg: ModelConfig, batch: dict, *, train: bool = False,
     """Backbone through the final norm (pre-unembed), the encoder first
     for an encoder-decoder.  With `train`, the blocks take the
     differentiable routes, each recomputed in backward when
-    `cfg.remat`.  Under a layout `lay` (`sharded.layout`), this rank's
-    rows (B/dp, S, D), replicated over "model"."""
+    `cfg.remat`.  Under a layout `lay` (`sharded.layout`), the hidden
+    state laid out by `Layout.for_hidden` and this rank's rows (B/dp, S,
+    D) returned whole, replicated over "model" (the final norm gathers
+    them)."""
+    lay = None if lay is None else lay.for_hidden(cfg)
     tokens = _tokens(params, batch["tokens"])
     positions = _positions(cfg, batch, tokens)
     memory = _encode(params, cfg, batch.get("frames"), train=train, lay=lay)
@@ -517,10 +539,12 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, loss_chunk: int = 512,
     products run in full f32 (no TF32).
 
     Under a mesh with `dp`: `params` are this rank's blocks and the batch
-    its rows.  The NLL is vocabulary-parallel; each rank divides its sum
-    by the global count of unmasked labels, so the gradients (this
-    rank's blocks, summed over the dp dims in backward) are the global
-    mean's; the loss returned is the global mean on every rank.
+    its rows.  The hidden state comes whole out of the final norm, which
+    gathers it once before the chunks.  The NLL is vocabulary-parallel;
+    each rank divides its sum by the global count of unmasked labels, so
+    the gradients (this rank's blocks, summed over the dp dims in
+    backward) are the global mean's; the loss returned is the global
+    mean on every rank.
     """
     params = _tree(params)
     lay = sharded.layout(cfg, dp)

@@ -29,8 +29,9 @@ unsharded function on them, drops included:
   where "model" splits E (expert parallel) each rank computes its E/m
   experts on its kept tokens; where it splits d_ff (tensor parallel
   inside each expert) every expert's wi / wg columns and wo rows.  Both
-  give a partial (T, D) combine that `reduce_from_model` completes.  The
-  router is used whole on the replicated hidden state, but the gates
+  give a partial (T, D) combine that `Layout.leave` completes into the
+  hidden state's layout (the rank's block of D where it is split).  The
+  router is used whole on the norm's whole output, but the gates
   weigh only the rank's partial outputs, so its gradient and the
   input's are summed over "model" (`Layout.shared`, `copy_to_model`);
 * each rank's expert buffer holds the kept tokens of its rows only,
@@ -94,7 +95,8 @@ def moe_ffn(params, cfg: ModelConfig, x, token_chunk: int = 131_072, *,
     count is no multiple of it.
 
     `dp` (the data-parallel dims, or a `sharded.Layout`) under a mesh:
-    sharded on this rank's rows (module docstring)."""
+    sharded on this rank's rows (module docstring); x replicated over
+    "model", the output the hidden state's (`Layout.leave`)."""
     lay = sharded.layout(None, dp)
     if lay is not None:
         return _moe_sharded(params, cfg, x, token_chunk, lay)
@@ -255,9 +257,8 @@ def _moe_sharded(params, cfg: ModelConfig, x, token_chunk: int, lay):
     gathered = out_pad[cols["e"], slot]                         # (T, K, D)
     w = (cols["gate"] * cols["keep"]).to(x.dtype)
     y = torch.einsum("tkd,tk->td", gathered, w).to(x.dtype)
-    if split:
-        y = lay.reduce(y)
-    return y.reshape(B, S, D)
+    y = lay.leave(y) if split else lay.part(y)
+    return y.reshape(B, S, y.shape[-1])
 
 
 def _bincount(v, n: int, where=None):

@@ -99,8 +99,8 @@ def _weights(params, cfg: ModelConfig, lay):
 
 def rglru_block(params, cfg: ModelConfig, x, chunk: int = 512, lay=None):
     """Full-sequence form (prefill and training). x: (B, S, D); under a
-    layout `lay` (module docstring) x is replicated over "model", and so
-    is the output."""
+    layout `lay` (module docstring) x is replicated over "model", and the
+    output is the hidden state's (`Layout.leave`)."""
     B, S, _ = x.shape
     w = _weights(params, cfg, lay)
     if lay is not None:
@@ -120,7 +120,7 @@ def rglru_block(params, cfg: ModelConfig, x, chunk: int = 512, lay=None):
         hs.append(h.to(x.dtype))
     y = torch.cat(hs, dim=1) * gate
     out = dense(y, w["wo"])
-    return out if lay is None else lay.reduce(out)
+    return out if lay is None else lay.leave(out)
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, device) -> dict:

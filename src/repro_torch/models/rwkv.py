@@ -26,8 +26,10 @@ runs on them; where it does not, r, k, v and the decay are gathered
 into whole heads, the wkv and the group norm run on the rank's share of
 the B·H (row, head) units, and the outputs gathered back give the
 rank's columns.  The channel mix reduce-scatters the row-parallel wv
-product onto the rank's columns, multiplies it by the rank's
-sigmoid(r) and gathers the product whole.  Decode runs the wkv step on
+product onto the rank's columns and multiplies it by the rank's
+sigmoid(r): the rank's block of the hidden state where the layout
+splits it, else gathered whole.  The time mix's row-parallel wo is
+reduce-scattered there (`Layout.leave`).  Decode runs the wkv step on
 every head on every rank, as the state (B·H, N, N) is split over the dp
 dims only, and keeps the rank's columns of the token-shift buffers.
 """
@@ -150,7 +152,7 @@ def _to_bh(a, H: int, N: int):
 def rwkv_time_mix(p, cfg: ModelConfig, x, *, train: bool = False,
                   lay=None):
     """x: (B, S, D); under a layout (module docstring) replicated over
-    "model", and so is the output."""
+    "model", the output the hidden state's (`Layout.leave`)."""
     B, S, D = x.shape
     H, N = cfg.rwkv_heads, cfg.rwkv_head_dim
     by_heads = lay is None or H % lay.m == 0
@@ -183,7 +185,7 @@ def rwkv_time_mix(p, cfg: ModelConfig, x, *, train: bool = False,
         y = _wkv_units(p, lay, wkv, *(lay.gather(a) for a in (r, k, v, w)),
                        H, N)
     out = dense(y * g, p["wo"])
-    return out if lay is None else lay.reduce(out)
+    return out if lay is None else lay.leave(out)
 
 
 def _wkv_units(p, lay, wkv, r, k, v, w, H: int, N: int):
@@ -206,7 +208,9 @@ def _wkv_units(p, lay, wkv, r, k, v, w, H: int, N: int):
 def rwkv_channel_mix(p, cfg: ModelConfig, x, *, lay=None, prev=None):
     """x: (B, S, D); `prev` (B, 1, D) the token before x (zeros unless
     given).  Under a layout (module docstring) x and `prev` are
-    replicated over "model", and so is the output."""
+    replicated over "model"; the output is the rank's channels where the
+    layout splits the hidden state (`Layout.hidden_split`), else
+    gathered whole."""
     p = _weights(p, cfg, "channel", lay)
     if lay is not None:
         x = lay.copy(x)
@@ -217,7 +221,8 @@ def rwkv_channel_mix(p, cfg: ModelConfig, x, *, lay=None, prev=None):
     if lay is None:
         return torch.sigmoid(dense(xr, p["wr"])) * dense(k, p["wv"])
     kv = lay.reduce_scatter(dense(k, p["wv"]))              # (B,S,D/m)
-    return lay.gather(torch.sigmoid(dense(xr, p["wr"])) * kv, summed=False)
+    y = torch.sigmoid(dense(xr, p["wr"])) * kv
+    return y if lay.hidden_split else lay.gather(y, summed=False)
 
 
 # ------------------------------ decode --------------------------------

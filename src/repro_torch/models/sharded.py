@@ -18,13 +18,22 @@ with FSDP:
   sum, backward identity);
 * the vocabulary is split over "model" for the embedding, the
   unembedding and the loss (`vocab_parallel_nll`);
-* a parameter that the replicated hidden state uses whole (a norm's
+* a parameter that a norm uses whole over its whole input (a norm's
   scale, which P("model") shards) is gathered over "model" too
   (`gather_model`), and its gradient is not summed there: every "model"
   rank computes the same one and keeps its block;
-* the hidden state between blocks is (B/dp, S, D), replicated over
-  "model".  The reference's P(dp, None, "model") there is a memory
-  layout of the same function.
+* the hidden state between residual updates is each rank's block
+  (B/dp, S, D/m) of its last dim where "model" divides d_model
+  (`Layout.for_hidden`), Megatron's sequence-parallel pattern on the
+  reference's dim: a norm's input is all-gathered (`Layout.enter`;
+  backward, the rank's block of the gradient, unsummed, since every
+  "model" rank computes the same norm), a branch's row-parallel partial
+  sum is reduce-scattered (`Layout.leave`), and a value already whole
+  (a post-norm's output, a lookup of an unsplit vocabulary) is split
+  (`Layout.part`).  So a block recomputed in backward saves 1/m of its
+  input.  Where "model" does not divide d_model the hidden state is
+  (B/dp, S, D), replicated.  The decode steps keep it replicated, as
+  the reference constrains nothing there.
 
 Where "model" divides the KV heads, each rank attends with its H/m
 query and Hkv/m KV heads (`Layout.local_cfg`).  Where it does not, the
@@ -38,24 +47,26 @@ rank's gradient in backward and keeps the rank's block; the KV cache is
 then split over its sequence (`cache_spec`), and decode combines each
 rank's partial softmax over its positions by a pmax and a psum.  The
 rwkv and RG-LRU blocks are split by channel (rwkv's heads where "model"
-divides them, else by (row, head) units as attention is); a product of
-the block's output that the replicated hidden state takes back is
-reduce-scattered (`Layout.reduce_scatter`) or gathered without a sum.
-A cross-attention splits as the self-attention does, its k and v
-projected from the encoder's memory (B/dp, Se, D), which is replicated
-over "model" like the hidden state and goes through `copy_to_model`
-too; the encoder's blocks run under the same layout.  The mixture of
-experts keeps the unsharded capacity and ranks over each chunk of the
-global token order, and splits its experts over "model" where "model"
-divides E, else each expert's d_ff (`models.moe`).
+divides them, else by (row, head) units as attention is); the channel
+mix's product, reduce-scattered onto the rank's channels
+(`Layout.reduce_scatter`), is the rank's block of the hidden state, or
+gathered without a sum where that is replicated.  A cross-attention
+splits as the self-attention does, its k and v projected from the
+encoder's memory (B/dp, Se, D), which is gathered whole after the
+encoder's final norm, replicated over "model", and goes through
+`copy_to_model`; the encoder's blocks run under the same layout.  The
+mixture of experts keeps the unsharded capacity and ranks over each
+chunk of the global token order, and splits its experts over "model"
+where "model" divides E, else each expert's d_ff (`models.moe`).
 
 A gradient is summed over a dim only where the ranks along it compute
 different contributions: the data-parallel dims, and "model" for the
 input of a column-parallel product and for a weight that every "model"
 rank uses whole on its own share of the work (`Layout.shared`).  The
-reference's `constrain_act`, `_constrain_heads`, `_constrain` and the
-MoE constraints have no counterpart: the layout they hint is the one
-written out here.
+reference's `_constrain` and `constrain_act` of the hidden state have
+their counterpart in `Layout.for_hidden` and its `enter` / `leave` /
+`part`; its `_constrain_heads` and the MoE constraints hint the head
+and expert layouts written out here.
 
 `layout(cfg, dp)` gives the sharded layout of a call, or None when no
 mesh is in context (`launch.mesh.set_mesh`) or `dp` is None: the model
@@ -86,7 +97,8 @@ __all__ = [
     "Layout", "layout", "sanitize_spec", "shard_params", "gather_params",
     "gather_param", "gather_model", "gather_act", "copy_to_model",
     "reduce_from_model", "reduce_from", "vocab_parallel_nll", "local_block",
-    "sharded_dims", "gather_blocks", "reduce_scatter", "cache_spec",
+    "sharded_dims", "gather_blocks", "reduce_scatter", "split_blocks",
+    "cache_spec",
 ]
 
 def _axes(entry) -> tuple:
@@ -216,9 +228,10 @@ def gather_param(w: torch.Tensor, mesh, spec: tuple, dp) -> torch.Tensor:
 
 
 def gather_model(w: torch.Tensor, mesh, spec: tuple) -> torch.Tensor:
-    """`w` gathered along its dims sharded over "model", for a value the
-    replicated hidden state uses whole.  Backward keeps this rank's block
-    of the gradient, unsummed: every "model" rank computes the same."""
+    """`w` gathered along its dims sharded over "model", for a value a
+    norm uses whole over its whole input.  Backward keeps this rank's
+    block of the gradient, unsummed: every "model" rank computes the
+    same."""
     return _GatherModel.apply(w, mesh, tuple(spec))
 
 
@@ -269,16 +282,27 @@ class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, dim, dims):
         ctx.mesh, ctx.dim, ctx.dims = mesh, dim, dims
-        n = C.axis_size(mesh, dims)
-        size = x.shape[dim] // n
-        return _psum(x, mesh, dims).narrow(
-            dim, C.axis_index(mesh, dims) * size, size).contiguous()
+        if x.dtype == torch.bfloat16:
+            return C.reduce_scatter(x.float(), mesh, dims, dim).to(x.dtype)
+        return C.reduce_scatter(x, mesh, dims, dim)
 
     @staticmethod
     def backward(ctx, g):
         counts = (g.shape[ctx.dim],) * C.axis_size(ctx.mesh, ctx.dims)
         return (_GatherBlocks.apply(g, ctx.mesh, ctx.dim, counts, False,
                                     ctx.dims), None, None, None)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, dims):
+        ctx.mesh, ctx.dim, ctx.dims = mesh, dim, dims
+        n = C.axis_size(mesh, dims)
+        size = x.shape[dim] // n
+        return x.narrow(dim, C.axis_index(mesh, dims) * size,
+                        size).contiguous()
+
+    backward = _ReduceScatter.backward
 
 
 def gather_blocks(x: torch.Tensor, mesh, dim: int, counts=None,
@@ -288,8 +312,8 @@ def gather_blocks(x: torch.Tensor, mesh, dim: int, counts=None,
     ``counts[r]`` entries (all equal when None).  Backward: the rank's
     block of the gradient, summed over `dims` first when `summed` (the
     gathered value feeds each rank's own share of the work), unsummed
-    where every rank computes the same gradient (the value joins the
-    replicated hidden state)."""
+    where every rank computes the same gradient (the hidden state
+    gathered for a norm, or a value joining it whole)."""
     dim, dims = dim % x.dim(), tuple(dims)
     if counts is None:
         counts = (x.shape[dim],) * C.axis_size(mesh, dims)
@@ -299,9 +323,17 @@ def gather_blocks(x: torch.Tensor, mesh, dim: int, counts=None,
 def reduce_scatter(x: torch.Tensor, mesh, dim: int,
                    dims=("model",)) -> torch.Tensor:
     """The rank's block along `dim` of the sum of `x` over the mesh dims
-    `dims` (bf16 summed in f32); backward: the gradient's blocks
-    gathered, unsummed."""
+    `dims` (`collectives.reduce_scatter`; bf16 summed in f32 and rounded
+    once); backward: the gradient's blocks gathered, unsummed."""
     return _ReduceScatter.apply(x, mesh, dim % x.dim(), tuple(dims))
+
+
+def split_blocks(x: torch.Tensor, mesh, dim: int,
+                 dims=("model",)) -> torch.Tensor:
+    """The rank's block along `dim` of `x`, a value every rank along
+    `dims` holds whole and alike; backward: the gradient's blocks
+    gathered, unsummed."""
+    return _Split.apply(x, mesh, dim % x.dim(), tuple(dims))
 
 
 class _VocabNLL(torch.autograd.Function):
@@ -371,11 +403,17 @@ def gather_params(local: dict, mesh, specs: dict) -> dict:
 class Layout:
     """The sharded layout of one call: the mesh, its data-parallel dims
     `dp` and its sizes.  `param` / `whole` gather a weight block at use,
-    `copy` / `reduce` bracket a tensor-parallel product."""
+    `copy` / `reduce` bracket a tensor-parallel product.  With
+    `hidden_split` the hidden state between residual updates is each
+    rank's block (B/dp, S, D/m) (`for_hidden`): `enter` gathers it
+    whole before a norm, `leave` turns a branch's partial sum into it
+    and `part` a replicated value; without, those keep it replicated
+    (`leave` is `reduce`)."""
 
     mesh: object
     dp: tuple
     sizes: dict
+    hidden_split: bool = False
 
     @property
     def m(self) -> int:
@@ -409,8 +447,8 @@ class Layout:
         return {k: self.param(p[k], d) for k, d in descr.items()}
 
     def whole(self, w, d: P_):
-        """`w` gathered along every dim, for a value the replicated
-        hidden state uses whole."""
+        """`w` gathered along every dim, for a value a norm uses whole
+        over its whole input."""
         spec = self.spec(d)
         return gather_model(gather_param(w, self.mesh, spec, self.dp),
                             self.mesh, spec)
@@ -433,6 +471,38 @@ class Layout:
         if self.m == 1:
             return x
         return gather_blocks(x, self.mesh, dim, counts, summed)
+
+    def for_hidden(self, cfg: ModelConfig) -> "Layout":
+        """This layout with the hidden state between residual updates
+        split over "model" where it has more than one rank and they
+        divide d_model, as the reference's `_constrain` places
+        P(dp, None, "model"); else replicated, as its P(dp) fallback."""
+        split = self.m > 1 and cfg.d_model % self.m == 0
+        return dataclasses.replace(self, hidden_split=split)
+
+    def enter(self, x):
+        """The hidden state `x` whole on every "model" rank, for a norm:
+        its blocks gathered.  Backward: the rank's block of the gradient,
+        unsummed (every "model" rank computes the same one)."""
+        if not self.hidden_split:
+            return x
+        return gather_blocks(x, self.mesh, -1, summed=False)
+
+    def leave(self, x):
+        """A branch's partial sum `x` over "model" completed into the
+        hidden state: reduce-scattered to the rank's block, or summed
+        whole where the hidden state is replicated."""
+        if not self.hidden_split:
+            return self.reduce(x)
+        return reduce_scatter(x, self.mesh, -1)
+
+    def part(self, x):
+        """A value `x` replicated over "model" as the hidden state: the
+        rank's block where it is split (backward: the gradient's blocks
+        gathered), else `x`."""
+        if not self.hidden_split:
+            return x
+        return split_blocks(x, self.mesh, -1)
 
     def reduce_scatter(self, x, dim: int = -1):
         """`reduce_scatter` over "model" (`x` itself when m is 1)."""

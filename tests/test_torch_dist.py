@@ -10,7 +10,9 @@ counts, trims, wire fractions and modeled wire bytes.  f32 allclose at
 topk / int8) x failures x aggregation, `async_execute_sync`, `compress`.
 Within the port: the executor run in pieces of columns and in place is
 bitwise the whole-leaf functional run, and compression conserves the
-accumulator bitwise.
+accumulator bitwise.  `collectives.reduce_scatter` on 4 gloo CPU ranks
+is bitwise `psum` then the rank's block, in f32 and bf16 summed in f32,
+over one mesh dim and two, and its account counts each dim's call.
 """
 import dataclasses
 import itertools
@@ -391,3 +393,106 @@ def test_robust_helpers_match_reference():
         rtol=TOL, atol=TOL)
     with pytest.raises(ValueError, match="at least one value"):
         TD.masked_trimmed_mean(torch.tensor(x), torch.tensor(dropped), 2, 3)
+
+
+# ------------------------- collectives on gloo -------------------------
+
+# (dims, dim) of the reduce-scatters on the (2, 2) ("data", "model") mesh
+SCATTERS = ((("model",), -1), (("model",), 0), (("data", "model"), 0),
+            (("data", "model"), -1), (("data",), 1))
+
+
+def _scatter_rank(rank, world):
+    """Each `SCATTERS` case on this rank's own x: the reduce-scatter
+    against psum then the rank's block, in f32 and in bf16 summed in f32
+    (`sharded.reduce_scatter`), and the account of the f32 call."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.models import sharded as SH
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    x = torch.randn((8, 6, 12), generator=torch.Generator().manual_seed(
+        rank))
+    out = {}
+    for dims, dim in SCATTERS:
+        n, i = C.axis_size(mesh, dims), C.axis_index(mesh, dims)
+        size = x.shape[dim] // n
+        want = C.psum(x, mesh, dims).narrow(dim, i * size, size)
+        C.reset_account()
+        got = C.reduce_scatter(x, mesh, dims, dim)
+        account = C.account()
+        xb = x.to(torch.bfloat16)
+        want_b = C.psum(xb.float(), mesh, dims).narrow(
+            dim, i * size, size).to(torch.bfloat16)
+        got_b = SH.reduce_scatter(xb, mesh, dim, dims)
+        out[(dims, dim)] = {
+            "f32": torch.equal(got, want), "shape": tuple(got.shape),
+            "bf16": got_b.dtype == torch.bfloat16 and torch.equal(got_b,
+                                                                  want_b),
+            "account": account}
+    # NCCL's route (one `reduce_scatter_tensor` a dim, the finest first,
+    # on the row-major blocks), each call emulated on gloo by an
+    # all-reduce and the group rank's share of the flat input
+    def emulated(res, src, group):
+        full = src.clone()
+        C.dist.all_reduce(full, group=group)
+        k, r = C.dist.get_world_size(group), C.dist.get_rank(group)
+        res.copy_(full.reshape(k, -1)[r].reshape(res.shape))
+
+    real = (C.dist.get_backend, C.dist.reduce_scatter_tensor)
+    C.dist.get_backend = lambda group=None: "nccl"
+    C.dist.reduce_scatter_tensor = emulated
+    try:
+        for dims, dim in SCATTERS:
+            n, i = C.axis_size(mesh, dims), C.axis_index(mesh, dims)
+            size = x.shape[dim] // n
+            got = C.reduce_scatter(x, mesh, dims, dim)
+            out[(dims, dim)]["nccl_route"] = torch.equal(
+                got, C.psum(x, mesh, dims).narrow(dim, i * size, size))
+    finally:
+        C.dist.get_backend, C.dist.reduce_scatter_tensor = real
+    try:
+        C.reduce_scatter(x, mesh, ("data", "model"), 1)
+        out["refused"] = "no error"
+    except ValueError as e:
+        out["refused"] = str(e)
+    return out
+
+
+@pytest.fixture(scope="module")
+def scatters():
+    from repro_torch.dist.ranks import run_ranks
+
+    return run_ranks(_scatter_rank, 4, backend="gloo", timeout=120,
+                     threads=1)
+
+
+@pytest.mark.parametrize(("dims", "dim"), SCATTERS)
+def test_reduce_scatter_is_psum_then_the_ranks_block(scatters, dims, dim):
+    """`collectives.reduce_scatter` on gloo equals `psum` then the rank's
+    block of the row-major split, bitwise, in f32 and in bf16 summed in
+    f32 and rounded once, and so does its NCCL route (each call
+    emulated); the account counts one call a dim of the group, the
+    finest first, putting in what is left and giving its half."""
+    shape = [8, 6, 12]
+    shape[dim] //= 2 ** len(dims)
+    nbytes = 8 * 6 * 12 * 4
+    want = {}
+    for d in reversed(dims):
+        want[d] = (1, nbytes, nbytes // 2)
+        nbytes //= 2
+    for rank, r in enumerate(scatters):
+        got = r[(dims, dim)]
+        assert got["f32"] and got["bf16"] and got["nccl_route"], (rank, got)
+        assert got["shape"] == tuple(shape)
+        rows = {g["dims"][0]: (g["calls"], g["bytes"], g["result_bytes"])
+                for g in got["account"]["reduce_scatter"]["groups"]}
+        assert rows == want, (rank, rows)
+        # gloo's all-reduce runs on the tensor itself: nothing else
+        assert set(got["account"]) == {"reduce_scatter"}
+
+
+def test_reduce_scatter_refuses_an_uneven_split(scatters):
+    for r in scatters:
+        assert "does not split over 4 ranks" in r["refused"], r["refused"]

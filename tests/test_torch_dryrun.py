@@ -23,7 +23,11 @@ CPU.
   run.  The full-depth trace's flops, bytes and collectives equal
   `secant_totals` over its 1- and 2-layer variants.  A sharded MoE cell
   traces with its buffer at the capacity, and `run_cell` records
-  ``moe_rows == "capacity"`` for a MoE config.
+  ``moe_rows == "capacity"`` for a MoE config.  The reduced train and
+  prefill steps reduce-scatter their hidden state over "model" once for
+  the embedding and twice a layer; the fake backend counts a
+  reduce-scatter and moves nothing; `collective_stats` reports it under
+  its kind.
 * The flash and wkv ops' fake branch: output shapes and dtypes, one
   fake launch each with the `work` counts of `PERF.md`'s bound column
   (412.4 GFLOP at llama3.2-3b's prefill shape, 13.63 GFLOP at
@@ -282,6 +286,32 @@ def _real_rank(rank, world, cfg, shape):
             "shape": tuple(out.shape)}
 
 
+def _real_train_rank(rank, world, cfg, shape):
+    """The cell's train step on this rank's blocks of real arguments (as
+    `_real_rank`'s), with gradients: its account and metrics."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch import set_mesh
+
+    mesh = init_device_mesh("cpu", tuple(HOST.values()),
+                            mesh_dim_names=tuple(HOST))
+    cell = build_cell(cfg, shape, mesh, device="cpu")
+    gen = torch.Generator().manual_seed(rank)
+
+    def make(shape_, dt):
+        if dt.is_floating_point:
+            return 0.02 * torch.randn(shape_, generator=gen).to(dt)
+        return torch.ones(shape_, dtype=dt)
+
+    state, batch = D._local_args(cell.args_abs, cell.in_shardings, mesh,
+                                 make)
+    C.reset_account()
+    with set_mesh(mesh):
+        _, metrics = cell.fn(state, batch)
+    return {"account": C.account(), "loss": float(metrics["loss"])}
+
+
 @pytest.fixture(scope="module")
 def traced():
     """The traces this module holds, made in one trace process."""
@@ -354,11 +384,94 @@ def test_moe_traces_at_capacity(traced, monkeypatch, tmp_path):
 
 
 def test_train_trace_counts_the_backward(traced):
+    """The backward's sums over "model" (`copy_to_model`'s) are psums,
+    which the prefill, whose branch sums are reduce-scatters, has none
+    of."""
     _, out = traced
     train, fwd = out["train"], out["prefill"]
     assert train["mode"] == "train" and train["flops"] > 2 * fwd["flops"]
-    assert train["account"]["psum"]["calls"] > fwd["account"]["psum"][
-        "calls"]
+    assert train["account"]["psum"]["calls"] > fwd["account"].get(
+        "psum", {"calls": 0})["calls"]
+
+
+def test_train_trace_reduce_scatters_the_hidden_state(traced):
+    """On the fake (2, 2) group the step's hidden state is the rank's
+    block of D ("model" 2 divides d_model 64): the embedding's sum and
+    each layer's attention and MLP outputs are reduce-scattered over
+    "model", once each, in the train step as in the prefill, each
+    giving half the bytes it takes."""
+    cfg, out = traced
+    for mode in ("train", "prefill"):
+        rs = out[mode]["account"]["reduce_scatter"]
+        assert rs["calls"] == 1 + 2 * cfg.num_layers, (mode, rs)
+        assert {tuple(g["dims"]) for g in rs["groups"]} == {("model",)}
+        assert 2 * rs["result_bytes"] == rs["bytes"] > 0
+    pods = TA.device_pod_map(HOST, 2)
+    stats = TA.collective_stats(out["train"]["account"], pods)
+    assert stats.by_kind["reduce_scatter"] == out["train"]["account"][
+        "reduce_scatter"]["result_bytes"]
+
+
+def test_train_trace_matches_real_ranks(traced):
+    """The reduced train step on 4 gloo ranks makes the collectives its
+    trace on the fake group of 4 predicts, call for call and byte for
+    byte (what the card's D1(c) holds S2 to)."""
+    cfg, out = traced
+    real = run_ranks(_real_train_rank, 4, cfg, (64, 4, "train"),
+                     backend="gloo", timeout=240, threads=1)
+    assert math.isfinite(real[0]["loss"])
+    assert "host_copy" not in real[0]["account"]
+    assert out["train"]["account"] == real[0]["account"]
+
+
+def _fake_rank_reduce_scatter():
+    """`collectives.reduce_scatter` on rank 1 of a fake group of 4 over
+    a (2, 2) mesh, on real CPU tensors: its result and account."""
+    from repro_torch.dist import collectives as C
+
+    D._fake_group(4, 1)
+    mesh = D._mesh(HOST, "cpu")
+    x = torch.arange(4 * 6, dtype=torch.float32).reshape(4, 6)
+    C.reset_account()
+    got = {"model": C.reduce_scatter(x, mesh, "model", -1),
+           "both": C.reduce_scatter(x, mesh, ("data", "model"), 0)}
+    return {"x": x, "got": got, "account": C.account()}
+
+
+def test_fake_backend_counts_reduce_scatter_and_moves_nothing():
+    """On the fake backend a reduce-scatter is counted (one call a dim of
+    the group, bytes in and the block's bytes out) and moves nothing:
+    rank 1 keeps the block of its own x, unsummed."""
+    out = D._pool().submit(_fake_rank_reduce_scatter).result()
+    x, got = out["x"], out["got"]
+    # rank 1 of the (2, 2) mesh is ("data" 0, "model" 1)
+    assert torch.equal(got["model"], x[:, 3:])
+    assert torch.equal(got["both"], x[1:2])
+    rs = out["account"]["reduce_scatter"]
+    assert rs["calls"] == 3
+    rows = {tuple(g["dims"]): (g["calls"], g["bytes"], g["result_bytes"])
+            for g in rs["groups"]}
+    assert rows == {("model",): (2, 96 + 96, 48 + 48),
+                    ("data",): (1, 48, 24)}
+    assert set(out["account"]) == {"reduce_scatter"}
+
+
+def test_collective_stats_knows_reduce_scatter():
+    """A reduce-scatter is counted by its result bytes under its own
+    kind, as the reference's HLO count reads "reduce-scatter"; a kind
+    the account does not make raises."""
+    row = {"dims": ["model"], "ranks": [0, 1], "calls": 3, "bytes": 96,
+           "result_bytes": 48}
+    account = {"reduce_scatter": {"calls": 3, "bytes": 96,
+                                  "result_bytes": 48, "groups": [row]}}
+    pods = TA.device_pod_map(HOST, 256)
+    got = TA.collective_stats(account, pods)
+    assert got.asdict() == {"total_bytes": 48, "cross_pod_bytes": 0,
+                            "by_kind": {"reduce_scatter": 48}, "count": 3}
+    assert "reduce_scatter" in TA.COLLECTIVES
+    assert "reduce-scatter" in RH._COLLECTIVES
+    with pytest.raises(ValueError, match="all_to_all"):
+        TA.collective_stats({"all_to_all": account["reduce_scatter"]}, pods)
 
 
 # ---------------------------- kernel ops -------------------------------

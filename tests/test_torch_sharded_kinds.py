@@ -14,7 +14,13 @@ reference's parameters (`params_from_reference` then `shard_params`):
   (2, 2), decoded 40 steps so the sequence-sharded ring of the local
   layer (16 positions, 8 a rank) wraps;
 * rwkv6-3b at 4 heads of 16 (2 a rank) and at d_model 48, 3 heads of
-  16, which "model" 2 does not divide, on (2, 2).
+  16, which "model" 2 does not divide, on (2, 2);
+* llama3.2-3b at d_model 54 on (1, 4): "model" divides neither d_model
+  nor the KV heads, so the hidden state between blocks stays whole.
+
+Under every other case the hidden state between residual updates is the
+rank's block (B/dp, S, D/m): the input each block's remat keeps has
+that shape (`tests/torch_remat_inputs.py`), (B/dp, S, D) in the last.
 
 Each runs sharded under `set_mesh` with `dp=` on each rank's rows of
 8 x 32 tokens: `forward`, `loss_fn` and every gradient leaf (also with
@@ -59,6 +65,7 @@ from repro_torch.models import (  # noqa: E402
 )
 import repro_torch.optim as TO  # noqa: E402
 import repro_torch.train as TT  # noqa: E402
+from torch_remat_inputs import remat_inputs  # noqa: E402
 
 # name: (arch, config changes, mesh shape, decode steps)
 CASES = {
@@ -68,6 +75,9 @@ CASES = {
     "recurrentgemma": ("recurrentgemma-9b", {}, (2, 2), 40),
     "rwkv-h4": ("rwkv6-3b", {}, (2, 2), 8),
     "rwkv-h3": ("rwkv6-3b", {"d_model": 48}, (2, 2), 8),
+    # "model" 4 does not divide d_model 54: the hidden state between
+    # blocks stays replicated
+    "llama-d54": ("llama3.2-3b", {"d_model": 54}, (1, 4), 8),
 }
 NAMES = ("data", "model")
 B, S = 8, 32
@@ -245,8 +255,9 @@ def _check_case(mesh, dp, name, flat, batch, want, ref, spy):
         err["grads_ref"] = {k: _err(g, block(ref["grads"][k], specs[k]))
                             for k, g in zip(leaves, grads)}
         leaves = {k: v.clone().requires_grad_() for k, v in local.items()}
-        loss = loss_fn(leaves, dataclasses.replace(cfg, remat=True), data,
-                       dp=dp)
+        with remat_inputs() as err["remat_inputs"]:
+            loss = loss_fn(leaves, dataclasses.replace(cfg, remat=True),
+                           data, dp=dp)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     err["grads_remat"] = {k: _err(g, block(want["grads"][k], specs[k]))
                           for k, g in zip(leaves, grads)}
@@ -463,6 +474,19 @@ def test_sharded_gradients_leaf_by_leaf(inputs, results, name, against):
     for rank, errs in enumerate(_all(results, name, against)):
         bad = {k: e for k, e in errs.items() if not e < tol}
         assert not bad, (rank, tol, bad)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_remat_saves_the_ranks_block_of_the_hidden_state(results, name):
+    """Each block's remat keeps its input as the rank's block (B/dp, S,
+    D/m) where "model" divides d_model, else (B/dp, S, D) whole."""
+    cfg = _port_cfg(name)
+    dp, m = CASES[name][2]
+    D = cfg.d_model // m if cfg.d_model % m == 0 else cfg.d_model
+    assert (name == "llama-d54") == (D == cfg.d_model)
+    for rank, seen in enumerate(_all(results, name, "remat_inputs")):
+        assert [k for k, _, _ in seen] == list(cfg.layer_kinds()), rank
+        assert {x for _, x, _ in seen} == {(B // dp, S, D)}, (rank, seen)
 
 
 @pytest.mark.parametrize("name", list(CASES))

@@ -11,7 +11,9 @@ the reference's parameters (`params_from_reference` then
 `shard_params`) run sharded under `set_mesh` with `dp=` on each rank's
 rows of 8 x 32 tokens: `forward`, `loss_fn` and its gradients, one
 `make_train_step` AdamW step, and 4 `decode_step`s; the gradients
-also with remat, their backward run outside the mesh's context.  Each
+also with remat, their backward run outside the mesh's context, and
+the input each block's remat keeps is the rank's block of the hidden
+state, (B/dp, S, D/m) (`tests/torch_remat_inputs.py`).  Each
 rank holds
 its blocks against the matching blocks of the unsharded port's results,
 computed here, and of the reference's (`forward`, `loss_fn` and
@@ -33,6 +35,7 @@ experts in `tests/test_torch_sharded_moe.py`, whisper-tiny in
 `tests/test_torch_sharded_whisper.py`.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -47,6 +50,7 @@ from repro_torch.models import (  # noqa: E402
 )
 import repro_torch.optim as TO  # noqa: E402
 import repro_torch.train as TT  # noqa: E402
+from torch_remat_inputs import remat_inputs  # noqa: E402
 
 ARCHS = ("llama3.2-3b", "gemma2-27b")
 MESHES = {"2x2": ((2, 2), ("data", "model")),
@@ -186,8 +190,9 @@ def _check_arch(mesh, dp, arch, flat, batch, want, ref):
         # with remat each block is recomputed in backward, which may run
         # outside the mesh's context (on the card, in autograd's thread)
         leaves = {k: v.clone().requires_grad_() for k, v in local.items()}
-        loss = loss_fn(leaves, dataclasses.replace(cfg, remat=True), data,
-                       dp=dp)
+        with remat_inputs() as err["remat_inputs"]:
+            loss = loss_fn(leaves, dataclasses.replace(cfg, remat=True),
+                           data, dp=dp)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     err["grads_remat"] = {k: _err(g, block(want["grads"][k], specs[k]))
                           for k, g in zip(leaves, grads)}
@@ -390,6 +395,22 @@ def test_sharded_gradients_leaf_by_leaf(results, arch, mesh, against):
     for rank, errs in enumerate(_all(results, mesh, arch, against)):
         bad = {k: e for k, e in errs.items() if not e < REL}
         assert not bad, (rank, bad)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_saves_the_ranks_block_of_the_hidden_state(results, arch,
+                                                         mesh):
+    """Each block's remat keeps its input as the rank's block (B/dp, S,
+    D/m): "model" 2 divides d_model 64."""
+    cfg = _port_cfg(arch)
+    shape, names = MESHES[mesh]
+    sizes = dict(zip(names, shape))
+    rows = B // math.prod(n for k, n in sizes.items() if k != "model")
+    want = (rows, S, cfg.d_model // sizes["model"])
+    for rank, seen in enumerate(_all(results, mesh, arch, "remat_inputs")):
+        assert [k for k, _, _ in seen] == list(cfg.layer_kinds()), rank
+        assert {x for _, x, _ in seen} == {want}, (rank, seen)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

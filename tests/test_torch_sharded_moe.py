@@ -17,9 +17,10 @@ smallest, 256, and every expert drops tokens:
 
 Each runs sharded under `set_mesh` with `dp=` on each rank's rows:
 `forward`, `loss_fn` and every gradient leaf (also with remat, its
-backward outside the mesh's context), one `make_train_step` Adafactor
-step (the moments `vr`, `vc` and `v`, and the parameters) and 4 decode
-steps from a sharded `init_cache`.  The model's one chunk of tokens
+backward outside the mesh's context; each block's remat keeps its input
+as the rank's block (B/dp, S, D/m), `tests/torch_remat_inputs.py`), one
+`make_train_step` Adafactor step (the moments `vr`, `vc` and `v`, and
+the parameters) and 4 decode steps from a sharded `init_cache`.  The model's one chunk of tokens
 spans the data-parallel ranks (on (2, 2) and (2, 2, 2)), so each rank's
 capacity ranks take the prefix of the ranks before it.  `moe_ffn` alone
 then runs each case's first MoE block on 8 rows of 1024 (768 on the pod
@@ -57,6 +58,7 @@ Every registry config passes `check_config` at "model" 2, 4 and 16,
 and its specs sanitize against those meshes.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -72,6 +74,7 @@ from repro_torch.models import (  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 import repro_torch.optim as TO  # noqa: E402
 import repro_torch.train as TT  # noqa: E402
+from torch_remat_inputs import remat_inputs  # noqa: E402
 
 # config key: (arch, config changes, (B, S))
 CONFIGS = {
@@ -325,8 +328,9 @@ def _check_case(mesh, dp, case, flat, batch, want, ref):
         err["grads_ref"] = {k: _err(g, block(ref["grads"][k], specs[k]))
                             for k, g in zip(leaves, grads)}
         leaves = {k: v.clone().requires_grad_() for k, v in local.items()}
-        loss = loss_fn(leaves, dataclasses.replace(cfg, remat=True), data,
-                       dp=dp)
+        with remat_inputs() as err["remat_inputs"]:
+            loss = loss_fn(leaves, dataclasses.replace(cfg, remat=True),
+                           data, dp=dp)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     err["grads_remat"] = {k: _err(g, block(want["grads"][k], specs[k]))
                           for k, g in zip(leaves, grads)}
@@ -611,6 +615,21 @@ def test_sharded_gradients_leaf_by_leaf(inputs, results, case, against):
         bad = {k: e for k, e in r[against].items()
                if not e < _leaf_tol(want, k)}
         assert not bad, (rank, bad)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_remat_saves_the_ranks_block_of_the_hidden_state(results, case):
+    """Each block's remat keeps its input as the rank's block (B/dp, S,
+    D/m), on the expert- and the tensor-parallel route: "model" 2 or 4
+    divides d_model 64."""
+    key, shape = CASES[case]
+    cfg = _port_cfg(key)
+    B, S = CONFIGS[key][2]
+    want = (B // math.prod(shape[:-1]), S, cfg.d_model // shape[-1])
+    for rank, r in enumerate(results[case]):
+        seen = r["remat_inputs"]
+        assert [k for k, _, _ in seen] == list(cfg.layer_kinds()), rank
+        assert {x for _, x, _ in seen} == {want}, (rank, seen)
 
 
 @pytest.mark.parametrize("case", list(CASES))

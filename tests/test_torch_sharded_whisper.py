@@ -15,7 +15,9 @@ parameters (`params_from_reference` then `shard_params`):
 Each runs sharded under `set_mesh` with `dp=` on each rank's rows of
 8 x 32 tokens and 8 x 24 frames: `forward`, `loss_fn` and every
 gradient leaf (also with remat, its backward outside the mesh's
-context), one `make_train_step` AdamW step, and 6 decode steps from a
+context; each encoder and decoder block's remat keeps its input as the
+rank's block (B/dp, Se or S, D/m), `tests/torch_remat_inputs.py`), one
+`make_train_step` AdamW step, and 6 decode steps from a
 sharded `init_cache(frames=)`, whose memory is the encoder's output on
 the rank's rows and which each step's cross-attention reads.  Then
 `decode_attention(memory_kv=)` alone on the first block's
@@ -47,6 +49,7 @@ from repro_torch.models import (  # noqa: E402
 )
 import repro_torch.optim as TO  # noqa: E402
 import repro_torch.train as TT  # noqa: E402
+from torch_remat_inputs import remat_inputs  # noqa: E402
 
 ARCH = "whisper-tiny"
 # name: (config changes, mesh shape)
@@ -204,8 +207,9 @@ def _check_case(mesh, dp, name, flat, batch, want, ref):
         err["grads_ref"] = {k: _err(g, block(ref["grads"][k], specs[k]))
                             for k, g in zip(leaves, grads)}
         leaves = {k: v.clone().requires_grad_() for k, v in local.items()}
-        loss = loss_fn(leaves, dataclasses.replace(cfg, remat=True), data,
-                       dp=dp)
+        with remat_inputs() as err["remat_inputs"]:
+            loss = loss_fn(leaves, dataclasses.replace(cfg, remat=True),
+                           data, dp=dp)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     err["grads_remat"] = {k: _err(g, block(want["grads"][k], specs[k]))
                           for k, g in zip(leaves, grads)}
@@ -373,6 +377,20 @@ def test_sharded_gradients_leaf_by_leaf(inputs, results, name, against):
         assert not bad, (rank, tol, bad)
         assert any(k.startswith("encoder.") for k in errs)
         assert any(".xattn." in k for k in errs)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_remat_saves_the_ranks_block_of_the_hidden_state(results, name):
+    """Each encoder and decoder block's remat keeps its input as the
+    rank's block (B/dp, Se or S, D/m): "model" divides d_model 64."""
+    cfg = _port_cfg(name)
+    dp, m = CASES[name][1]
+    D = cfg.d_model // m
+    want = ([("attn", (B // dp, cfg.encoder_seq, D), False)]
+            * cfg.encoder_layers
+            + [("attn", (B // dp, S, D), True)] * cfg.num_layers)
+    for rank, seen in enumerate(_all(results, name, "remat_inputs")):
+        assert seen == want, (rank, seen)
 
 
 @pytest.mark.parametrize("name", list(CASES))
